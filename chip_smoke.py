@@ -6,15 +6,18 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 It needs one CUDA device, ``nvcc`` and ``g++``; it builds the native
-symbolic library and the CUDA kernel from the sources in this checkout
-(into ``galahad_tpu_torch/_build/``), then runs, printing one JSON line
-per phase:
+symbolic library and the two CUDA kernels from the sources in this
+checkout (into ``galahad_tpu_torch/_build/``, all three at once), then
+runs, printing one JSON line per phase:
 
   1. device     card name and power limit, torch and CUDA versions
-  2. build      build seconds of both libraries
-  3. kernel     the partial-LDL^T kernel against its plain PyTorch version
-                on the card, Fpad in {8..128} x nb in {1, 37, 4096} x
-                {float32, float64}, with time and bound per shape
+  2. build      build seconds of the three libraries
+  3. kernel     both kernels against their plain PyTorch versions on the
+                card, with time and bound per shape: the small-front
+                partial LDL^T at Fpad in {8..128} x nb in {1, 37, 4096} x
+                {float32, float64}, and through its work-item table; the
+                panel kernel at Fpad in {192..4096} x ch in {1, 8} x
+                {float32, float64} x three panels, on strided views
   4. kkt        factorize + solve of the flagship KKT system
                 (grid QP, k=316: n=99,856, m=49,928) with D_x = C = 1
   5. repeat     two factorize+solve runs give the same bits
@@ -47,6 +50,8 @@ K_FLAGSHIP = 316
 TOL = {torch.float32: 1e-4, torch.float64: 1e-11}   # x max|plain result|
 TPU_KERNEL = "galahad_tpu/linalg/pallas_kernels.py:129"
 SOURCE = "galahad_tpu_torch/csrc/partial_ldlt.cu"
+PANEL_SOURCE = "galahad_tpu_torch/csrc/ldlt_panel.cu"
+PANEL = ldlt_kernels.PANEL
 
 
 class SmokeFailure(RuntimeError):
@@ -94,19 +99,65 @@ def flagship_qp(k: int, device, dtype=torch.float64):
         x_l=np.zeros(n), x_u=np.full(n, 2.0), dtype=dtype, device=device)
 
 
-def time_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Mean device time of ``fn()`` in ms, by CUDA events after a warm-up."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
+def event_ms(fn) -> float:
+    """Time in ms between two CUDA events recorded around ``fn()``."""
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
     e0.record()
-    for _ in range(reps):
-        fn()
+    fn()
     e1.record()
     torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / reps
+    return e0.elapsed_time(e1)
+
+
+def time_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Mean time of ``fn()`` in ms, by CUDA events after a warm-up."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    return event_ms(lambda: [fn() for _ in range(reps)]) / reps
+
+
+SPIN_CYCLES_PER_MS = 2_000_000       # ~1 ms of torch.cuda._sleep at 2 GHz
+
+
+def queued_ms(thunks, batch: int = 128, spin_ms: float = 30.0) -> float:
+    """Device time in ms of the calls ``thunks`` run in order.  The device is
+    kept busy by a spin kernel while the host enqueues each batch of calls,
+    so that the calls then run back to back and the host's launch rate does
+    not enter (a plain event pair around calls that the host enqueues slower
+    than the device runs them measures the host).  A batch that the host
+    did not enqueue well inside the spin is taken again behind a longer one."""
+    total = 0.0
+    for i in range(0, len(thunks), batch):
+        enqueue_ms = 0.0
+
+        def run():
+            nonlocal enqueue_ms
+            t0 = time.perf_counter()
+            for fn in thunks[i:i + batch]:
+                fn()
+            enqueue_ms = (time.perf_counter() - t0) * 1e3
+
+        for attempt in range(3):
+            spin = spin_ms * 2 ** attempt
+            torch.cuda.synchronize()
+            torch.cuda._sleep(int(spin * SPIN_CYCLES_PER_MS))
+            ms = event_ms(run)
+            if enqueue_ms < 0.8 * spin:
+                break
+        total += ms
+    return total
+
+
+def time_each_ms(setup, fn, reps: int) -> float:
+    """Mean device time of ``fn()`` in ms over ``reps`` runs, each after an
+    untimed ``setup()`` (for a function that works in place)."""
+    times = []
+    for _ in range(reps + 1):
+        setup()
+        times.append(event_ms(fn))
+    return sum(times[1:]) / reps                 # the first run warms up
 
 
 def contract_mask(ncols, Fpad: int):
@@ -147,20 +198,41 @@ def phase_device():
 
 
 def phase_build():
+    """Build the three libraries at once (one compiler process each)."""
+    import threading
+
     from galahad_tpu_torch.linalg import _cuda_build
     from galahad_tpu_torch.native import build as native_build
 
+    seconds: dict = {}
+    errors: list = []
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        try:
+            fn()
+        except Exception as exc:                 # reported below, fails the run
+            errors.append(f"{name}: {exc}")
+        seconds[name] = time.perf_counter() - t0
+
+    jobs = [("native_symbolic_s", native_build.load_symbolic),
+            ("partial_ldlt_s", ldlt_kernels._library),
+            ("ldlt_panel_s", ldlt_kernels._panel_library)]
     t0 = time.perf_counter()
-    native_build.load_symbolic()
-    t_native = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    ldlt_kernels._library()
-    t_cuda = time.perf_counter() - t0
-    info = _cuda_build.build_info.get("partial_ldlt.cu", {})
-    emit("build", native_symbolic_s=t_native, cuda_kernel_s=t_cuda,
-         nvcc_flags=" ".join(_cuda_build.NVCC_FLAGS),
-         ptxas=[ln for ln in info.get("log", "").splitlines()
-                if "registers" in ln or "error" in ln.lower()][:8])
+    threads = [threading.Thread(target=timed, args=j) for j in jobs]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    check(not errors, "build failed: " + " | ".join(errors))
+    ptxas = {}
+    for src in ("partial_ldlt.cu", "ldlt_panel.cu"):
+        log = _cuda_build.build_info.get(src, {}).get("log", "")
+        ptxas[src] = [ln.split("ptxas info    : ")[-1] for ln in log.splitlines()
+                      if "registers" in ln or "error" in ln.lower()
+                      or ("spill" in ln and "0 bytes spill" not in ln)][:16]
+    emit("build", all_s=time.perf_counter() - t0, **seconds,
+         nvcc_flags=" ".join(_cuda_build.NVCC_FLAGS), ptxas=ptxas)
 
 
 def random_fronts(nb, Fpad, dtype, gen):
@@ -190,11 +262,13 @@ def phase_kernel():
                 tol = TOL[dtype] * scale
                 check(err <= tol, f"kernel disagrees with its plain version: "
                       f"Fpad={Fpad} nb={nb} {dtype}: err {err:.3e} > {tol:.3e}")
-                ms = time_ms(lambda: ldlt_kernels.partial_ldlt(F, ncols),
-                             reps=20 if nb < 4096 else 5)
+                reps = 20 if nb < 4096 else 5
+                ms = time_ms(lambda: ldlt_kernels.partial_ldlt(F, ncols), reps=reps)
+                dev_ms = queued_ms(
+                    [lambda: ldlt_kernels.partial_ldlt(F, ncols)] * reps) / reps
                 bound, by = ldlt_kernels.ldlt_bound_ms(ncols, Fpad, dtype)
                 rows.append(dict(dtype=str(dtype).split(".")[1], Fpad=Fpad, nb=nb,
-                                 max_abs_err=err, tol=tol, ms=ms,
+                                 max_abs_err=err, tol=tol, ms=ms, device_ms=dev_ms,
                                  bound_ms=bound, bound_by=by))
                 del F
     # in-place on a view of a larger buffer, and ncols == 0 everywhere
@@ -208,10 +282,141 @@ def phase_kernel():
     zero = torch.zeros_like(ncols)
     check(torch.equal(ldlt_kernels.partial_ldlt(F, zero), F),
           "ncols == 0 must leave the fronts untouched")
+    items_rows = kernel_items_cases(gen)
+    panel_rows = kernel_panel_cases(gen)
     emit("kernel", tolerance="max|kernel-plain| <= 1e-4*scale (float32), "
-         "1e-11*scale (float64), scale = max|plain| >= 1, on the lower "
-         "triangle of eliminated columns and the whole trailing square",
-         shapes=rows)
+         "1e-11*scale (float64), scale = max|plain| >= 1; partial_ldlt: on the "
+         "lower triangle of eliminated columns and the whole trailing square; "
+         "ldlt_panel: on every entry of the panel, of W and of Lm",
+         shapes=rows, items=items_rows, panel_shapes=panel_rows)
+
+
+def kernel_items_cases(gen):
+    """One call over batches of every size at once, through the item table,
+    against the same batches one by one."""
+    out_rows = []
+    for dtype in (torch.float32, torch.float64):
+        batches, parts, off = [], [], 64
+        for Fpad, nb in ((8, 1000), (128, 5), (16, 333), (64, 41), (32, 77), (96, 9)):
+            F, ncols = random_fronts(nb, Fpad, dtype, gen)
+            batches.append((off, Fpad, ncols.cpu().numpy()))
+            parts.append((off, F, ncols))
+            off += F.numel() + 64
+        buf = torch.zeros(off, dtype=dtype, device="cuda")
+        for o, F, _ in parts:
+            buf[o:o + F.numel()] = F.reshape(-1)
+        items = ldlt_kernels.build_ldlt_items(batches, "cuda")
+        got = ldlt_kernels.partial_ldlt_items(buf, items, out=torch.zeros_like(buf))
+        worst = 0.0
+        for o, F, ncols in parts:
+            ref = ldlt_kernels.partial_ldlt_plain(F, ncols)
+            mask = contract_mask(ncols, F.shape[1])
+            g = got[o:o + F.numel()].view_as(F)
+            check(bool(torch.isfinite(g[mask]).all()), "items kernel: non-finite values")
+            err = float(((g - ref).abs() * mask).max())
+            tol = TOL[dtype] * max(1.0, float(ref.abs().max()))
+            check(err <= tol, f"items kernel disagrees with its plain version: "
+                  f"Fpad={F.shape[1]} {dtype}: err {err:.3e} > {tol:.3e}")
+            check(torch.equal(g, ldlt_kernels.partial_ldlt(F, ncols)),
+                  "items call and uniform call give different bits")
+            worst = max(worst, err)
+        gaps = torch.ones(off, dtype=torch.bool, device="cuda")
+        for o, F, _ in parts:
+            gaps[o:o + F.numel()] = False
+        check(not bool(got[gaps].any()), "items kernel wrote outside its fronts")
+        inplace = buf.clone()
+        ldlt_kernels.partial_ldlt_items(inplace, items)
+        check(torch.equal(inplace[~gaps], got[~gaps]), "items kernel: in place differs")
+        ms = time_ms(lambda: ldlt_kernels.partial_ldlt_items(buf, items, out=got), reps=10)
+        dev_ms = queued_ms(
+            [lambda: ldlt_kernels.partial_ldlt_items(buf, items, out=got)] * 10) / 10
+        out_rows.append(dict(dtype=str(dtype).split(".")[1], fronts=items.fronts,
+                             blocks=int(items.table.shape[0]), max_abs_err=worst, ms=ms,
+                             device_ms=dev_ms))
+    return out_rows
+
+
+def compare_panel(P0, ncols, b):
+    """Kernel and plain version on copies of the slab ``P0``: checks that
+    they agree on every entry of the slab, of W and of Lm, and returns
+    (max abs err, tolerance, ms of the plain version)."""
+    Pk, Pp = P0.clone(), P0.clone()
+    W = torch.full_like(P0, float("nan"))
+    Lm = torch.full_like(P0, float("nan"))
+    ldlt_kernels.ldlt_panel_slab(Pk, ncols, b, W, Lm)
+    plain: list = []
+    plain_ms = event_ms(
+        lambda: plain.extend(ldlt_kernels.ldlt_panel_slab_plain(Pp, ncols, b)))
+    Wp, Lp = plain
+    for t in (Pk, W, Lm):
+        check(bool(torch.isfinite(t).all()), "panel kernel produced non-finite values")
+    err = max(float((Pk - Pp).abs().max()), float((W - Wp).abs().max()),
+              float((Lm - Lp).abs().max()))
+    tol = TOL[P0.dtype] * max(1.0, float(Pp.abs().max()), float(Wp.abs().max()))
+    check(err <= tol, f"panel kernel disagrees with its plain version: panel "
+          f"{tuple(P0.shape)} b={b} {P0.dtype}: err {err:.3e} > {tol:.3e}")
+    return err, tol, plain_ms
+
+
+def kernel_panel_cases(gen):
+    out_rows = []
+    for dtype in (torch.float32, torch.float64):
+        for Fpad in (192, 256, 512, 1024, 2048, 4096):
+            for ch in ((1,) if Fpad == 4096 else (1, 8)):
+                # a strided view of a larger buffer: rows 8 elements longer
+                # than the front, and an offset that breaks 16-byte alignment
+                big = torch.zeros(3 + ch * Fpad * (Fpad + 8), dtype=dtype, device="cuda")
+                F = big[3:].view(ch, Fpad, Fpad + 8)[:, :, :Fpad]
+                for i in range(ch):
+                    G = torch.randn(Fpad, Fpad, dtype=dtype, device="cuda", generator=gen)
+                    F[i] = (G @ G.T / Fpad + torch.eye(Fpad, dtype=dtype, device="cuda")) \
+                        * (1.0 if i % 2 == 0 else -1.0)
+                    del G
+                for b in (0, (Fpad // 2 // PANEL) * PANEL, Fpad - 2 * PANEL):
+                    # ncols: none active, inside the panel, past it, and random
+                    pool = [0, b + 5, b + PANEL, Fpad, b + 17, b + 31, b + 1, Fpad - 1]
+                    ncols = torch.tensor(pool[4:5] if ch == 1 else pool[:ch],
+                                         dtype=torch.int32, device="cuda")
+                    slab = F[:, b:, b:b + PANEL]
+                    P0 = slab.clone()
+                    err, tol, plain_ms = compare_panel(P0, ncols, b)
+                    # the same call on the strided view itself, in place
+                    W = torch.empty(ch, Fpad - b, PANEL, dtype=dtype, device="cuda")
+                    Lm = torch.empty_like(W)
+                    ms = time_each_ms(
+                        lambda: slab.copy_(P0),
+                        lambda: ldlt_kernels.ldlt_panel(F, ncols, b, PANEL, W, Lm), reps=5)
+                    Pk = P0.clone()
+                    W2, L2 = torch.empty_like(W), torch.empty_like(W)
+                    ldlt_kernels.ldlt_panel_slab(Pk, ncols, b, W2, L2)
+                    check(torch.equal(slab, Pk) and torch.equal(W, W2)
+                          and torch.equal(Lm, L2),
+                          "panel kernel: strided view and contiguous slab differ")
+                    slab.copy_(P0)
+                    copies = [P0.clone() for _ in range(5)]
+                    dev_ms = queued_ms([
+                        lambda Pc=Pc: ldlt_kernels.ldlt_panel_slab(Pc, ncols, b, W2, L2)
+                        for Pc in copies]) / len(copies)
+                    bound, by = ldlt_kernels.ldlt_panel_bound_ms(
+                        ncols, Fpad - b, b, dtype)
+                    out_rows.append(dict(dtype=str(dtype).split(".")[1], Fpad=Fpad,
+                                         ch=ch, b=b, max_abs_err=err, tol=tol, ms=ms,
+                                         device_ms=dev_ms, plain_ms=plain_ms,
+                                         bound_ms=bound, bound_by=by))
+                del F, big
+    # untouched outside the panel: one more call, whole chunk compared
+    Fpad, ch, b = 256, 3, 64
+    G = torch.randn(ch, Fpad, Fpad, dtype=torch.float64, device="cuda", generator=gen)
+    F = G @ G.transpose(-1, -2) / Fpad + torch.eye(Fpad, dtype=torch.float64, device="cuda")
+    ncols = torch.tensor([0, 70, 256], dtype=torch.int32, device="cuda")
+    F0 = F.clone()
+    W = torch.empty(ch, Fpad - b, PANEL, dtype=torch.float64, device="cuda")
+    ldlt_kernels.ldlt_panel(F, ncols, b, PANEL, W, torch.empty_like(W))
+    outside = torch.ones_like(F, dtype=torch.bool)
+    outside[:, b:, b:b + PANEL] = False
+    check(torch.equal(F[outside], F0[outside]), "panel kernel wrote outside its panel")
+    check(torch.equal(F[0], F0[0]), "a front with no active column must stay untouched")
+    return out_rows
 
 
 def kkt_matvec(qp, D_x, C_diag, u):
@@ -222,7 +427,7 @@ def kkt_matvec(qp, D_x, C_diag, u):
 
 
 def phase_kkt(qp):
-    """Factorize + solve at full size; returns the captured kernel inputs."""
+    """Factorize + solve at full size."""
     n, m = qp.n, qp.m
     t0 = time.perf_counter()
     plan = sparse_kkt_plan(qp.h_pat, qp.a_pat, n)
@@ -246,16 +451,24 @@ def phase_kkt(qp):
 
     factorize()                                   # warm-up
     torch.cuda.synchronize()
-    ldlt_kernels.reset_launch_count()
-    t0 = time.perf_counter()
-    fac, S = factorize()
-    t_factor_enqueue = time.perf_counter() - t0   # host returns; device may lag
-    torch.cuda.synchronize()
-    t_factor = time.perf_counter() - t0
+    samples = []
+    for _ in range(3):
+        ldlt_kernels.reset_launch_count()
+        t0 = time.perf_counter()
+        fac, S = factorize()
+        t_enq = time.perf_counter() - t0          # host returns; device may lag
+        torch.cuda.synchronize()
+        samples.append((time.perf_counter() - t0, t_enq))
+    samples.sort()
+    t_factor, t_factor_enqueue = samples[1]       # the median factorization
     launches = ldlt_kernels.launch_count()
+    panel_launches = ldlt_kernels.panel_launch_count()
     inertia = fac.inertia.tolist()
     check(inertia == [n, m, 0], f"inertia {inertia} != {[n, m, 0]}")
-    check(launches > 0, "the factor kernel was not launched")
+    check(launches > 0, "the small-front factor kernel was not launched")
+    check(panel_launches > 0, "the panel kernel was not launched")
+    check(ldlt_kernels.panel_plain_count() == 0,
+          "the plain panel code ran in a factorization on the card")
 
     b = torch.as_tensor(np.random.default_rng(1).normal(size=n + m),
                         device=qp.g.device)
@@ -283,14 +496,14 @@ def phase_kkt(qp):
          rel_residual=rel, dmin=float(fac.dmin),
          analyse_s=t_analyse, plan_upload_s=t_upload, factorize_s=t_factor,
          factorize_host_enqueue_s=t_factor_enqueue,
+         factorize_enqueue_share=t_factor_enqueue / t_factor,
+         factorize_samples_s=[round(a, 6) for a, _ in samples],
          refined_solve_s=t_solve, one_solve_s=t_one_solve,
          one_solve_host_enqueue_s=t_one_solve_enqueue,
-         kernel_launches_per_factorization=launches)
-    captured: list = []
-    vals = torch.cat([qp.h_vals, qp.a_vals, D_x + rho, -(C_diag + ctl.delta)])
-    supernodal_flat.flat_factorize(sym, vals, capture=captured)
-    torch.cuda.synchronize()
-    return plan, D_x, C_diag, b, captured
+         kernel_launches_per_factorization=launches,
+         panel_launches_per_factorization=panel_launches,
+         wide_chunks=sum(len(lv["wide"]) for lv in dev["levels"]))
+    return plan, D_x, C_diag, b
 
 
 def phase_repeat(qp, plan, D_x, C_diag, b):
@@ -344,6 +557,8 @@ def phase_flagship(qp):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ldlt_kernels.launch_count()
+    panel_launches = ldlt_kernels.panel_launch_count()
+    panel_plain = ldlt_kernels.panel_plain_count()
     check(st.status == int(Status.OK), f"flagship status {st.status} != 0")
     check(x.shape == (qp.n,) and y.shape == (qp.m,) and z.shape == (qp.n,),
           "flagship solution has the wrong shape")
@@ -351,7 +566,9 @@ def phase_flagship(qp):
                and torch.isfinite(z).all()), "flagship solution is not finite")
     kkt, r_p, r_d, comp = host_kkt(qp, x, y, z)
     check(kkt <= 1e-6, f"flagship host KKT error {kkt:.3e} > 1e-6")
-    check(launches > 0, "the main path did not launch the factor kernel")
+    check(launches > 0, "the main path did not launch the small-front factor kernel")
+    check(panel_launches > 0, "the main path did not launch the panel kernel")
+    check(panel_plain == 0, "the main path entered the plain panel code on the card")
     # per-phase split of three iterations, with a device synchronisation at
     # every phase boundary (so these iterations run slower than the above)
     supernodal_flat.profile_start()
@@ -363,7 +580,8 @@ def phase_flagship(qp):
          host_kkt=kkt, host_r_p=r_p, host_r_d=r_d, host_comp=comp,
          objective=st.inform.obj, wall_s=wall, s_per_iteration=wall / max(st.iter, 1),
          analyse_s=st.inform.time.analyse, solve_s=st.inform.time.solve,
-         kernel_launches=launches,
+         kernel_launches=launches, panel_launches=panel_launches,
+         panel_plain_calls=panel_plain,
          split_of_3_profiled_iterations_s=dict(
              assembly=split.get("assembly", 0.0),
              extend_add=split.get("extend_add", 0.0),
@@ -371,44 +589,107 @@ def phase_flagship(qp):
              refinement_matvecs=split.get("matvec", 0.0),
              fetch=split.get("fetch", 0.0), rest=split.get("rest", 0.0),
              total=t3, iterations=st3.iter))
-    return launches
+    return dict(partial_ldlt=launches, ldlt_panel=panel_launches)
 
 
-def phase_kernels(captured, main_path_launches):
-    """The ``kernels`` line.  ``ms`` / ``plain_ms`` / ``bound_ms`` are for
-    ALL calls of the kernel in one factorization of the flagship KKT
-    system, replayed on the inputs the factorization gave it."""
-    def run_kernel():
-        for F, nc in captured:
-            ldlt_kernels.partial_ldlt(F, nc)
+def phase_kernels(qp, plan, D_x, C_diag, main_path_launches):
+    """The ``kernels`` line.  ``ms`` / ``plain_ms`` / ``bound_ms`` of a kernel
+    are for ALL its calls in one factorization of the flagship KKT system,
+    replayed on the inputs the factorization gave it.  ``ms`` is taken by an
+    event pair around the calls as the host makes them (so it holds the
+    host's launch cost where that is the larger); ``device_ms`` is the same
+    calls queued behind a spin kernel, i.e. the device's time alone."""
+    # the kernels' inputs in one factorization of the flagship KKT (captured
+    # here, after the flagship solve, so that the solve runs without them)
+    ctl = IPMControl()
+    captured: list = []
+    vals = torch.cat([qp.h_vals, qp.a_vals, D_x + (ctl.rho if ctl.rho else 1e-8),
+                      -(C_diag + ctl.delta)])
+    supernodal_flat.flat_factorize(plan.sym, vals, capture=captured)
+    torch.cuda.synchronize()
+    small = [c[1:] for c in captured if c[0] == "small"]     # (buffer, items)
+    panels = [c[1:] for c in captured if c[0] == "panel"]    # (slab, ncols, b)
 
-    def run_plain():
-        for F, nc in captured:
-            ldlt_kernels.partial_ldlt_plain(F, nc)
+    # --- partial_ldlt: one call per tree level, out of place -----------------
+    outs = [torch.empty_like(buf) for buf, _ in small]
 
-    max_err = 0.0
-    for F, nc in captured:
-        err, scale = compare(F, nc)
-        tol = TOL[F.dtype] * scale
-        check(err <= tol, f"kernel disagrees with its plain version on the main "
-              f"path's fronts {tuple(F.shape)}: {err:.3e} > {tol:.3e}")
-        max_err = max(max_err, err)
-    ms = time_ms(run_kernel, reps=3)
-    plain_ms = time_ms(run_plain, reps=1, warmup=0)
-    t_bytes = t_ops = 0.0
-    for F, nc in captured:
-        tb, to = ldlt_kernels.ldlt_bound_terms(nc, F.shape[1], F.dtype)
-        t_bytes += tb
-        t_ops += to
-    bound_ms = max(t_bytes, t_ops) * 1e3
-    line = dict(kernels=[dict(
-        name="partial_ldlt", route="cuda", source=SOURCE, replaces=TPU_KERNEL,
-        launches=main_path_launches, max_abs_err=max_err, ms=ms,
-        plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by="bytes" if t_bytes >= t_ops else "operations",
-        library_ms=None,
-        per=f"one factorization of the flagship KKT ({len(captured)} launches)",
-        fronts=sum(len(nc) for _, nc in captured))])
+    def run_small():
+        for (buf, items), out in zip(small, outs):
+            ldlt_kernels.partial_ldlt_items(buf, items, out=out)
+
+    t0 = time.perf_counter()
+    run_small()
+    torch.cuda.synchronize()
+    refs: list = []
+    plain_small_ms = event_ms(lambda: refs.extend(
+        ldlt_kernels.partial_ldlt_items_plain(buf, items) for buf, items in small))
+    err_small = tb_small = to_small = 0.0
+    for (buf, items), out, ref in zip(small, outs, refs):
+        for lo, Fpad, nb, nc_off in items.batches:
+            hi = lo + nb * Fpad * Fpad
+            nc = items.ncols[nc_off:nc_off + nb]
+            mask = contract_mask(nc, Fpad)
+            g, r = out[lo:hi].view(nb, Fpad, Fpad), ref[lo:hi].view(nb, Fpad, Fpad)
+            check(bool(torch.isfinite(g[mask]).all()),
+                  "kernel produced non-finite values on the main path's fronts")
+            err = float(((g - r).abs() * mask).max())
+            tol = TOL[buf.dtype] * max(1.0, float(r.abs().max()))
+            check(err <= tol, f"kernel disagrees with its plain version on the main "
+                  f"path's fronts ({nb}, {Fpad}, {Fpad}): {err:.3e} > {tol:.3e}")
+            err_small = max(err_small, err)
+            tb, to = ldlt_kernels.ldlt_bound_terms(nc, Fpad, buf.dtype)
+            tb_small += tb
+            to_small += to
+    del refs
+    ms_small = time_ms(run_small, reps=5)
+    dev_small = queued_ms([run_small])
+
+    # --- ldlt_panel: one call per panel of a wide chunk, in place ------------
+    scratch = [(torch.empty_like(P), torch.empty_like(P)) for P, _, _ in panels]
+    work: list = []
+
+    def fresh():
+        work[:] = [P.clone() for P, _, _ in panels]
+
+    def run_panels():
+        for Pw, (_, nc, b), (W, Lm) in zip(work, panels, scratch):
+            ldlt_kernels.ldlt_panel_slab(Pw, nc, b, W, Lm)
+
+    ms_panel = time_each_ms(fresh, run_panels, reps=3)
+    fresh()
+    dev_panel = queued_ms([
+        lambda Pw=Pw, nc=nc, b=b, W=W, Lm=Lm: ldlt_kernels.ldlt_panel_slab(Pw, nc, b, W, Lm)
+        for Pw, (_, nc, b), (W, Lm) in zip(work, panels, scratch)])
+    del work[:], scratch
+    err_panel = plain_panel_ms = tb_panel = to_panel = 0.0
+    for P, nc, b in panels:
+        err, _, plain_ms = compare_panel(P, nc, b)
+        err_panel = max(err_panel, err)
+        plain_panel_ms += plain_ms
+        tb, to = ldlt_kernels.ldlt_panel_bound_terms(nc, P.shape[1], b, P.dtype)
+        tb_panel += tb
+        to_panel += to
+
+    line = dict(kernels=[
+        dict(name="partial_ldlt", route="cuda", source=SOURCE, replaces=TPU_KERNEL,
+             launches=main_path_launches["partial_ldlt"], max_abs_err=err_small,
+             ms=ms_small, device_ms=dev_small, plain_ms=plain_small_ms,
+             bound_ms=max(tb_small, to_small) * 1e3,
+             bound_by="bytes" if tb_small >= to_small else "operations",
+             library_ms=None,
+             per=f"one factorization of the flagship KKT ({len(small)} calls, "
+                 f"one per tree level)",
+             fronts=sum(items.fronts for _, items in small)),
+        dict(name="ldlt_panel", route="cuda", source=PANEL_SOURCE, replaces=TPU_KERNEL,
+             launches=main_path_launches["ldlt_panel"], max_abs_err=err_panel,
+             ms=ms_panel, device_ms=dev_panel, plain_ms=plain_panel_ms,
+             bound_ms=max(tb_panel, to_panel) * 1e3,
+             bound_by="bytes" if tb_panel >= to_panel else "operations",
+             library_ms=None,
+             per=f"one factorization of the flagship KKT ({len(panels)} calls, "
+                 f"one per 32-column panel of a chunk of fronts wider than 128)",
+             fronts=sum(P.shape[0] for P, _, b in panels if b == 0))])
+    emit("kernels_seconds", seconds=time.perf_counter() - t0)
     print(json.dumps(line), flush=True)
 
 
@@ -423,10 +704,10 @@ def main() -> int:
         phase_build()
         phase_kernel()
         qp = flagship_qp(K_FLAGSHIP, "cuda")
-        plan, D_x, C_diag, b, captured = phase_kkt(qp)
+        plan, D_x, C_diag, b = phase_kkt(qp)
         phase_repeat(qp, plan, D_x, C_diag, b)
         launches = phase_flagship(qp)
-        phase_kernels(captured, launches)
+        phase_kernels(qp, plan, D_x, C_diag, launches)
     except SmokeFailure as exc:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr)
         return 1

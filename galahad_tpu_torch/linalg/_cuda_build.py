@@ -21,7 +21,8 @@ from .._build import build_dir, source_tag
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_lock = threading.Lock()
+_lock = threading.Lock()     # guards the tables below; a build holds its source's own lock
+_source_locks: dict = {}
 _libs: dict = {}
 build_info: dict = {}    # name -> dict(seconds, log, path) of this process's builds
 
@@ -44,8 +45,11 @@ def find_nvcc() -> str:
 
 
 def load_cuda_library(source_name: str) -> ctypes.CDLL:
-    """Compile ``csrc/<source_name>`` (once per content) and load it."""
+    """Compile ``csrc/<source_name>`` (once per content) and load it.
+    Different sources may be built at the same time from different threads."""
     with _lock:
+        source_lock = _source_locks.setdefault(source_name, threading.Lock())
+    with source_lock:
         lib = _libs.get(source_name)
         if lib is not None:
             return lib

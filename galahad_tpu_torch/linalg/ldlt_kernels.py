@@ -1,36 +1,56 @@
-"""Batched partial LDL^T of small padded fronts: the hand-written CUDA
-kernel, its wrapper and its plain PyTorch version.
+"""Batched partial LDL^T of padded fronts: the hand-written CUDA kernels,
+their wrappers and their plain PyTorch versions.
 
-Counterpart of galahad_tpu/linalg/pallas_kernels.py (``partial_ldlt_pallas``).
-The CUDA source is ``csrc/partial_ldlt.cu``: one thread block per front,
-the front held in shared memory through the whole elimination.  It is
-built by ``nvcc`` and bound with ``ctypes`` at the first call on a CUDA
-tensor (see ``_cuda_build.py``); importing this module needs no card.
+Counterpart of galahad_tpu/linalg/pallas_kernels.py (``partial_ldlt_pallas``)
+and, for fronts wider than that kernel takes, of the panel step of its XLA
+twin ``_partial_ldlt_dyn``.  Two CUDA sources, built by ``nvcc`` and bound
+with ``ctypes`` at the first call on a CUDA tensor (see ``_cuda_build.py``);
+importing this module needs no card:
+
+``csrc/partial_ldlt.cu``  :func:`partial_ldlt` (a uniform batch) and
+    :func:`partial_ldlt_items` (every small front of a tree level in one
+    call, through a table of work items), ``Fpad`` in 8..128: fronts of
+    8, 16, 32 in registers with a lane per row, fronts of 64, 96, 128 in
+    shared memory in panels of 8 columns.
+``csrc/ldlt_panel.cu``    :func:`ldlt_panel`, one 32-column panel of a chunk
+    of fronts wider than 128, in place on a strided view of the store; the
+    trailing product stays a library matrix product in the caller.
 
 Storage contract (consumed by the solves and the extend-add): column
 ``j < ncols[i]`` of front ``i`` holds ``d_j`` on the diagonal and the
 unit-lower L below it; entries ABOVE the diagonal of eliminated columns
 are unspecified; the trailing square holds the Schur complement
 ``F22 - L21 D L21^T`` in both triangles.  A pivot with ``|d| <= 16 tiny``
-is left in place and divided by 1 instead.
+is left in place and divided by 1 instead.  Fronts are symmetric on entry.
 
-Bound on the card: bytes ``2 nb Fpad^2 sizeof`` (read once, written
-once) against the memory rate; operations as counted by
-:func:`ldlt_operations` against the float32/float64 vector rate.
-:func:`ldlt_bound_ms` returns the larger of the two times.
+Each wrapper takes its plain version only for a tensor on the CPU; on a
+CUDA tensor it launches its kernel (and counts the launch) or raises.
+
+Bounds on the card: :func:`ldlt_bound_ms` and :func:`ldlt_panel_bound_ms`
+return the larger of the bytes (every input read once, every output
+written once) over the memory rate and the operations over the
+float32/float64 vector rate.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
+import numpy as np
 import torch
 
 from .._device import tiny16
 
 MAX_KERNEL_FRONT = 128
+KERNEL_FRONTS = (8, 16, 32, 64, 96, 128)     # the sizes partial_ldlt.cu serves
+PANEL = 32                                   # the panel width ldlt_panel.cu serves
+_BLOCK_THREADS = 256                         # THREADS of partial_ldlt.cu
 
-# launches of the CUDA kernel made by :func:`partial_ldlt` (and nowhere else)
+# wrapper calls that launched a kernel: partial_ldlt / partial_ldlt_items, and
+# ldlt_panel; and calls of ldlt_panel_plain (0 on a path that runs on the card)
 _launches = 0
+_panel_launches = 0
+_panel_plain_calls = 0
 
 # NVIDIA H100 SXM data sheet: HBM3 3.35 TB/s; 67 TFLOP/s float32 and
 # 34 TFLOP/s float64 outside the tensor cores (dense, 700 W).
@@ -42,9 +62,20 @@ def launch_count() -> int:
     return _launches
 
 
+def panel_launch_count() -> int:
+    return _panel_launches
+
+
+def panel_plain_count() -> int:
+    return _panel_plain_calls
+
+
 def reset_launch_count() -> None:
-    global _launches
+    """Set all three counts to 0."""
+    global _launches, _panel_launches, _panel_plain_calls
     _launches = 0
+    _panel_launches = 0
+    _panel_plain_calls = 0
 
 
 def partial_ldlt_plain(F: torch.Tensor, ncols: torch.Tensor) -> torch.Tensor:
@@ -71,20 +102,68 @@ def partial_ldlt_plain(F: torch.Tensor, ncols: torch.Tensor) -> torch.Tensor:
     return F
 
 
+_PTR = ctypes.c_void_p
+
+
 def _library():
     from ._cuda_build import load_cuda_library
 
     lib = load_cuda_library("partial_ldlt.cu")
     if not getattr(lib, "_typed", False):
         for fn in (lib.partial_ldlt_f32, lib.partial_ldlt_f64):
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_double,
-                           ctypes.c_void_p]
+            fn.argtypes = [_PTR, _PTR, _PTR, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_double, _PTR]
+            fn.restype = ctypes.c_int
+        for fn in (lib.partial_ldlt_items_f32, lib.partial_ldlt_items_f64):
+            fn.argtypes = [_PTR, _PTR, _PTR, _PTR, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_int, ctypes.c_int, ctypes.c_double, _PTR]
             fn.restype = ctypes.c_int
         lib.partial_ldlt_error_string.argtypes = [ctypes.c_int]
         lib.partial_ldlt_error_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib
+
+
+def _panel_library():
+    from ._cuda_build import load_cuda_library
+
+    lib = load_cuda_library("ldlt_panel.cu")
+    if not getattr(lib, "_typed", False):
+        for fn in (lib.ldlt_panel_f32, lib.ldlt_panel_f64):
+            fn.argtypes = [_PTR, ctypes.c_longlong, ctypes.c_longlong, _PTR,
+                           ctypes.c_int, ctypes.c_int, ctypes.c_int, _PTR, _PTR,
+                           ctypes.c_double, _PTR]
+            fn.restype = ctypes.c_int
+        lib.ldlt_panel_error_string.argtypes = [ctypes.c_int]
+        lib.ldlt_panel_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+def _check_cuda_operands(name: str, F: torch.Tensor, ncols: torch.Tensor) -> None:
+    if F.device.type != "cuda":
+        raise ValueError(f"unsupported device {F.device}")
+    if F.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{name} kernel takes float32/float64, got {F.dtype}")
+    if (ncols.device != F.device or ncols.dtype != torch.int32
+            or not ncols.is_contiguous()):
+        raise ValueError("ncols must be a contiguous int32 tensor on F's device")
+
+
+def _launch(name: str, fn, error_string, device, *args) -> None:
+    """Call the C launcher ``fn(*args, stream)`` on ``device``'s current
+    stream and raise if it returns a CUDA error (a refused launch never
+    runs, and a later synchronisation would not report it).  The device
+    guard is taken only when another device is current: it costs more host
+    time than the launch itself."""
+    if torch.cuda.current_device() == device.index:
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           f"{error_string(err).decode()} ({err})")
 
 
 def partial_ldlt(F: torch.Tensor, ncols: torch.Tensor,
@@ -93,9 +172,9 @@ def partial_ldlt(F: torch.Tensor, ncols: torch.Tensor,
     first ``ncols[i]`` columns of front ``i`` (``0 <= ncols[i] <= Fpad``).
 
     On a CUDA tensor this launches the hand-written kernel on the current
-    stream (``Fpad <= 128``, float32 or float64, contiguous; ``ncols``
-    int32 on the same device) or raises; it never gives way to the plain
-    version.  A CPU tensor takes :func:`partial_ldlt_plain`.  With
+    stream (``Fpad`` in ``KERNEL_FRONTS``, float32 or float64, contiguous;
+    ``ncols`` int32 on the same device) or raises; it never gives way to the
+    plain version.  A CPU tensor takes :func:`partial_ldlt_plain`.  With
     ``inplace=True`` the result overwrites ``F`` (which may be a view of
     a larger buffer) and ``F`` is returned.
     """
@@ -111,31 +190,264 @@ def partial_ldlt(F: torch.Tensor, ncols: torch.Tensor,
             F.copy_(out)
             return F
         return out
-    if F.device.type != "cuda":
-        raise ValueError(f"unsupported device {F.device}")
-    if F.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"partial_ldlt kernel takes float32/float64, got {F.dtype}")
-    if Fpad > MAX_KERNEL_FRONT:
-        raise ValueError(f"partial_ldlt kernel takes Fpad <= {MAX_KERNEL_FRONT}")
+    _check_cuda_operands("partial_ldlt", F, ncols)
+    if Fpad not in KERNEL_FRONTS:
+        raise ValueError(f"partial_ldlt kernel takes Fpad in {KERNEL_FRONTS} "
+                         f"(at most {MAX_KERNEL_FRONT}), got {Fpad}")
     if not F.is_contiguous():
         raise ValueError("partial_ldlt kernel takes contiguous fronts")
-    if (ncols.device != F.device or ncols.dtype != torch.int32
-            or not ncols.is_contiguous()):
-        raise ValueError("ncols must be a contiguous int32 tensor on F's device")
     out = F if inplace else torch.empty_like(F)
     if nb == 0:
         return out
     lib = _library()
     fn = lib.partial_ldlt_f64 if F.dtype == torch.float64 else lib.partial_ldlt_f32
-    with torch.cuda.device(F.device):
-        stream = torch.cuda.current_stream(F.device).cuda_stream
-        err = fn(F.data_ptr(), out.data_ptr(), ncols.data_ptr(), nb, Fpad,
-                 tiny16(F.dtype), stream)
-    if err != 0:
-        msg = lib.partial_ldlt_error_string(err).decode()
-        raise RuntimeError(f"partial_ldlt kernel launch failed: {msg} ({err})")
+    _launch("partial_ldlt", fn, lib.partial_ldlt_error_string, F.device,
+            F.data_ptr(), out.data_ptr(), ncols.data_ptr(), nb, Fpad,
+            tiny16(F.dtype))
     _launches += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# Several batches of different front sizes in one call
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class LdltItems:
+    """Work items of one call of :func:`partial_ldlt_items`: batches of
+    fronts of the ladder sizes, each contiguous in one flat buffer.
+
+    ``batches`` is the host-side list ``(offset, Fpad, nb, ncols offset)``;
+    ``table`` is what the kernel reads, one row ``(offset of the first
+    front, offset of its ncols, Fpad, number of fronts)`` per thread block:
+    first the single fronts of 64..128 (heaviest first: the blocks that run
+    longest start first), then the blocks' worths of fronts of 8..32."""
+    batches: list
+    ncols: torch.Tensor          # int32, all batches' ncols, in batch order
+    table: torch.Tensor          # (items, 4) int64
+    n_medium: int
+    medium_fpad_max: int
+    n_small: int
+    small_fpad_max: int
+    start: int                   # first and one-past-last buffer element touched
+    end: int
+
+    @property
+    def fronts(self) -> int:
+        return sum(nb for _, _, nb, _ in self.batches)
+
+    def shifted(self, delta: int) -> "LdltItems":
+        """The same items with every buffer offset moved by ``delta`` (a
+        multiple of 4): for a buffer that holds a window of the original."""
+        if delta % 4:
+            raise ValueError("offsets move by multiples of 4 elements")
+        move = torch.tensor([delta, 0, 0, 0], dtype=torch.int64,
+                            device=self.table.device)
+        return dataclasses.replace(
+            self, batches=[(o + delta, fp, nb, nco) for o, fp, nb, nco in self.batches],
+            table=self.table + move, start=self.start + delta, end=self.end + delta)
+
+
+def build_ldlt_items(batches, device) -> LdltItems:
+    """Item table for ``batches``, a sequence of ``(offset, Fpad, ncols)``:
+    ``len(ncols)`` fronts of ``Fpad`` (in ``KERNEL_FRONTS``) start at
+    element ``offset`` (a multiple of 4, so that rows stay 16-byte aligned)
+    of the flat buffer."""
+    host, medium, small, nc_all = [], [], [], []
+    nc_off = 0
+    for off, Fpad, nco in batches:
+        nco = np.asarray(nco, np.int64)
+        nb = len(nco)
+        if Fpad not in KERNEL_FRONTS:
+            raise ValueError(f"partial_ldlt kernel takes Fpad in {KERNEL_FRONTS}, "
+                             f"got {Fpad}")
+        if off % 4:
+            raise ValueError("batch offsets must be multiples of 4 elements")
+        host.append((int(off), int(Fpad), nb, nc_off))
+        nc_all.append(nco)
+        if Fpad > 32:
+            for i in range(nb):
+                medium.append((-Fpad, -int(nco[i]), off + i * Fpad * Fpad,
+                               nc_off + i, Fpad, 1))
+        else:
+            per = _BLOCK_THREADS // Fpad
+            for i in range(0, nb, per):
+                small.append((-Fpad, 0, off + i * Fpad * Fpad, nc_off + i, Fpad,
+                              min(per, nb - i)))
+        nc_off += nb
+    medium.sort()
+    small.sort(key=lambda r: r[0])
+    rows = [r[2:] for r in medium + small]
+    return LdltItems(
+        batches=host,
+        ncols=torch.as_tensor(
+            np.concatenate(nc_all).astype(np.int32) if nc_all
+            else np.zeros(0, np.int32), device=device),
+        table=torch.as_tensor(np.asarray(rows, np.int64).reshape(-1, 4),
+                              device=device),
+        n_medium=len(medium),
+        medium_fpad_max=max((r[4] for r in medium), default=0),
+        n_small=len(small),
+        small_fpad_max=max((r[4] for r in small), default=0),
+        start=min((o for o, _, _, _ in host), default=0),
+        end=max((o + nb * fp * fp for o, fp, nb, _ in host), default=0))
+
+
+def _items_plain_into(src, items: LdltItems, out) -> None:
+    for lo, Fpad, nb, nc_off in items.batches:
+        hi = lo + nb * Fpad * Fpad
+        out[lo:hi] = partial_ldlt_plain(
+            src[lo:hi].view(nb, Fpad, Fpad),
+            items.ncols[nc_off:nc_off + nb]).reshape(-1)
+
+
+def partial_ldlt_items_plain(src: torch.Tensor, items: LdltItems) -> torch.Tensor:
+    """Plain version of :func:`partial_ldlt_items`: :func:`partial_ldlt_plain`
+    batch by batch, into a copy of ``src``."""
+    out = src.clone()
+    _items_plain_into(src, items, out)
+    return out
+
+
+def partial_ldlt_items(src: torch.Tensor, items: LdltItems, out=None) -> torch.Tensor:
+    """Partial LDL^T of every batch of ``items`` in ONE call.  ``src`` is the
+    flat contiguous buffer the items' offsets refer to.  The result
+    overwrites ``src`` (``out=None``) or goes to the same places of ``out``,
+    whose other elements are left as they are.  On a CUDA tensor it launches
+    the kernel (at most one launch for the items of 64..128 and one for
+    those of 8..32) or raises; a CPU tensor takes the plain version."""
+    global _launches
+    if out is None:
+        out = src
+    if src.dim() != 1 or out.shape != src.shape or out.dtype != src.dtype:
+        raise ValueError("src and out must be flat buffers of one shape and type")
+    if items.start < 0 or items.end > src.numel():
+        raise ValueError("the items reach outside the buffer")
+    if src.device.type == "cpu":
+        _items_plain_into(src, items, out)
+        return out
+    _check_cuda_operands("partial_ldlt", src, items.ncols)
+    if out.device != src.device or items.table.device != src.device:
+        raise ValueError("src, out and the item table must be on one device")
+    if not (src.is_contiguous() and out.is_contiguous()):
+        raise ValueError("partial_ldlt kernel takes contiguous buffers")
+    if items.table.shape[0] == 0:
+        return out
+    lib = _library()
+    fn = (lib.partial_ldlt_items_f64 if src.dtype == torch.float64
+          else lib.partial_ldlt_items_f32)
+    _launch("partial_ldlt", fn, lib.partial_ldlt_error_string, src.device,
+            src.data_ptr(), out.data_ptr(), items.ncols.data_ptr(),
+            items.table.data_ptr(), items.n_medium, items.medium_fpad_max,
+            items.n_small, items.small_fpad_max, tiny16(src.dtype))
+    _launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# One panel of a chunk of fronts wider than the kernel above takes
+# ---------------------------------------------------------------------------
+
+
+def ldlt_panel_slab_plain(P: torch.Tensor, ncols: torch.Tensor, b: int):
+    """The panel kernel's function in plain PyTorch, on the panel slab
+    ``P = F[:, b:, b:b+B]`` (ch, Fpad-b, B) of a chunk, IN PLACE: the B
+    column steps of the blocked right-looking elimination (column ``b+j``
+    is active iff ``b+j < ncols[f]``), then the masked panel ``Lm`` (inactive
+    columns and the diagonal zero) and ``W = Lm * dsafe``.  Returns
+    ``(W, Lm)``.  Same numerics as the JAX package's ``_partial_ldlt_dyn``."""
+    global _panel_plain_calls
+    _panel_plain_calls += 1
+    ch, rows, B = P.shape
+    tiny = tiny16(P.dtype)
+    ncols = ncols.to(torch.int64)
+    one = torch.ones((), dtype=P.dtype, device=P.device)
+    jB = torch.arange(B, device=P.device)
+    for j in range(B):
+        if j + 1 >= rows:
+            break
+        active = ncols > b + j
+        d = P[:, j, j]
+        dn = torch.where(active & (d.abs() > tiny), d, one)
+        col = P[:, j + 1:, j]
+        l = torch.where(active[:, None], col / dn[:, None], 0.0)
+        if j + 1 < B:
+            lrows = l[:, :B - j - 1]
+            P[:, j + 1:, j + 1:] -= (
+                l[:, :, None] * (dn[:, None] * lrows)[:, None, :])
+        P[:, j + 1:, j] = torch.where(active[:, None], l, col)
+    amask = (b + jB)[None, :] < ncols[:, None]              # (ch, B)
+    dvec = torch.diagonal(P[:, :B, :], dim1=1, dim2=2)
+    dsafe = torch.where(dvec.abs() > tiny, dvec, one)
+    Lb = torch.where(amask[:, None, :], P, 0.0)
+    Lb[:, jB, jB] = 0.0
+    return Lb * dsafe[:, None, :], Lb
+
+
+def ldlt_panel_plain(F: torch.Tensor, ncols: torch.Tensor, b: int, B: int):
+    """:func:`ldlt_panel_slab_plain` on the panel ``b .. b+B-1`` of the
+    chunk ``F (ch, Fpad, Fpad)``; ``F`` is updated in place."""
+    return ldlt_panel_slab_plain(F[:, b:, b:b + B], ncols, b)
+
+
+def ldlt_panel_slab(P: torch.Tensor, ncols: torch.Tensor, b: int,
+                    W: torch.Tensor, Lm: torch.Tensor) -> None:
+    """Eliminate the panel slab ``P = F[:, b:, b:b+B]`` (ch, rows, B) IN
+    PLACE and fill the scratch ``W`` and ``Lm`` (both (ch, rows, B),
+    contiguous, allocated by the caller), as :func:`ldlt_panel_slab_plain`
+    does.  ``P`` may be any view with unit stride along its columns: the
+    kernel takes its front stride and row stride and copies nothing.
+
+    On a CUDA tensor this launches the hand-written panel kernel on the
+    current stream (``B == 32``, float32 or float64, ``ncols`` int32 on the
+    same device) or raises; a CPU tensor takes the plain version."""
+    global _panel_launches
+    if P.dim() != 3:
+        raise ValueError(f"expected a (ch, rows, B) panel, got {tuple(P.shape)}")
+    ch, rows, B = P.shape
+    if ncols.shape != (ch,):
+        raise ValueError("ncols must have one entry per front")
+    if W.shape != P.shape or Lm.shape != P.shape:
+        raise ValueError(f"W and Lm must have the panel's shape {tuple(P.shape)}")
+    if W.dtype != P.dtype or Lm.dtype != P.dtype:
+        raise TypeError("W and Lm must have the panel's dtype")
+    if P.device.type == "cpu":
+        w, lm = ldlt_panel_slab_plain(P, ncols, b)
+        W.copy_(w)
+        Lm.copy_(lm)
+        return
+    _check_cuda_operands("ldlt_panel", P, ncols)
+    if B != PANEL or rows < B or b < 0:
+        raise ValueError(f"ldlt_panel kernel takes panels of {PANEL} columns "
+                         f"and at least as many rows, got {tuple(P.shape)}")
+    if ch and P.stride(2) != 1:
+        raise ValueError("ldlt_panel kernel takes unit stride along a row")
+    if (W.device != P.device or Lm.device != P.device
+            or not W.is_contiguous() or not Lm.is_contiguous()):
+        raise ValueError("W and Lm must be contiguous tensors on F's device")
+    if ch == 0:
+        return
+    lib = _panel_library()
+    fn = lib.ldlt_panel_f64 if P.dtype == torch.float64 else lib.ldlt_panel_f32
+    _launch("ldlt_panel", fn, lib.ldlt_panel_error_string, P.device,
+            P.data_ptr(), P.stride(0), P.stride(1), ncols.data_ptr(), ch, rows, b,
+            W.data_ptr(), Lm.data_ptr(), tiny16(P.dtype))
+    _panel_launches += 1
+
+
+def ldlt_panel(F: torch.Tensor, ncols: torch.Tensor, b: int, B: int,
+               W: torch.Tensor, Lm: torch.Tensor) -> None:
+    """Eliminate the columns ``b .. b+B-1`` of every front of the chunk
+    ``F (ch, Fpad, Fpad)`` IN PLACE (``F`` may be a strided view of the
+    store) and fill ``W`` and ``Lm`` (ch, Fpad-b, B) for the trailing
+    product ``F[:, b:, b+B:] -= W @ Lm[:, B:, :]^T``, which the caller
+    makes.  See :func:`ldlt_panel_slab`."""
+    if F.dim() != 3 or F.shape[1] != F.shape[2]:
+        raise ValueError(f"expected (ch, Fpad, Fpad) fronts, got {tuple(F.shape)}")
+    if not 0 <= b <= F.shape[1] - B:
+        raise ValueError(f"panel {b}..{b + B} outside a front of {F.shape[1]}")
+    ldlt_panel_slab(F[:, b:, b:b + B], ncols, b, W, Lm)
 
 
 def ldlt_operations(ncols, Fpad: int) -> float:
@@ -166,6 +478,40 @@ def ldlt_bound_terms(ncols, Fpad: int, dtype: torch.dtype):
 def ldlt_bound_ms(ncols, Fpad: int, dtype: torch.dtype):
     """(bound_ms, bound_by): the larger of the two bound terms."""
     t_bytes, t_ops = ldlt_bound_terms(ncols, Fpad, dtype)
+    if t_bytes >= t_ops:
+        return t_bytes * 1e3, "bytes"
+    return t_ops * 1e3, "operations"
+
+
+def ldlt_panel_bound_terms(ncols, rows: int, b: int, dtype: torch.dtype,
+                           B: int = PANEL):
+    """(seconds for the bytes, seconds for the operations) of one panel call
+    on an H100 SXM, for a slab of ``rows`` rows.  Bytes: a front with an
+    active column has its slab read once and written once and its rows of
+    ``W`` and ``Lm`` written (4 rows B elements); a front with none only has
+    ``W`` and ``Lm`` zeroed (2 rows B).  Operations: with ``a`` active
+    columns, a row below the diagonal block takes ``a`` divisions and
+    ``2 sum_{j<a} (B-1-j)`` for its updates, and the diagonal block
+    ``sum_{j<a} (B-1-j) + 2 (B-1-j)^2``."""
+    nc = torch.as_tensor(ncols).to("cpu", torch.float64)
+    act = (nc - b).clamp(min=0, max=B)
+    size = torch.finfo(dtype).bits // 8
+    has = float((act > 0).sum())
+    t_bytes = ((4.0 * has + 2.0 * (len(nc) - has)) * rows * B * size
+               + 4.0 * len(nc)) / H100_BYTES_PER_S
+    s1 = act * (B - 1) - act * (act - 1) / 2            # sum_{j<a} (B-1-j)
+    a1 = float(B - 1)
+    s2 = (act * a1 * a1 - a1 * act * (act - 1)
+          + (act - 1) * act * (2 * act - 1) / 6)        # sum_{j<a} (B-1-j)^2
+    below = max(rows - B, 0)
+    ops = float((below * (act + 2 * s1) + s1 + 2 * s2).sum())
+    return t_bytes, ops / H100_FLOPS[dtype]
+
+
+def ldlt_panel_bound_ms(ncols, rows: int, b: int, dtype: torch.dtype,
+                        B: int = PANEL):
+    """(bound_ms, bound_by) of one panel call: the larger of the two terms."""
+    t_bytes, t_ops = ldlt_panel_bound_terms(ncols, rows, b, dtype, B)
     if t_bytes >= t_ops:
         return t_bytes * 1e3, "bytes"
     return t_ops * 1e3, "operations"

@@ -15,10 +15,12 @@ src/spral/dense_factor.cu / assemble.cu):
     parent front, the partial LDL^T of each chunk of fronts, and the
     forward / diagonal / backward sweeps.
   * Fronts with Fpad <= 128 are factored by the hand-written CUDA kernel
-    (linalg/ldlt_kernels.py, csrc/partial_ldlt.cu): this is where the
-    JAX flat path calls ``_partial_ldlt_dyn``.  Larger fronts take the
-    blocked right-looking composition below, whose trailing update is a
-    batched matrix product.
+    (linalg/ldlt_kernels.py, csrc/partial_ldlt.cu), all of a tree level
+    in one call: this is where the JAX flat path calls
+    ``_partial_ldlt_dyn``.  Larger fronts take the blocked right-looking
+    composition below: per panel of 32 columns one call of the panel
+    kernel (csrc/ldlt_panel.cu) and one batched matrix product for the
+    trailing update.
   * Every sum with duplicate destinations (value assembly, the forward
     sweep's updates of shared ancestor rows) runs in a fixed order
     (core/segsum.py), and the extend-add runs one occurrence layer of
@@ -44,7 +46,12 @@ import torch
 
 from .._device import tiny16
 from ..core.segsum import SegmentSum
-from .ldlt_kernels import MAX_KERNEL_FRONT, partial_ldlt
+from .ldlt_kernels import (
+    MAX_KERNEL_FRONT,
+    build_ldlt_items,
+    ldlt_panel,
+    partial_ldlt_items,
+)
 
 # Padded front-size ladder: powers of two and 1.5x powers of two: keeps
 # padding waste <= 33% while bounding the number of distinct front shapes.
@@ -490,7 +497,14 @@ def _device_plan_build(plan: FlatPlan, device) -> dict:
                             pbase=t64([g.goff + o["ppar"] * Fd * Fd
                                        for o in sub]),
                             ppos=t64(pt)))
-        dev["levels"].append(dict(ea=ea_ops, fac=chunks))
+        small = [c for c in chunks if c["Fpad"] <= MAX_KERNEL_FRONT]
+        dev["levels"].append(dict(
+            ea=ea_ops, fac=chunks,
+            # every small front of the level is factored by one kernel call
+            ldlt=build_ldlt_items(
+                [(c["goff"], c["Fpad"], c["ncols_host"]) for c in small],
+                device) if small else None,
+            wide=[c for c in chunks if c["Fpad"] > MAX_KERNEL_FRONT]))
     dev["chunks"] = [c for lvp in dev["levels"] for c in lvp["fac"]]
     return dev
 
@@ -500,45 +514,30 @@ def _device_plan_build(plan: FlatPlan, device) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _partial_ldlt_blocked(F, ncols, nblocks: int, B: int) -> None:
+def _partial_ldlt_blocked(F, ncols, nblocks: int, B: int,
+                          capture: list = None) -> None:
     """Blocked right-looking partial LDL^T of the fronts ``F (ch, Fpad,
-    Fpad)``, IN PLACE, for fronts wider than the CUDA kernel takes.  Same
-    numerics as the JAX package's ``_partial_ldlt_dyn``: column steps
-    inside a panel of B columns, then one batched product for the
-    trailing update (the only large operation; it stays a library
-    matrix product as it does in the JAX package)."""
+    Fpad)``, IN PLACE, for fronts wider than the small-front kernel takes.
+    Same numerics as the JAX package's ``_partial_ldlt_dyn``: per panel of
+    B columns one call of the panel kernel (``ldlt_kernels.ldlt_panel``),
+    then one batched product for the trailing update (the only large
+    operation; it stays a library matrix product as it does in the JAX
+    package).  The two scratch panels are allocated once per call."""
     ch, Fpad, _ = F.shape
-    tiny = tiny16(F.dtype)
-    ncols = ncols.to(torch.int64)
-    one = torch.ones((), dtype=F.dtype, device=F.device)
-    jB = torch.arange(B, device=F.device)
+    if nblocks == 0 or ch == 0:
+        return
+    scratch = torch.empty(2, ch * Fpad * B, dtype=F.dtype, device=F.device)
     for bi in range(nblocks):
         b = bi * B
-        P = F[:, :, b:b + B]
-        for j in range(B):
-            gcol = b + j
-            if gcol + 1 >= Fpad:
-                break
-            active = ncols > gcol
-            d = P[:, gcol, j]
-            dn = torch.where(active & (d.abs() > tiny), d, one)
-            col = P[:, gcol + 1:, j]
-            l = torch.where(active[:, None], col / dn[:, None], 0.0)
-            if j + 1 < B:
-                lrows = l[:, :B - j - 1]
-                P[:, gcol + 1:, j + 1:] -= (
-                    l[:, :, None] * (dn[:, None] * lrows)[:, None, :])
-            P[:, gcol + 1:, j] = torch.where(active[:, None], l, col)
-        if b + B >= Fpad:
-            continue
-        amask = (b + jB)[None, :] < ncols[:, None]              # (ch, B)
-        Pb = F[:, b:, b:b + B]
-        dvec = torch.diagonal(Pb[:, :B, :], dim1=1, dim2=2)
-        dsafe = torch.where(dvec.abs() > tiny, dvec, one)
-        Lb = torch.where(amask[:, None, :], Pb, 0.0)
-        Lb[:, jB, jB] = 0.0
-        T = (Lb * dsafe[:, None, :]) @ Lb[:, B:, :].transpose(-1, -2)
-        F[:, b:, b + B:] -= T
+        rows = Fpad - b
+        W = scratch[0, :ch * rows * B].view(ch, rows, B)
+        Lm = scratch[1, :ch * rows * B].view(ch, rows, B)
+        if capture is not None:
+            capture.append(("panel", F[:, b:, b:b + B].clone(), ncols, b))
+        ldlt_panel(F, ncols, b, B, W, Lm)
+        if b + B < Fpad:
+            F[:, b:, b + B:].baddbmm_(W, Lm[:, B:, :].transpose(-1, -2),
+                                      alpha=-1.0)
 
 
 def _ea_apply(store, o, S: int) -> None:
@@ -574,9 +573,11 @@ def flat_factorize(plan: FlatPlan, vals, shift=0.0,
     flat_analyse; ``shift`` is a scalar or (n,) tensor in the ORIGINAL
     ordering, added to the diagonal.
 
-    ``capture``, if a list, receives ``(fronts, ncols)`` clones of the
-    input of every call of the small-front factor kernel (for
-    measurement; costs one copy of the store)."""
+    ``capture``, if a list, receives the input of every call of the two
+    factor kernels (for measurement): per level ``("small", clone of the
+    window of the store that holds the level's small fronts, the items
+    moved to that window)``, and per panel of a chunk of wide fronts
+    ``("panel", clone of the panel slab, ncols, b)``."""
     device, dt = vals.device, vals.dtype
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -600,15 +601,16 @@ def flat_factorize(plan: FlatPlan, vals, shift=0.0,
         for o in lvp["ea"]:
             _ea_apply(store, o, S)
         _tick("extend_add")
-        for c in lvp["fac"]:
+        items = lvp["ldlt"]
+        if items is not None:
+            if capture is not None:
+                capture.append(("small", store[items.start:items.end].clone(),
+                                items.shifted(-items.start)))
+            partial_ldlt_items(store, items)
+        for c in lvp["wide"]:
             ch, Fp = c["ch"], c["Fpad"]
             F = store[c["goff"]:c["goff"] + ch * Fp * Fp].view(ch, Fp, Fp)
-            if Fp <= MAX_KERNEL_FRONT:
-                if capture is not None:
-                    capture.append((F.clone(), c["ncols"]))
-                partial_ldlt(F, c["ncols"], inplace=True)
-            else:
-                _partial_ldlt_blocked(F, c["ncols"], c["nblocks"], c["B"])
+            _partial_ldlt_blocked(F, c["ncols"], c["nblocks"], c["B"], capture)
         _tick("factor")
 
     if plan.n:
