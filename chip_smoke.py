@@ -6,18 +6,21 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 It needs one CUDA device, ``nvcc`` and ``g++``; it builds the native
-symbolic library and the two CUDA kernels from the sources in this
-checkout (into ``galahad_tpu_torch/_build/``, all three at once), then
-runs, printing one JSON line per phase:
+symbolic library and the three CUDA sources from this checkout (into
+``galahad_tpu_torch/_build/``, all four at once), then runs, printing one
+JSON line per phase:
 
   1. device     card name and power limit, torch and CUDA versions
-  2. build      build seconds of the three libraries
-  3. kernel     both kernels against their plain PyTorch versions on the
+  2. build      build seconds of the four libraries
+  3. kernel     every kernel against its plain PyTorch version on the
                 card, with time and bound per shape: the small-front
                 partial LDL^T at Fpad in {8..128} x nb in {1, 37, 4096} x
                 {float32, float64}, and through its work-item table; the
                 panel kernel at Fpad in {192..4096} x ch in {1, 8} x
-                {float32, float64} x three panels, on strided views
+                {float32, float64} x three panels, on strided views; the
+                sweep kernels on synthetic tree levels of every front size
+                in {8..4096} x {float32, float64}, ncols of 0, 1, partial
+                and full, fronts sharing struct rows, two runs bitwise equal
   4. kkt        factorize + solve of the flagship KKT system
                 (grid QP, k=316: n=99,856, m=49,928) with D_x = C = 1
   5. repeat     two factorize+solve runs give the same bits
@@ -42,7 +45,7 @@ import torch
 
 from galahad_tpu_torch import make_sparse_qp
 from galahad_tpu_torch.core.status import Status
-from galahad_tpu_torch.linalg import ldlt_kernels, supernodal_flat
+from galahad_tpu_torch.linalg import ldlt_kernels, supernodal_flat, sweep_kernels
 from galahad_tpu_torch.linalg.sbls import sparse_kkt_factorize, sparse_kkt_plan
 from galahad_tpu_torch.qp.ipm import IPMControl, ipm_solve
 
@@ -51,6 +54,10 @@ TOL = {torch.float32: 1e-4, torch.float64: 1e-11}   # x max|plain result|
 TPU_KERNEL = "galahad_tpu/linalg/pallas_kernels.py:129"
 SOURCE = "galahad_tpu_torch/csrc/partial_ldlt.cu"
 PANEL_SOURCE = "galahad_tpu_torch/csrc/ldlt_panel.cu"
+SWEEP_SOURCE = "galahad_tpu_torch/csrc/sweep.cu"
+TPU_FWD_SWEEP = "galahad_tpu/linalg/supernodal_flat.py:915"
+TPU_BWD_SWEEP = "galahad_tpu/linalg/supernodal_flat.py:955"
+MAX_SWEEP_LAUNCHES_PER_SOLVE = 150
 PANEL = ldlt_kernels.PANEL
 
 
@@ -198,7 +205,7 @@ def phase_device():
 
 
 def phase_build():
-    """Build the three libraries at once (one compiler process each)."""
+    """Build the four libraries at once (one compiler process each)."""
     import threading
 
     from galahad_tpu_torch.linalg import _cuda_build
@@ -217,7 +224,8 @@ def phase_build():
 
     jobs = [("native_symbolic_s", native_build.load_symbolic),
             ("partial_ldlt_s", ldlt_kernels._library),
-            ("ldlt_panel_s", ldlt_kernels._panel_library)]
+            ("ldlt_panel_s", ldlt_kernels._panel_library),
+            ("sweep_s", sweep_kernels._library)]
     t0 = time.perf_counter()
     threads = [threading.Thread(target=timed, args=j) for j in jobs]
     for th in threads:
@@ -226,11 +234,11 @@ def phase_build():
         th.join()
     check(not errors, "build failed: " + " | ".join(errors))
     ptxas = {}
-    for src in ("partial_ldlt.cu", "ldlt_panel.cu"):
+    for src in ("partial_ldlt.cu", "ldlt_panel.cu", "sweep.cu"):
         log = _cuda_build.build_info.get(src, {}).get("log", "")
         ptxas[src] = [ln.split("ptxas info    : ")[-1] for ln in log.splitlines()
                       if "registers" in ln or "error" in ln.lower()
-                      or ("spill" in ln and "0 bytes spill" not in ln)][:16]
+                      or ("spill" in ln and "0 bytes spill" not in ln)][:20]
     emit("build", all_s=time.perf_counter() - t0, **seconds,
          nvcc_flags=" ".join(_cuda_build.NVCC_FLAGS), ptxas=ptxas)
 
@@ -284,11 +292,14 @@ def phase_kernel():
           "ncols == 0 must leave the fronts untouched")
     items_rows = kernel_items_cases(gen)
     panel_rows = kernel_panel_cases(gen)
+    sweep_rows = kernel_sweep_cases()
     emit("kernel", tolerance="max|kernel-plain| <= 1e-4*scale (float32), "
          "1e-11*scale (float64), scale = max|plain| >= 1; partial_ldlt: on the "
          "lower triangle of eliminated columns and the whole trailing square; "
-         "ldlt_panel: on every entry of the panel, of W and of Lm",
-         shapes=rows, items=items_rows, panel_shapes=panel_rows)
+         "ldlt_panel: on every entry of the panel, of W and of Lm; sweeps: on "
+         "every entry of y after the forward and after the backward sweep",
+         shapes=rows, items=items_rows, panel_shapes=panel_rows,
+         sweep_shapes=sweep_rows)
 
 
 def kernel_items_cases(gen):
@@ -419,6 +430,173 @@ def kernel_panel_cases(gen):
     return out_rows
 
 
+def sweep_level(specs, dtype, seed):
+    """A synthetic tree level for the sweep kernels, on the card: fronts
+    ``specs = [(Fpad, [(ncols, nf), ...]), ...]`` with random unit-lower L and
+    d (one pivot of a front is 0: divided by 1) and NaN in every other entry
+    (the Schur block, the upper triangle and the padded rows, on which no
+    result may depend); eliminated rows distinct over all
+    fronts, struct rows drawn from one shared pool, so that fronts add into the
+    same rows.  Returns (store, level tables, y)."""
+    rng = np.random.default_rng(seed)
+    n_elim = sum(nc for _, fronts in specs for nc, _ in fronts)
+    pool = max(nf - nc for _, fronts in specs for nc, nf in fronts) + 7
+    n = n_elim + pool
+    parts, batches = [], []
+    off = next_row = 0
+    for Fpad, fronts in specs:
+        F = np.full((len(fronts), Fpad, Fpad), np.nan)
+        frows = np.full((len(fronts), Fpad), n, np.int64)
+        for i, (nc, nf) in enumerate(fronts):
+            L = rng.normal(size=(nf, nc)) * 0.5 / np.sqrt(max(nc, 1))
+            below = np.arange(nf)[:, None] > np.arange(nc)[None, :]
+            F[i, :nf, :nc] = np.where(below, L, np.nan)
+            d = rng.uniform(0.5, 2.0, nc) * rng.choice([-1.0, 1.0], nc)
+            if nc > 2:
+                d[1] = 0.0
+            F[i, np.arange(nc), np.arange(nc)] = d
+            frows[i, :nc] = np.arange(next_row, next_row + nc)
+            frows[i, nc:nf] = n_elim + np.sort(rng.choice(pool, nf - nc, replace=False))
+            next_row += nc
+        batches.append((off, Fpad, np.array([nc for nc, _ in fronts], np.int64), frows))
+        parts.append(F.ravel())
+        off += F.size
+    store = torch.as_tensor(np.concatenate(parts + [np.zeros(1)]), dtype=dtype,
+                            device="cuda")
+    y = rng.normal(size=n + 1)
+    y[n] = 0.0
+    return (store, sweep_kernels.build_sweep_level(batches, n, "cuda"),
+            torch.as_tensor(y, dtype=dtype, device="cuda"))
+
+
+def ladder_fronts(Fpad: int, copies: int):
+    """(ncols, nf) of 0, 1, partial and full, with and without struct rows."""
+    return [(0, Fpad // 2), (1, Fpad), (1, 1), (Fpad // 3, Fpad), (Fpad // 3, Fpad // 2),
+            (Fpad, Fpad), (Fpad - 5, Fpad - 2), (2, Fpad - 1),
+            (Fpad // 2, Fpad // 2)] * copies
+
+
+SWEEP_CASES = [
+    (8, 400), (16, 200), (32, 100), (64, 40), (96, 20), (128, 16), (192, 4), (256, 3),
+    (384, 2), (512, 2), (768, 1), (1024, 1), (1536, 1), (2048, 1), (3072, 1), (4096, 1)]
+
+
+def compare_sweeps(store, levels, y0, work, what: str):
+    """Forward then backward over ``levels`` (bottom-up, then top-down) with
+    the kernels and with the plain versions, the backward sweeps both from
+    the plain forward result; checks that they agree and that a second run of
+    the kernels gives the same bits.  Returns (err fwd, err bwd, plain ms fwd,
+    plain ms bwd, y after the plain forward sweep)."""
+    dtype = store.dtype
+
+    def fwd(y):
+        for lvl in levels:
+            sweep_kernels.sweep_fwd(store, y, lvl, work)
+
+    def bwd(y):
+        for lvl in reversed(levels):
+            sweep_kernels.sweep_bwd(store, y, lvl, work)
+
+    def fwd_plain(y):
+        for lvl in levels:
+            sweep_kernels.sweep_fwd_plain(store, y, lvl, work)
+            sweep_kernels.sweep_accumulate_plain(y, lvl, work)
+
+    def bwd_plain(y):
+        for lvl in reversed(levels):
+            sweep_kernels.sweep_bwd_plain(store, y, lvl)
+
+    errs, plain_ms = [], []
+    start = y0
+    for name, kern, plain in (("forward", fwd, fwd_plain), ("backward", bwd, bwd_plain)):
+        yk, yk2, yp = start.clone(), start.clone(), start.clone()
+        key = "fwd_kernels" if name == "forward" else "bwd_kernels"
+        before = sweep_kernels.sweep_counts()[key]
+        kern(yk)
+        made = sweep_kernels.sweep_counts()[key] - before
+        want = sum(getattr(lvl, key) for lvl in levels)
+        check(made == want, f"{name} sweep: the launchers report {made} kernel launches, "
+              f"the tables call for {want} ({what})")
+        kern(yk2)
+        plain_ms.append(event_ms(lambda: plain(yp)))
+        check(bool(torch.isfinite(yk).all()),
+              f"{name} sweep kernels produced non-finite values ({what})")
+        err = float((yk - yp).abs().max())
+        tol = TOL[dtype] * max(1.0, float(yp.abs().max()))
+        check(err <= tol, f"{name} sweep kernels disagree with their plain version "
+              f"({what}, {dtype}): err {err:.3e} > {tol:.3e}")
+        check(torch.equal(yk, yk2), f"{name} sweep kernels: two runs differ ({what})")
+        check(float(yk[-1]) == 0.0, f"{name} sweep wrote the spare slot of y ({what})")
+        errs.append(err)
+        if name == "forward":
+            start = y_fwd = yp
+    return errs[0], errs[1], plain_ms[0], plain_ms[1], y_fwd
+
+
+def time_sweeps(store, levels, y0, y_fwd, work):
+    """(ms fwd, device ms fwd, ms bwd, device ms bwd) of the kernels over
+    ``levels``, each run on a fresh copy of its input."""
+    out = []
+    y = torch.empty_like(y0)
+    for src, order, fn in ((y0, levels, sweep_kernels.sweep_fwd),
+                           (y_fwd, levels[::-1], sweep_kernels.sweep_bwd)):
+        def run():
+            for lvl in order:
+                fn(store, y, lvl, work)
+
+        out.append(time_each_ms(lambda: y.copy_(src), run, reps=5))
+        y.copy_(src)
+        out.append(queued_ms([run]))
+    return out
+
+
+def level_device_ms(store, order, src, work, fn):
+    """Device time in ms of each call ``fn(store, y, lvl, work)`` for ``lvl`` in
+    ``order``, queued behind a spin kernel so that the host's launch cost does
+    not enter."""
+    y = src.clone()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(len(order) + 1)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(20.0 * SPIN_CYCLES_PER_MS))
+    events[0].record()
+    for lvl, ev in zip(order, events[1:]):
+        fn(store, y, lvl, work)
+        ev.record()
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+
+
+def kernel_sweep_cases():
+    """The sweep kernels on one synthetic level per front size, against the
+    plain versions, with time and bound."""
+    out_rows = []
+    for dtype in (torch.float32, torch.float64):
+        for Fpad, copies in SWEEP_CASES:
+            if Fpad <= 512:
+                fronts = ladder_fronts(Fpad, copies)
+            else:                      # ncols partial with a heavy block below, and full
+                fronts = [(Fpad // 4, Fpad - 3), (Fpad, Fpad)] * copies
+            # a few small fronts ride along: one call serves several sizes
+            specs = [(Fpad, fronts)] + ([(8, ladder_fronts(8, 2))] if Fpad != 8 else [])
+            store, lvl, y0 = sweep_level(specs, dtype, seed=Fpad)
+            work = torch.full((lvl.work_size + lvl.part_size,), float("nan"),
+                              dtype=dtype, device="cuda")
+            err_f, err_b, plain_f, plain_b, y_fwd = compare_sweeps(
+                store, [lvl], y0, work, f"Fpad={Fpad}")
+            ms_f, dev_f, ms_b, dev_b = time_sweeps(store, [lvl], y0, y_fwd, work)
+            bound_f, by_f = sweep_kernels.sweep_bound_ms(lvl, dtype, "fwd")
+            bound_b, by_b = sweep_kernels.sweep_bound_ms(lvl, dtype, "bwd")
+            out_rows.append(dict(
+                dtype=str(dtype).split(".")[1], Fpad=Fpad, fronts=len(fronts),
+                strips=int(lvl.strips.shape[0]), launches_fwd=lvl.fwd_kernels,
+                launches_bwd=lvl.bwd_kernels, max_abs_err_fwd=err_f, max_abs_err_bwd=err_b,
+                ms_fwd=ms_f, device_ms_fwd=dev_f, plain_ms_fwd=plain_f, bound_ms_fwd=bound_f,
+                ms_bwd=ms_b, device_ms_bwd=dev_b, plain_ms_bwd=plain_b, bound_ms_bwd=bound_b,
+                bound_by=by_f if by_f == by_b else f"{by_f}/{by_b}"))
+            del store, lvl, y0, work
+    return out_rows
+
+
 def kkt_matvec(qp, D_x, C_diag, u):
     n = qp.n
     u1, u2 = u[:n], u[n:]
@@ -482,11 +660,24 @@ def phase_kkt(qp):
     u = torch.cat([dx, -mdy])
     rel = float((kkt_matvec(qp, D_x, C_diag, u) - b).norm() / b.norm())
     check(rel <= 1e-10, f"KKT residual {rel:.3e} > 1e-10 after refine=2")
-    t0 = time.perf_counter()
-    plan.solve((fac, S), b)
-    t_one_solve_enqueue = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    t_one_solve = time.perf_counter() - t0
+    solve_samples = []
+    for _ in range(5):
+        sweep_kernels.reset_sweep_counts()
+        t0 = time.perf_counter()
+        plan.solve((fac, S), b)
+        t_enq = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        solve_samples.append((time.perf_counter() - t0, t_enq))
+    solve_samples.sort()
+    t_one_solve, t_one_solve_enqueue = solve_samples[2]      # the median solve
+    sweeps = sweep_kernels.sweep_counts()
+    check(sweeps["fwd"] > 0 and sweeps["bwd"] > 0,
+          "a solve on the card did not launch the sweep kernels")
+    check(sweeps["plain"] == 0, "the plain sweeps ran in a solve on the card")
+    sweep_launches = sweeps["fwd_kernels"] + sweeps["bwd_kernels"]
+    check(sweep_launches <= MAX_SWEEP_LAUNCHES_PER_SOLVE,
+          f"{sweep_launches} sweep kernel launches in one solve > "
+          f"{MAX_SWEEP_LAUNCHES_PER_SOLVE}")
     emit("kkt", n=n, m=m, n_kkt=n + m, S=sym.S, nnz_L=sym.nnz_L, ns=sym.ns,
          flops_model=sym.flops, groups=len(sym.groups),
          levels=len(dev["levels"]), chunks=len(dev["chunks"]),
@@ -500,6 +691,12 @@ def phase_kkt(qp):
          factorize_samples_s=[round(a, 6) for a, _ in samples],
          refined_solve_s=t_solve, one_solve_s=t_one_solve,
          one_solve_host_enqueue_s=t_one_solve_enqueue,
+         one_solve_enqueue_share=t_one_solve_enqueue / t_one_solve,
+         one_solve_samples_s=[round(a, 6) for a, _ in solve_samples],
+         sweep_calls_per_solve=sweeps["fwd"] + sweeps["bwd"],
+         sweep_kernel_launches_per_solve=sweep_launches,
+         sweep_fwd_kernel_launches_per_solve=sweeps["fwd_kernels"],
+         sweep_bwd_kernel_launches_per_solve=sweeps["bwd_kernels"],
          kernel_launches_per_factorization=launches,
          panel_launches_per_factorization=panel_launches,
          wide_chunks=sum(len(lv["wide"]) for lv in dev["levels"]))
@@ -551,11 +748,15 @@ def phase_flagship(qp):
     count is set to 0 just before and read just after."""
     ctl = IPMControl()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     ldlt_kernels.reset_launch_count()
+    sweep_kernels.reset_sweep_counts()
     t0 = time.perf_counter()
     x, y, z, st = ipm_solve(qp, ctl)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    peak_bytes = torch.cuda.max_memory_allocated()
+    sweeps = sweep_kernels.sweep_counts()
     launches = ldlt_kernels.launch_count()
     panel_launches = ldlt_kernels.panel_launch_count()
     panel_plain = ldlt_kernels.panel_plain_count()
@@ -569,6 +770,9 @@ def phase_flagship(qp):
     check(launches > 0, "the main path did not launch the small-front factor kernel")
     check(panel_launches > 0, "the main path did not launch the panel kernel")
     check(panel_plain == 0, "the main path entered the plain panel code on the card")
+    check(sweeps["fwd"] > 0, "the main path did not launch the forward sweep kernels")
+    check(sweeps["bwd"] > 0, "the main path did not launch the backward sweep kernels")
+    check(sweeps["plain"] == 0, "the main path entered the plain sweeps on the card")
     # per-phase split of three iterations, with a device synchronisation at
     # every phase boundary (so these iterations run slower than the above)
     supernodal_flat.profile_start()
@@ -582,6 +786,11 @@ def phase_flagship(qp):
          analyse_s=st.inform.time.analyse, solve_s=st.inform.time.solve,
          kernel_launches=launches, panel_launches=panel_launches,
          panel_plain_calls=panel_plain,
+         sweep_fwd_calls=sweeps["fwd"], sweep_bwd_calls=sweeps["bwd"],
+         sweep_fwd_kernel_launches=sweeps["fwd_kernels"],
+         sweep_bwd_kernel_launches=sweeps["bwd_kernels"],
+         sweep_plain_calls=sweeps["plain"],
+         peak_device_memory_bytes=peak_bytes,
          split_of_3_profiled_iterations_s=dict(
              assembly=split.get("assembly", 0.0),
              extend_add=split.get("extend_add", 0.0),
@@ -589,13 +798,63 @@ def phase_flagship(qp):
              refinement_matvecs=split.get("matvec", 0.0),
              fetch=split.get("fetch", 0.0), rest=split.get("rest", 0.0),
              total=t3, iterations=st3.iter))
-    return dict(partial_ldlt=launches, ldlt_panel=panel_launches)
+    return dict(partial_ldlt=launches, ldlt_panel=panel_launches,
+                sweep_fwd=sweeps["fwd"], sweep_bwd=sweeps["bwd"],
+                sweep_fwd_kernels=sweeps["fwd_kernels"],
+                sweep_bwd_kernels=sweeps["bwd_kernels"])
 
 
-def phase_kernels(qp, plan, D_x, C_diag, main_path_launches):
-    """The ``kernels`` line.  ``ms`` / ``plain_ms`` / ``bound_ms`` of a kernel
-    are for ALL its calls in one factorization of the flagship KKT system,
-    replayed on the inputs the factorization gave it.  ``ms`` is taken by an
+def sweep_kernel_entries(qp, plan, D_x, C_diag, b, main_path_launches):
+    """The two sweep entries of the ``kernels`` line: all calls of one
+    ``flat_solve`` of the flagship KKT system (one per tree level and
+    direction), replayed on that solve's own inputs: the factor store of the
+    scaled KKT matrix and the scaled, permuted right-hand side."""
+    ctl = IPMControl()
+    (fac, S) = sparse_kkt_factorize(plan, qp.h_vals, qp.a_vals, D_x, C_diag,
+                                    rho=ctl.rho if ctl.rho else 1e-8, delta=ctl.delta)
+    sym = plan.sym
+    dev = supernodal_flat._device_plan(sym, b.device)
+    levels = [lvp["sweep"] for lvp in dev["levels"]]
+    store = fac.store
+    y0 = torch.zeros(sym.n + 1, dtype=b.dtype, device=b.device)
+    y0[:sym.n] = (S * b).index_select(0, dev["perm"])
+    work = torch.empty(dev["sweep_scratch"], dtype=b.dtype, device=b.device)
+    err_f, err_b, plain_f, plain_b, y_fwd = compare_sweeps(
+        store, levels, y0, work, "the flagship's solve")
+    ms_f, dev_f, ms_b, dev_b = time_sweeps(store, levels, y0, y_fwd, work)
+    fronts = sum(int((lvl.fronts[:, 1] > 0).sum()) for lvl in levels)
+    per_level = dict(
+        sweep_fwd=level_device_ms(store, levels, y0, work, sweep_kernels.sweep_fwd),
+        sweep_bwd=level_device_ms(store, levels[::-1], y_fwd, work,
+                                  sweep_kernels.sweep_bwd)[::-1])
+    entries = []
+    for name, which, replaces, err, ms, dev_ms, plain in (
+            ("sweep_fwd", "fwd", TPU_FWD_SWEEP, err_f, ms_f, dev_f, plain_f),
+            ("sweep_bwd", "bwd", TPU_BWD_SWEEP, err_b, ms_b, dev_b, plain_b)):
+        tb, to = sweep_kernels.sweep_bound_terms(levels, b.dtype, which)
+        n_kernels = sum(getattr(lvl, which + "_kernels") for lvl in levels)
+        entries.append(dict(
+            name=name, route="cuda", source=SWEEP_SOURCE, replaces=replaces,
+            launches=main_path_launches[name], max_abs_err=err, ms=ms, device_ms=dev_ms,
+            plain_ms=plain, bound_ms=max(tb, to) * 1e3,
+            bound_by="bytes" if tb >= to else "operations", library_ms=None,
+            library_ms_reason="no single PyTorch call gathers, solves a batch of "
+                              "ragged partial triangles and scatters",
+            kernel_launches=main_path_launches[name + "_kernels"],
+            per=f"one flat_solve of the flagship KKT ({len(levels)} calls, one per "
+                f"tree level, {n_kernels} kernel launches)",
+            fronts=fronts,
+            device_ms_per_tree_level=[round(t, 4) for t in per_level[name]],
+            kernel_launches_per_tree_level=[getattr(lvl, which + "_kernels")
+                                            for lvl in levels]))
+    return entries
+
+
+def phase_kernels(qp, plan, D_x, C_diag, b, main_path_launches):
+    """The ``kernels`` line.  ``ms`` / ``plain_ms`` / ``bound_ms`` of a factor
+    kernel are for ALL its calls in one factorization of the flagship KKT
+    system, replayed on the inputs the factorization gave it; those of a sweep
+    kernel for all its calls in one solve (:func:`sweep_kernel_entries`).  ``ms`` is taken by an
     event pair around the calls as the host makes them (so it holds the
     host's launch cost where that is the larger); ``device_ms`` is the same
     calls queued behind a spin kernel, i.e. the device's time alone."""
@@ -662,11 +921,11 @@ def phase_kernels(qp, plan, D_x, C_diag, main_path_launches):
         for Pw, (_, nc, b), (W, Lm) in zip(work, panels, scratch)])
     del work[:], scratch
     err_panel = plain_panel_ms = tb_panel = to_panel = 0.0
-    for P, nc, b in panels:
-        err, _, plain_ms = compare_panel(P, nc, b)
+    for P, nc, pb in panels:
+        err, _, plain_ms = compare_panel(P, nc, pb)
         err_panel = max(err_panel, err)
         plain_panel_ms += plain_ms
-        tb, to = ldlt_kernels.ldlt_panel_bound_terms(nc, P.shape[1], b, P.dtype)
+        tb, to = ldlt_kernels.ldlt_panel_bound_terms(nc, P.shape[1], pb, P.dtype)
         tb_panel += tb
         to_panel += to
 
@@ -688,7 +947,10 @@ def phase_kernels(qp, plan, D_x, C_diag, main_path_launches):
              library_ms=None,
              per=f"one factorization of the flagship KKT ({len(panels)} calls, "
                  f"one per 32-column panel of a chunk of fronts wider than 128)",
-             fronts=sum(P.shape[0] for P, _, b in panels if b == 0))])
+             fronts=sum(P.shape[0] for P, _, pb in panels if pb == 0))])
+    del small, panels, outs, captured
+    line["kernels"] += sweep_kernel_entries(qp, plan, D_x, C_diag, b,
+                                            main_path_launches)
     emit("kernels_seconds", seconds=time.perf_counter() - t0)
     print(json.dumps(line), flush=True)
 
@@ -707,7 +969,7 @@ def main() -> int:
         plan, D_x, C_diag, b = phase_kkt(qp)
         phase_repeat(qp, plan, D_x, C_diag, b)
         launches = phase_flagship(qp)
-        phase_kernels(qp, plan, D_x, C_diag, launches)
+        phase_kernels(qp, plan, D_x, C_diag, b, launches)
     except SmokeFailure as exc:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr)
         return 1

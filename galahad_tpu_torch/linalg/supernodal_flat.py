@@ -10,10 +10,10 @@ src/spral/dense_factor.cu / assemble.cu):
     the JAX package's, line for line: the same pattern gives the same
     plan.  The per-group index arrays are uploaded ONCE per plan and
     device (the SLS_analyse-once contract, reference src/sls/sls.f90:2178).
-  * The numeric phases run eagerly, level by level and chunk by chunk:
-    value assembly, extend-add of each child's Schur block into its
-    parent front, the partial LDL^T of each chunk of fronts, and the
-    forward / diagonal / backward sweeps.
+  * The numeric phases run eagerly, level by level: value assembly,
+    extend-add of each child's Schur block into its parent front, the
+    partial LDL^T of the level's fronts, and the forward / diagonal /
+    backward sweeps.
   * Fronts with Fpad <= 128 are factored by the hand-written CUDA kernel
     (linalg/ldlt_kernels.py, csrc/partial_ldlt.cu), all of a tree level
     in one call: this is where the JAX flat path calls
@@ -21,10 +21,15 @@ src/spral/dense_factor.cu / assemble.cu):
     composition below: per panel of 32 columns one call of the panel
     kernel (csrc/ldlt_panel.cu) and one batched matrix product for the
     trailing update.
+  * The sweeps of a solve are the hand-written CUDA kernels of
+    linalg/sweep_kernels.py (csrc/sweep.cu), one call per tree level and
+    direction: this is where the JAX flat path scans ``_fwd_one`` /
+    ``_bwd_one`` over the chunks.
   * Every sum with duplicate destinations (value assembly, the forward
     sweep's updates of shared ancestor rows) runs in a fixed order
-    (core/segsum.py), and the extend-add runs one occurrence layer of
-    same-parent children at a time, so two runs give the same bits.
+    (core/segsum.py; the sweeps' own accumulation lists), and the
+    extend-add runs one occurrence layer of same-parent children at a
+    time, so two runs give the same bits.
 
 Not carried over from the JAX module, because it serves the XLA compiler
 or the TPU's memory tiling and has no role here: the tile-padding caps,
@@ -44,7 +49,6 @@ from typing import Any
 import numpy as np
 import torch
 
-from .._device import tiny16
 from ..core.segsum import SegmentSum
 from .ldlt_kernels import (
     MAX_KERNEL_FRONT,
@@ -52,6 +56,7 @@ from .ldlt_kernels import (
     ldlt_panel,
     partial_ldlt_items,
 )
+from .sweep_kernels import build_sweep_level, sweep_bwd, sweep_fwd
 
 # Padded front-size ladder: powers of two and 1.5x powers of two: keeps
 # padding waste <= 33% while bounding the number of distinct front shapes.
@@ -448,25 +453,12 @@ def _device_plan_build(plan: FlatPlan, device) -> dict:
             B = _B_of(Fd)
             for off, ch in _chunks_of(g.nb, Fd):
                 nco = np.asarray(g.ncols[off:off + ch], np.int64)
-                fr = np.where(g.frows[off:off + ch] < n,
-                              g.frows[off:off + ch], n)
-                nf = (fr < n).sum(axis=1)
-                pos = np.arange(Fd)[None, :]
-                elim = pos < nco[:, None]
-                struct = (~elim) & (pos < nf[:, None])
-                elim_pos = np.flatnonzero(elim.ravel())
-                struct_pos = np.flatnonzero(struct.ravel())
                 cmax = int(nco.max(initial=0))
                 chunks.append(dict(
                     goff=int(g.goff + off * Fd * Fd), ch=ch, Fpad=Fd, B=B,
                     cmax=cmax, nblocks=-(-cmax // B),
                     ncols_host=nco,
                     ncols=torch.as_tensor(nco.astype(np.int32), device=device),
-                    frows=t64(fr),
-                    elim_pos=t64(elim_pos),
-                    elim_rows=t64(fr.ravel()[elim_pos]),
-                    struct_pos=t64(struct_pos),
-                    upd=SegmentSum(fr.ravel()[struct_pos], n + 1, dense=False),
                 ))
             if not g.ea:
                 continue
@@ -504,8 +496,15 @@ def _device_plan_build(plan: FlatPlan, device) -> dict:
             ldlt=build_ldlt_items(
                 [(c["goff"], c["Fpad"], c["ncols_host"]) for c in small],
                 device) if small else None,
-            wide=[c for c in chunks if c["Fpad"] > MAX_KERNEL_FRONT]))
+            wide=[c for c in chunks if c["Fpad"] > MAX_KERNEL_FRONT],
+            # every front of the level is swept by one call per direction
+            sweep=build_sweep_level(
+                [(g.goff, g.Fpad, g.ncols, g.frows) for g in by_level[lv]],
+                n, device)))
     dev["chunks"] = [c for lvp in dev["levels"] for c in lvp["fac"]]
+    dev["sweep_scratch"] = max(
+        (lvp["sweep"].work_size + lvp["sweep"].part_size for lvp in dev["levels"]),
+        default=0)
     return dev
 
 
@@ -625,85 +624,24 @@ def flat_factorize(plan: FlatPlan, vals, shift=0.0,
     return FlatFactors(store=store, dmin=dmin, inertia=inertia)
 
 
-def _chunk_L(store, c):
-    """(F view, masked L columns, safe pivots) of one chunk for the sweeps:
-    only the first nblocks*B columns can hold eliminated columns."""
-    ch, Fp, B = c["ch"], c["Fpad"], c["B"]
-    F = store[c["goff"]:c["goff"] + ch * Fp * Fp].view(ch, Fp, Fp)
-    ncB = min(c["nblocks"] * B, Fp)
-    elim = (torch.arange(ncB, device=store.device)[None, :]
-            < c["ncols"][:, None])
-    Ls = torch.where(elim[:, None, :], F[:, :, :ncB], 0.0)
-    return F, Ls, elim, ncB
-
-
-def _fwd_one(store, y, c) -> None:
-    """Forward sweep + diagonal scale for one chunk, updating y in place:
-    eliminated rows become final, struct rows accumulate the update (in a
-    fixed order where fronts of the chunk share an ancestor row)."""
-    B, nblocks = c["B"], c["nblocks"]
-    if nblocks == 0:
-        return
-    F, Ls, elim, ncB = _chunk_L(store, c)
-    tiny = tiny16(store.dtype)
-    dvec = torch.diagonal(F, dim1=1, dim2=2)[:, :ncB]
-    dsafe = torch.where(elim & (dvec.abs() > tiny), dvec, 1.0)
-    yF0 = y.index_select(0, c["frows"].reshape(-1)).view(c["ch"], c["Fpad"])
-    yF = yF0.clone()
-    for bi in range(nblocks):
-        bs, be = bi * B, bi * B + B
-        y1 = torch.linalg.solve_triangular(
-            Ls[:, bs:be, bs:be], yF[:, bs:be, None], upper=False,
-            unitriangular=True)
-        if be < c["Fpad"]:
-            yF[:, be:] -= (Ls[:, be:, bs:be] @ y1)[..., 0]
-        yF[:, bs:be] = y1[..., 0]
-    yF[:, :ncB] = torch.where(elim, yF[:, :ncB] / dsafe, yF[:, :ncB])
-    upd = c["upd"]
-    if upd.nnz:
-        delta = (yF - yF0).reshape(-1).index_select(0, c["struct_pos"])
-        y.index_add_(0, upd.index_on(y.device), upd(delta))
-    y.index_copy_(0, c["elim_rows"],
-                  yF.reshape(-1).index_select(0, c["elim_pos"]))
-
-
-def _bwd_one(store, y, c) -> None:
-    B, nblocks = c["B"], c["nblocks"]
-    if nblocks == 0:
-        return
-    F, Ls, elim, ncB = _chunk_L(store, c)
-    yF = y.index_select(0, c["frows"].reshape(-1)).view(c["ch"], c["Fpad"])
-    for k2 in range(nblocks):
-        bs = (nblocks - 1 - k2) * B
-        be = bs + B
-        rhs = yF[:, bs:be, None]
-        if be < c["Fpad"]:
-            rhs = rhs - Ls[:, be:, bs:be].transpose(-1, -2) @ yF[:, be:, None]
-        x1 = torch.linalg.solve_triangular(
-            Ls[:, bs:be, bs:be].transpose(-1, -2), rhs, upper=True,
-            unitriangular=True)
-        yF[:, bs:be] = x1[..., 0]
-    y.index_copy_(0, c["elim_rows"],
-                  yF.reshape(-1).index_select(0, c["elim_pos"]))
-
-
 def flat_solve(plan: FlatPlan, fac: FlatFactors, b):
-    """Solve A x = b with the flat LDL^T factors: per-chunk forward sweeps
-    (bottom-up) with the diagonal scale, then backward (top-down)."""
+    """Solve A x = b with the flat LDL^T factors: forward sweeps with the
+    diagonal scale, tree level by tree level (bottom-up), then backward
+    (top-down); one call of the sweep kernels per level and direction
+    (linalg/sweep_kernels.py)."""
     store = fac.store
     if store.dtype != b.dtype:
         store = store.to(b.dtype)
-    if b.device.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
     dev = _device_plan(plan, b.device)
     _tick("rest")
     # one spare slot at the end: sentinel rows of padded fronts point there
     y = torch.zeros(plan.n + 1, dtype=b.dtype, device=b.device)
     y[:plan.n] = b.index_select(0, dev["perm"])
-    for c in dev["chunks"]:
-        _fwd_one(store, y, c)
-    for c in reversed(dev["chunks"]):
-        _bwd_one(store, y, c)
+    work = torch.empty(dev["sweep_scratch"], dtype=b.dtype, device=b.device)
+    for lvp in dev["levels"]:
+        sweep_fwd(store, y, lvp["sweep"], work)
+    for lvp in reversed(dev["levels"]):
+        sweep_bwd(store, y, lvp["sweep"], work)
     out = y[:plan.n].index_select(0, dev["iperm"])
     _tick("sweeps")
     return out

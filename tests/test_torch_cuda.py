@@ -14,6 +14,7 @@ import torch
 from galahad_tpu_torch import make_sparse_qp
 from galahad_tpu_torch.linalg import ldlt_kernels
 from galahad_tpu_torch.linalg import supernodal_flat as T
+from galahad_tpu_torch.linalg import sweep_kernels
 from galahad_tpu_torch.qp.ipm import ipm_solve
 
 pytestmark = pytest.mark.cuda
@@ -247,6 +248,158 @@ def test_flat_factor_and_solve_match_the_cpu_path(cuda):
     K = sp.csr_matrix((vals, (rows, cols)), shape=(n + m, n + m))
     K = K + sp.tril(K, -1).T
     assert np.linalg.norm(K @ out["cuda"][1] - b) <= 1e-11 * np.linalg.norm(b)
+
+
+def sweep_level(specs, dtype, device, seed):
+    """A synthetic tree level for the sweep kernels: fronts
+    ``specs = [(Fpad, [(ncols, nf), ...]), ...]`` with random unit-lower L and
+    d (one pivot of a front is 0: divided by 1) and NaN in every other entry
+    (the Schur block, the upper triangle, the padded rows); eliminated rows distinct over all fronts, struct rows drawn from one
+    shared pool so that fronts add into the same rows.  Returns (store, level
+    tables, y)."""
+    rng = np.random.default_rng(seed)
+    n_elim = sum(nc for _, fronts_ in specs for nc, _ in fronts_)
+    pool = max(nf - nc for _, fronts_ in specs for nc, nf in fronts_) + 7
+    n = n_elim + pool
+    parts, batches = [], []
+    off = next_row = 0
+    for Fpad, fronts_ in specs:
+        nb = len(fronts_)
+        F = np.full((nb, Fpad, Fpad), np.nan)
+        frows = np.full((nb, Fpad), n, np.int64)
+        for i, (nc, nf) in enumerate(fronts_):
+            L = rng.normal(size=(nf, nc)) * 0.5 / np.sqrt(max(nc, 1))
+            below = np.arange(nf)[:, None] > np.arange(nc)[None, :]
+            F[i, :nf, :nc] = np.where(below, L, np.nan)
+            d = rng.uniform(0.5, 2.0, nc) * rng.choice([-1.0, 1.0], nc)
+            if nc > 2:
+                d[1] = 0.0
+            F[i, np.arange(nc), np.arange(nc)] = d
+            frows[i, :nc] = np.arange(next_row, next_row + nc)
+            frows[i, nc:nf] = n_elim + np.sort(rng.choice(pool, nf - nc, replace=False))
+            next_row += nc
+        batches.append((off, Fpad, np.array([nc for nc, _ in fronts_], np.int64), frows))
+        parts.append(F.ravel())
+        off += F.size
+    store = torch.as_tensor(np.concatenate(parts + [np.zeros(1)]), dtype=dtype,
+                            device=device)
+    y = rng.normal(size=n + 1)
+    y[n] = 0.0
+    return (store, sweep_kernels.build_sweep_level(batches, n, device),
+            torch.as_tensor(y, dtype=dtype, device=device))
+
+
+def ladder_fronts(Fpad, copies):
+    """ncols of 0, 1, partial and full, with and without struct rows."""
+    base = [(0, Fpad // 2), (1, Fpad), (1, 1), (Fpad // 3, Fpad), (Fpad // 3, Fpad // 2),
+            (Fpad, Fpad), (Fpad - 5, Fpad - 2), (2, Fpad - 1), (Fpad // 2, Fpad // 2)]
+    return base * copies
+
+
+SWEEP_LEVELS = {
+    "small": [(8, ladder_fronts(8, 40)), (16, ladder_fronts(16, 9)),
+              (32, ladder_fronts(32, 5))],
+    "medium": [(64, ladder_fronts(64, 3)), (96, ladder_fronts(96, 2)),
+               (128, ladder_fronts(128, 2)), (8, ladder_fronts(8, 3))],
+    "wide": [(192, ladder_fronts(192, 1)), (256, [(100, 256), (256, 256), (7, 250)]),
+             (384, [(33, 384), (380, 383)]), (512, [(64, 512), (500, 512)])],
+    "wider": [(768, [(31, 768), (700, 768)]), (1024, [(1024, 1024), (200, 1000)]),
+              (1536, [(300, 1536)]), (2048, [(129, 2048), (2048, 2048)])],
+    "widest": [(3072, [(500, 3072)]), (4096, [(1000, 4000), (4096, 4096)]),
+               (16, ladder_fronts(16, 2))],
+}
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 1e-11)])
+@pytest.mark.parametrize("case", sorted(SWEEP_LEVELS))
+def test_sweep_kernels_match_plain(cuda, case, dtype, tol):
+    # tolerance: rounding of the dot products of a front (up to 4096 terms,
+    # taken in another order), relative to the largest entry of the plain result
+    store, lvl, y0 = sweep_level(SWEEP_LEVELS[case], dtype, cuda, seed=len(case))
+    if case != "small":
+        assert lvl.big.shape[0] > 0
+    if case in ("wider", "widest"):
+        assert lvl.strips.shape[0] > 0
+    work = torch.full((lvl.work_size + lvl.part_size,), float("nan"), dtype=dtype,
+                      device=cuda)
+    before, plain_before = sweep_kernels.sweep_counts(), sweep_kernels.sweep_plain_count()
+    yk = y0.clone()
+    sweep_kernels.sweep_fwd(store, yk, lvl, work)
+    after = sweep_kernels.sweep_counts()
+    assert after["fwd"] == before["fwd"] + 1
+    assert after["fwd_kernels"] == before["fwd_kernels"] + lvl.fwd_kernels
+    assert sweep_kernels.sweep_plain_count() == plain_before
+    yp = y0.clone()
+    wp = torch.zeros_like(work)
+    sweep_kernels.sweep_fwd_plain(store, yp, lvl, wp)
+    sweep_kernels.sweep_accumulate_plain(yp, lvl, wp)
+    assert bool(torch.isfinite(yk).all())
+    assert float((yk - yp).abs().max()) <= tol * max(1.0, float(yp.abs().max()))
+    assert float(yk[-1]) == 0.0
+    yk2 = y0.clone()
+    sweep_kernels.sweep_fwd(store, yk2, lvl, torch.zeros_like(work))   # other scratch
+    assert torch.equal(yk2, yk)                              # bitwise repeat
+    # backward, both from the plain forward result
+    xk = yp.clone()
+    sweep_kernels.sweep_bwd(store, xk, lvl, work)
+    xp = yp.clone()
+    sweep_kernels.sweep_bwd_plain(store, xp, lvl)
+    assert bool(torch.isfinite(xk).all())
+    assert float((xk - xp).abs().max()) <= tol * max(1.0, float(xp.abs().max()))
+    xk2 = yp.clone()
+    sweep_kernels.sweep_bwd(store, xk2, lvl, torch.zeros_like(work))
+    assert torch.equal(xk2, xk)
+    assert sweep_kernels.sweep_counts()["bwd_kernels"] == \
+        before["bwd_kernels"] + 2 * lvl.bwd_kernels
+
+
+def test_sweep_kernels_refuse_what_they_do_not_take(cuda):
+    store, lvl, y = sweep_level([(16, [(4, 9), (16, 16)]), (64, [(10, 40)])],
+                                torch.float64, cuda, seed=0)
+    work = torch.empty(lvl.work_size + lvl.part_size, dtype=y.dtype, device=cuda)
+    sweep_kernels.sweep_fwd(store, y, lvl, work)              # this one is taken
+    for fn in (sweep_kernels.sweep_fwd, sweep_kernels.sweep_bwd):
+        with pytest.raises(TypeError):                       # wrong dtype
+            fn(store.half(), y.half(), lvl, work.half())
+        with pytest.raises(ValueError):                      # y on another device
+            fn(store, y.cpu(), lvl, work)
+        with pytest.raises(ValueError):                      # tables on another device
+            fn(store.cpu(), y.cpu(), lvl, work.cpu())
+        with pytest.raises(ValueError):                      # not contiguous
+            fn(store, torch.zeros(2 * y.numel(), dtype=y.dtype, device=cuda)[::2], lvl,
+               work)
+        with pytest.raises(ValueError):                      # scratch too small
+            fn(store, y, lvl, torch.zeros(5, dtype=y.dtype, device=cuda))
+
+
+def test_flat_solve_on_the_card_runs_only_the_sweep_kernels(cuda):
+    qp = grid_qp(16, "cpu")
+    n, m = qp.n, qp.m
+    rows = np.concatenate([qp.h_pat.rows, qp.a_pat.rows + n, np.arange(n + m)])
+    cols = np.concatenate([qp.h_pat.cols, qp.a_pat.cols, np.arange(n + m)])
+    vals = np.concatenate([qp.h_vals.numpy(), qp.a_vals.numpy(),
+                           np.full(n, 1.0), np.full(m, -1.0)])
+    plan = T.flat_analyse(rows, cols, n + m, relax_cols=16)
+    b = np.random.default_rng(1).normal(size=n + m)
+    fac_c = T.flat_factorize(plan, torch.as_tensor(vals))
+    x_c = T.flat_solve(plan, fac_c, torch.as_tensor(b)).numpy()
+    fac = T.flat_factorize(plan, torch.as_tensor(vals, device=cuda))
+    before, plain_before = sweep_kernels.sweep_counts(), sweep_kernels.sweep_plain_count()
+    x = T.flat_solve(plan, fac, torch.as_tensor(b, device=cuda))
+    after = sweep_kernels.sweep_counts()
+    levels = len(T._device_plan(plan, cuda)["levels"])
+    assert after["fwd"] - before["fwd"] == after["bwd"] - before["bwd"] == levels
+    assert after["fwd_kernels"] - before["fwd_kernels"] <= 4 * levels
+    assert after["bwd_kernels"] - before["bwd_kernels"] <= 3 * levels
+    assert sweep_kernels.sweep_plain_count() == plain_before
+    # the same factors through the plain sweeps on the card
+    np.testing.assert_allclose(x.cpu().numpy(), x_c, rtol=0, atol=1e-11)
+    assert torch.equal(x, T.flat_solve(plan, fac, torch.as_tensor(b, device=cuda)))
+    # float32 on the card
+    fac32 = T.flat_factorize(plan, torch.as_tensor(vals, dtype=torch.float32, device=cuda))
+    x32 = T.flat_solve(plan, fac32, torch.as_tensor(b, dtype=torch.float32, device=cuda))
+    assert x32.dtype == torch.float32
+    assert np.abs(x32.cpu().numpy() - x_c).max() <= 1e-4 * np.abs(x_c).max()
 
 
 def test_ipm_on_the_card_matches_the_cpu_and_repeats_bitwise(cuda):
