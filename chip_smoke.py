@@ -6,12 +6,12 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 It needs one CUDA device, ``nvcc`` and ``g++``; it builds the native
-symbolic library and the three CUDA sources from this checkout (into
-``galahad_tpu_torch/_build/``, all four at once), then runs, printing one
+symbolic library and the four CUDA sources from this checkout (into
+``galahad_tpu_torch/_build/``, all five at once), then runs, printing one
 JSON line per phase:
 
   1. device     card name and power limit, torch and CUDA versions
-  2. build      build seconds of the four libraries
+  2. build      build seconds of the five libraries
   3. kernel     every kernel against its plain PyTorch version on the
                 card, with time and bound per shape: the small-front
                 partial LDL^T at Fpad in {8..128} x nb in {1, 37, 4096} x
@@ -20,13 +20,20 @@ JSON line per phase:
                 {float32, float64} x three panels, on strided views; the
                 sweep kernels on synthetic tree levels of every front size
                 in {8..4096} x {float32, float64}, ncols of 0, 1, partial
-                and full, fronts sharing struct rows, two runs bitwise equal
+                and full, fronts sharing struct rows, two runs bitwise equal;
+                the extend-add kernel on synthetic levels of parent fronts
+                in {8, 32, 128, 512, 4096} x {float32, float64} with 1, 2, 4
+                and 16 children, bitwise equal to its plain version
   4. kkt        factorize + solve of the flagship KKT system
                 (grid QP, k=316: n=99,856, m=49,928) with D_x = C = 1
   5. repeat     two factorize+solve runs give the same bits
   6. flagship   ``ipm_solve`` on the flagship QP in float64, default
                 control, checked on the host in float64 with scipy
-  7. kernels    one line about every hand-written kernel on that path
+  7. spare_slot the bucketed extend-add that the kernel replaced, timed on
+                one factorization's levels with and without its padded
+                entries (routed to one spare slot), and held bitwise to
+                the kernel
+  8. kernels    one line about every hand-written kernel on that path
 
 and, as its last line, ``{"ok": true, "device": {...}}``.  Any failed
 phase ends the run with a non-zero exit code and no such line.  Without
@@ -45,7 +52,7 @@ import torch
 
 from galahad_tpu_torch import make_sparse_qp
 from galahad_tpu_torch.core.status import Status
-from galahad_tpu_torch.linalg import ldlt_kernels, supernodal_flat, sweep_kernels
+from galahad_tpu_torch.linalg import ea_kernels, ldlt_kernels, supernodal_flat, sweep_kernels
 from galahad_tpu_torch.linalg.sbls import sparse_kkt_factorize, sparse_kkt_plan
 from galahad_tpu_torch.qp.ipm import IPMControl, ipm_solve
 
@@ -57,7 +64,11 @@ PANEL_SOURCE = "galahad_tpu_torch/csrc/ldlt_panel.cu"
 SWEEP_SOURCE = "galahad_tpu_torch/csrc/sweep.cu"
 TPU_FWD_SWEEP = "galahad_tpu/linalg/supernodal_flat.py:915"
 TPU_BWD_SWEEP = "galahad_tpu/linalg/supernodal_flat.py:955"
+EA_SOURCE = "galahad_tpu_torch/csrc/extend_add.cu"
+TPU_EA = ("galahad_tpu/linalg/supernodal_flat.py:779 (_ea_slot_apply) / :795 "
+          "(_ea_q_apply)")
 MAX_SWEEP_LAUNCHES_PER_SOLVE = 150
+MAX_EA_CALLS_PER_FACTORIZATION = 18
 PANEL = ldlt_kernels.PANEL
 
 
@@ -225,7 +236,8 @@ def phase_build():
     jobs = [("native_symbolic_s", native_build.load_symbolic),
             ("partial_ldlt_s", ldlt_kernels._library),
             ("ldlt_panel_s", ldlt_kernels._panel_library),
-            ("sweep_s", sweep_kernels._library)]
+            ("sweep_s", sweep_kernels._library),
+            ("extend_add_s", ea_kernels._library)]
     t0 = time.perf_counter()
     threads = [threading.Thread(target=timed, args=j) for j in jobs]
     for th in threads:
@@ -234,7 +246,7 @@ def phase_build():
         th.join()
     check(not errors, "build failed: " + " | ".join(errors))
     ptxas = {}
-    for src in ("partial_ldlt.cu", "ldlt_panel.cu", "sweep.cu"):
+    for src in ("partial_ldlt.cu", "ldlt_panel.cu", "sweep.cu", "extend_add.cu"):
         log = _cuda_build.build_info.get(src, {}).get("log", "")
         ptxas[src] = [ln.split("ptxas info    : ")[-1] for ln in log.splitlines()
                       if "registers" in ln or "error" in ln.lower()
@@ -293,13 +305,15 @@ def phase_kernel():
     items_rows = kernel_items_cases(gen)
     panel_rows = kernel_panel_cases(gen)
     sweep_rows = kernel_sweep_cases()
+    ea_rows = kernel_ea_cases()
     emit("kernel", tolerance="max|kernel-plain| <= 1e-4*scale (float32), "
          "1e-11*scale (float64), scale = max|plain| >= 1; partial_ldlt: on the "
          "lower triangle of eliminated columns and the whole trailing square; "
          "ldlt_panel: on every entry of the panel, of W and of Lm; sweeps: on "
-         "every entry of y after the forward and after the backward sweep",
+         "every entry of y after the forward and after the backward sweep; "
+         "extend_add: bitwise equal on every entry of the store, NaN included",
          shapes=rows, items=items_rows, panel_shapes=panel_rows,
-         sweep_shapes=sweep_rows)
+         sweep_shapes=sweep_rows, ea_shapes=ea_rows)
 
 
 def kernel_items_cases(gen):
@@ -550,20 +564,26 @@ def time_sweeps(store, levels, y0, y_fwd, work):
     return out
 
 
-def level_device_ms(store, order, src, work, fn):
-    """Device time in ms of each call ``fn(store, y, lvl, work)`` for ``lvl`` in
-    ``order``, queued behind a spin kernel so that the host's launch cost does
-    not enter."""
-    y = src.clone()
-    events = [torch.cuda.Event(enable_timing=True) for _ in range(len(order) + 1)]
+def each_device_ms(thunks):
+    """Device time in ms of each of the calls ``thunks``, run in order and
+    queued behind a spin kernel so that the host's launch cost does not
+    enter."""
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(len(thunks) + 1)]
     torch.cuda.synchronize()
     torch.cuda._sleep(int(20.0 * SPIN_CYCLES_PER_MS))
     events[0].record()
-    for lvl, ev in zip(order, events[1:]):
-        fn(store, y, lvl, work)
+    for fn, ev in zip(thunks, events[1:]):
+        fn()
         ev.record()
     torch.cuda.synchronize()
     return [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+
+
+def level_device_ms(store, order, src, work, fn):
+    """Device time in ms of each call ``fn(store, y, lvl, work)`` for ``lvl`` in
+    ``order``, ``y`` a copy of ``src``."""
+    y = src.clone()
+    return each_device_ms([lambda lvl=lvl: fn(store, y, lvl, work) for lvl in order])
 
 
 def kernel_sweep_cases():
@@ -594,6 +614,106 @@ def kernel_sweep_cases():
                 ms_bwd=ms_b, device_ms_bwd=dev_b, plain_ms_bwd=plain_b, bound_ms_bwd=bound_b,
                 bound_by=by_f if by_f == by_b else f"{by_f}/{by_b}"))
             del store, lvl, y0, work
+    return out_rows
+
+
+FPAD_LADDER = (8, 16, 32, 64, 96, 128, 192, 256, 384, 512, 768, 1024, 1536, 2048, 3072,
+               4096)
+
+
+def ea_level(specs, seed):
+    """A synthetic tree level for the extend-add kernel: parents ``specs =
+    [(Fd, [children per parent, ...], umax), ...]``, one group per entry; each
+    child has u in 1..min(Fd, umax), a random strictly increasing ppos and a
+    front of the smallest ladder size that holds ``sncols + u`` (sncols in
+    0..3), its Schur block random and NaN in every other entry of its front;
+    parent entries that a child reaches are random, the others NaN.  Returns
+    (store as float64 numpy, batches for ``build_ea_level``, mask of the reached
+    parent entries)."""
+    rng = np.random.default_rng(seed)
+    groups, kids = [], []
+    off = 0
+    for Fd, counts, umax in specs:
+        groups.append((off, Fd, []))
+        for p, nkids in enumerate(counts):
+            for _ in range(nkids):
+                u = int(rng.integers(1, min(Fd, umax) + 1))
+                nc = int(rng.integers(0, 4))
+                fps = next(f for f in FPAD_LADDER if f >= nc + u)
+                ppos = np.sort(rng.choice(Fd, u, replace=False)).astype(np.int64)
+                groups[-1][2].append(dict(sncols=nc, fp_src=fps, u=u, ppos=ppos, ppar=p))
+                kids.append(groups[-1][2][-1])
+        off += len(counts) * Fd * Fd
+    for o in kids:
+        o["sbase"] = off
+        off += o["fp_src"] ** 2
+    store = np.full(off + 1, np.nan)
+    reached = np.zeros(off + 1, bool)
+    for goff, Fd, recs in groups:
+        for o in recs:
+            pp = o["ppos"]
+            reached[(goff + o["ppar"] * Fd * Fd + pp[:, None] * Fd + pp[None, :]).ravel()] = True
+    store[reached] = rng.normal(size=int(reached.sum()))
+    for o in kids:
+        nc, u, fps = o["sncols"], o["u"], o["fp_src"]
+        F = store[o["sbase"]:o["sbase"] + fps * fps].reshape(fps, fps)
+        F[nc:nc + u, nc:nc + u] = rng.normal(size=(u, u))
+    return store, groups, reached
+
+
+EA_CASES = [
+    (8, [(8, [1, 2, 4, 16] * 256, 8)]),
+    (32, [(32, [1, 2, 4, 16] * 64, 32), (8, [3, 1] * 64, 8)]),
+    (128, [(128, [1, 2, 4, 16] * 8, 128)]),
+    (512, [(512, [1, 2, 4, 16], 512)]),
+    (4096, [(4096, [1, 2], 4096), (4096, [16], 512)])]
+
+
+def same_bits(a, b) -> bool:
+    """Bitwise equality of two float tensors, NaN included."""
+    it = torch.int64 if a.dtype == torch.float64 else torch.int32
+    return a.dtype == b.dtype and torch.equal(a.view(it), b.view(it))
+
+
+def kernel_ea_cases():
+    """The extend-add kernel on one synthetic level per parent size, against
+    its plain version (bitwise), with time and bound."""
+    out_rows = []
+    for Fd, specs in EA_CASES:
+        store64, batches, reached = ea_level(specs, seed=Fd)
+        lvl = ea_kernels.build_ea_level(batches, "cuda")
+        reached = torch.as_tensor(reached, device="cuda")
+        for dtype in (torch.float32, torch.float64):
+            store = torch.as_tensor(store64, dtype=dtype, device="cuda")
+            got, ref = store.clone(), store.clone()
+            before = ea_kernels.ea_counts()
+            ea_kernels.extend_add(got, lvl)
+            made = ea_kernels.ea_counts()["kernels"] - before["kernels"]
+            check(made == lvl.kernels, f"extend_add: the launcher reports {made} kernel "
+                  f"launches, the table calls for {lvl.kernels} (Fd={Fd})")
+            plain_ms = event_ms(lambda: ea_kernels.extend_add_plain(ref, lvl))
+            check(same_bits(got, ref), f"extend_add kernel and plain version differ "
+                  f"(Fd={Fd}, {dtype})")
+            check(bool(torch.isfinite(got[reached]).all()),
+                  f"extend_add kernel: non-finite destination (Fd={Fd}, {dtype})")
+            again = store.clone()
+            ea_kernels.extend_add(again, lvl)
+            check(same_bits(again, got), f"extend_add kernel: two runs differ (Fd={Fd})")
+            ms = time_each_ms(lambda: got.copy_(store),
+                              lambda: ea_kernels.extend_add(got, lvl), reps=5)
+            copies = [store.clone() for _ in range(5)]
+            dev_ms = queued_ms([lambda c=c: ea_kernels.extend_add(c, lvl)
+                                for c in copies]) / len(copies)
+            bound, by = ea_kernels.ea_bound_ms(lvl, dtype)
+            out_rows.append(dict(
+                dtype=str(dtype).split(".")[1], Fd=Fd, parents=sum(
+                    len(c) for _, c, _ in specs), children=len(lvl.children),
+                entries=int((lvl.children[:, 2] ** 2).sum()),
+                tiles=int(lvl.tiles.shape[0]), pairs=int(lvl.pairs.shape[0]),
+                launches=lvl.kernels, bitwise_equal=True, max_abs_err=0.0, ms=ms,
+                device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by))
+            del store, got, ref, again, copies
+        del store64, lvl, reached
     return out_rows
 
 
@@ -632,6 +752,7 @@ def phase_kkt(qp):
     samples = []
     for _ in range(3):
         ldlt_kernels.reset_launch_count()
+        ea_kernels.reset_ea_counts()
         t0 = time.perf_counter()
         fac, S = factorize()
         t_enq = time.perf_counter() - t0          # host returns; device may lag
@@ -641,12 +762,19 @@ def phase_kkt(qp):
     t_factor, t_factor_enqueue = samples[1]       # the median factorization
     launches = ldlt_kernels.launch_count()
     panel_launches = ldlt_kernels.panel_launch_count()
+    ea = ea_kernels.ea_counts()
     inertia = fac.inertia.tolist()
     check(inertia == [n, m, 0], f"inertia {inertia} != {[n, m, 0]}")
     check(launches > 0, "the small-front factor kernel was not launched")
     check(panel_launches > 0, "the panel kernel was not launched")
     check(ldlt_kernels.panel_plain_count() == 0,
           "the plain panel code ran in a factorization on the card")
+    ea_levels = sum(lvp["ea"] is not None for lvp in dev["levels"])
+    check(ea["calls"] > 0 and ea["kernels"] > 0, "the extend-add kernel was not launched")
+    check(ea["plain"] == 0, "the plain extend-add ran in a factorization on the card")
+    check(ea["calls"] == ea_levels <= MAX_EA_CALLS_PER_FACTORIZATION,
+          f"{ea['calls']} extend-add calls in one factorization (levels with children "
+          f"{ea_levels}, limit {MAX_EA_CALLS_PER_FACTORIZATION})")
 
     b = torch.as_tensor(np.random.default_rng(1).normal(size=n + m),
                         device=qp.g.device)
@@ -681,7 +809,7 @@ def phase_kkt(qp):
     emit("kkt", n=n, m=m, n_kkt=n + m, S=sym.S, nnz_L=sym.nnz_L, ns=sym.ns,
          flops_model=sym.flops, groups=len(sym.groups),
          levels=len(dev["levels"]), chunks=len(dev["chunks"]),
-         ea_ops=sum(len(lv["ea"]) for lv in dev["levels"]),
+         ea_ops=ea_levels,
          fpad_histogram={str(k): v for k, v in sorted(hist.items())},
          store_bytes=(sym.S + 1) * 8, inertia=inertia,
          rel_residual=rel, dmin=float(fac.dmin),
@@ -699,8 +827,15 @@ def phase_kkt(qp):
          sweep_bwd_kernel_launches_per_solve=sweeps["bwd_kernels"],
          kernel_launches_per_factorization=launches,
          panel_launches_per_factorization=panel_launches,
+         ea_calls_per_factorization=ea["calls"],
+         ea_kernel_launches_per_factorization=ea["kernels"],
+         ea_children=sum(len(lvp["ea"].children) for lvp in dev["levels"] if lvp["ea"]),
+         ea_entries=sum(int((lvp["ea"].children[:, 2] ** 2).sum())
+                        for lvp in dev["levels"] if lvp["ea"]),
+         ea_tiles=sum(int(lvp["ea"].tiles.shape[0]) for lvp in dev["levels"] if lvp["ea"]),
+         ea_pairs=sum(int(lvp["ea"].pairs.shape[0]) for lvp in dev["levels"] if lvp["ea"]),
          wide_chunks=sum(len(lv["wide"]) for lv in dev["levels"]))
-    return plan, D_x, C_diag, b
+    return plan, D_x, C_diag, b, launches
 
 
 def phase_repeat(qp, plan, D_x, C_diag, b):
@@ -743,7 +878,7 @@ def host_kkt(qp, x, y, z):
     return max(r_p, r_d, comp), r_p, r_d, comp
 
 
-def phase_flagship(qp):
+def phase_flagship(qp, launches_per_factorization: int):
     """The main path: ``ipm_solve`` with the default control.  The launch
     count is set to 0 just before and read just after."""
     ctl = IPMControl()
@@ -751,6 +886,7 @@ def phase_flagship(qp):
     torch.cuda.reset_peak_memory_stats()
     ldlt_kernels.reset_launch_count()
     sweep_kernels.reset_sweep_counts()
+    ea_kernels.reset_ea_counts()
     t0 = time.perf_counter()
     x, y, z, st = ipm_solve(qp, ctl)
     torch.cuda.synchronize()
@@ -760,6 +896,9 @@ def phase_flagship(qp):
     launches = ldlt_kernels.launch_count()
     panel_launches = ldlt_kernels.panel_launch_count()
     panel_plain = ldlt_kernels.panel_plain_count()
+    ea = ea_kernels.ea_counts()
+    # small-front factor calls per factorization, as the kkt phase counted them
+    factorizations = launches / launches_per_factorization
     check(st.status == int(Status.OK), f"flagship status {st.status} != 0")
     check(x.shape == (qp.n,) and y.shape == (qp.m,) and z.shape == (qp.n,),
           "flagship solution has the wrong shape")
@@ -773,6 +912,10 @@ def phase_flagship(qp):
     check(sweeps["fwd"] > 0, "the main path did not launch the forward sweep kernels")
     check(sweeps["bwd"] > 0, "the main path did not launch the backward sweep kernels")
     check(sweeps["plain"] == 0, "the main path entered the plain sweeps on the card")
+    check(ea["calls"] > 0, "the main path did not launch the extend-add kernel")
+    check(ea["plain"] == 0, "the main path entered the plain extend-add on the card")
+    check(ea["calls"] <= MAX_EA_CALLS_PER_FACTORIZATION * factorizations,
+          f"{ea['calls']} extend-add calls in {factorizations:g} factorizations")
     # per-phase split of three iterations, with a device synchronisation at
     # every phase boundary (so these iterations run slower than the above)
     supernodal_flat.profile_start()
@@ -790,6 +933,10 @@ def phase_flagship(qp):
          sweep_fwd_kernel_launches=sweeps["fwd_kernels"],
          sweep_bwd_kernel_launches=sweeps["bwd_kernels"],
          sweep_plain_calls=sweeps["plain"],
+         ea_calls=ea["calls"], ea_kernel_launches=ea["kernels"], ea_plain_calls=ea["plain"],
+         factorizations=factorizations,
+         ea_calls_per_factorization=ea["calls"] / factorizations,
+         ea_kernel_launches_per_factorization=ea["kernels"] / factorizations,
          peak_device_memory_bytes=peak_bytes,
          split_of_3_profiled_iterations_s=dict(
              assembly=split.get("assembly", 0.0),
@@ -799,6 +946,7 @@ def phase_flagship(qp):
              fetch=split.get("fetch", 0.0), rest=split.get("rest", 0.0),
              total=t3, iterations=st3.iter))
     return dict(partial_ldlt=launches, ldlt_panel=panel_launches,
+                extend_add=ea["calls"], extend_add_kernels=ea["kernels"],
                 sweep_fwd=sweeps["fwd"], sweep_bwd=sweeps["bwd"],
                 sweep_fwd_kernels=sweeps["fwd_kernels"],
                 sweep_bwd_kernels=sweeps["bwd_kernels"])
@@ -850,6 +998,168 @@ def sweep_kernel_entries(qp, plan, D_x, C_diag, b, main_path_launches):
     return entries
 
 
+def ea_kernel_entry(sym, store0, main_path_launches):
+    """The ``extend_add`` entry of the ``kernels`` line: all calls of one
+    factorization of the flagship KKT (one per tree level with children),
+    replayed level after level on a copy of that factorization's store (each
+    child's Schur block is what the factorization read; the parent fronts
+    hold their factors, which the replay adds onto)."""
+    dev = supernodal_flat._device_plan(sym, store0.device)
+    levels = [lvp["ea"] for lvp in dev["levels"] if lvp["ea"] is not None]
+    got, ref = store0.clone(), store0.clone()
+    for lvl in levels:
+        ea_kernels.extend_add(got, lvl)
+    plain_ms = event_ms(lambda: [ea_kernels.extend_add_plain(ref, lvl) for lvl in levels])
+    check(same_bits(got, ref), "extend_add kernel and plain version differ on the "
+          "flagship's levels")
+    check(bool(torch.isfinite(got[:sym.S]).all()), "extend_add: non-finite store")
+    del got, ref
+
+    def run():
+        for lvl in levels:
+            ea_kernels.extend_add(work, lvl)
+
+    work = store0.clone()
+    ms = time_each_ms(lambda: work.copy_(store0), run, reps=5)
+    work.copy_(store0)
+    dev_ms = queued_ms([run])
+    work.copy_(store0)
+    per_level = each_device_ms([lambda lvl=lvl: ea_kernels.extend_add(work, lvl)
+                                for lvl in levels])
+    del work
+    tb, to = ea_kernels.ea_bound_terms(levels, store0.dtype)
+    return dict(
+        name="extend_add", route="cuda", source=EA_SOURCE, replaces=TPU_EA,
+        launches=main_path_launches["extend_add"], max_abs_err=0.0, bitwise_equal=True,
+        ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=max(tb, to) * 1e3,
+        bound_by="bytes" if tb >= to else "operations", library_ms=None,
+        library_ms_reason="no single PyTorch call gathers ragged blocks and adds them "
+                          "through a position map",
+        kernel_launches=main_path_launches["extend_add_kernels"],
+        per=f"one factorization of the flagship KKT ({len(levels)} calls, one per tree "
+            f"level with children)",
+        children=sum(len(lvl.children) for lvl in levels),
+        entries=sum(int((lvl.children[:, 2] ** 2).sum()) for lvl in levels),
+        dest_entries=sum(lvl.dest_entries for lvl in levels),
+        tiles=sum(int(lvl.tiles.shape[0]) for lvl in levels),
+        device_ms_per_tree_level=[round(t, 4) for t in per_level])
+
+
+EA_ELEMS = 1 << 24               # the bucketed composition's cap of nc * Um^2 per op
+
+
+def parent_ea_ops(sym, device):
+    """Per tree level, the ops of the bucketed extend-add that the kernel
+    replaced: child records grouped by padded shape (Um = max(8, next power of
+    2 of u), fps), split into occurrence layers of same-parent children, ppos
+    padded to Um with -1."""
+    by_level: dict = {}
+    for g in sym.groups:
+        by_level.setdefault(g.level, []).append(g)
+    out = []
+    for lv in sorted(by_level):
+        ops = []
+        for g in by_level[lv]:
+            by_shape: dict = {}
+            for o in g.ea:
+                Um = max(8, 1 << (o["u"] - 1).bit_length())
+                by_shape.setdefault((Um, o["fp_src"]), []).append(o)
+            for (Um, fps), olist in sorted(by_shape.items()):
+                layers: list = []
+                seen: dict = {}
+                for o in olist:
+                    j = seen.get(o["ppar"], 0)
+                    seen[o["ppar"]] = j + 1
+                    if len(layers) <= j:
+                        layers.append([])
+                    layers[j].append(o)
+                cap = max(1, EA_ELEMS // (Um * Um))
+                for lay in layers:
+                    for s0 in range(0, len(lay), cap):
+                        sub = lay[s0:s0 + cap]
+                        pt = np.full((len(sub), Um), -1, np.int64)
+                        for k, o in enumerate(sub):
+                            pt[k, :o["u"]] = o["ppos"]
+                        ops.append(dict(
+                            Um=Um, fps=fps, Fd=g.Fpad,
+                            sstart=torch.as_tensor([o["sbase"] + o["sncols"] * fps
+                                                    + o["sncols"] for o in sub],
+                                                   device=device),
+                            pbase=torch.as_tensor([g.goff + o["ppar"] * g.Fpad * g.Fpad
+                                                   for o in sub], device=device),
+                            ppos=torch.as_tensor(pt, device=device)))
+        out.append(ops)
+    return out
+
+
+def parent_ea_indices(o, S: int):
+    """(source, destination, real-entry mask) of one bucketed op, padded
+    positions routed to the spare slot ``S`` as the replaced code did."""
+    Um, fps, Fd = o["Um"], o["fps"], o["Fd"]
+    ar = torch.arange(Um, device=o["ppos"].device)
+    pp = o["ppos"]
+    valid = pp >= 0
+    mask = (valid[:, :, None] & valid[:, None, :]).reshape(-1)
+    src = (o["sstart"][:, None, None] + (ar * fps)[None, :, None]
+           + ar[None, None, :]).reshape(-1)
+    dst = ((o["pbase"][:, None] + pp * Fd)[:, :, None] + pp[:, None, :]).reshape(-1)
+    return torch.where(mask, src, S), torch.where(mask, dst, S), mask
+
+
+def parent_ea_apply(store, o, S: int) -> None:
+    """One bucketed op as the replaced code ran it."""
+    src, dst, _ = parent_ea_indices(o, S)
+    store.index_add_(0, dst, store.index_select(0, src))
+
+
+def phase_spare_slot(sym, store0, kernel_entry):
+    """The bucketed extend-add that the kernel replaced, on the levels of one
+    flagship factorization, replayed on ``store0`` as the kernel entry does:
+    held bitwise to the kernel, then timed as it ran (index lists built in
+    every op) and, with the lists built beforehand, once with its padded
+    entries (all routed to the spare slot S as atomic adds on one address) and
+    once with them dropped."""
+    t0 = time.perf_counter()
+    S = sym.S
+    dev = supernodal_flat._device_plan(sym, store0.device)
+    ops_by_level = parent_ea_ops(sym, store0.device)
+    old, new = store0.clone(), store0.clone()
+    for lvp, ops in zip(dev["levels"], ops_by_level):
+        for o in ops:
+            parent_ea_apply(old, o, S)
+        if lvp["ea"] is not None:
+            ea_kernels.extend_add(new, lvp["ea"])
+    check(same_bits(old, new), "the extend-add kernel and the bucketed composition it "
+          "replaced give different bits")
+    del old, new
+    ops = [o for level_ops in ops_by_level for o in level_ops]
+    work = store0.clone()
+    fresh = lambda: work.copy_(store0)
+    as_is_ms = time_each_ms(fresh, lambda: [parent_ea_apply(work, o, S) for o in ops], reps=2)
+    padded, dropped = [], []
+    for o in ops:
+        src, dst, mask = parent_ea_indices(o, S)
+        padded.append((src, dst))
+        dropped.append((src[mask], dst[mask]))
+
+    def run(lists):
+        for src, dst in lists:
+            work.index_add_(0, dst, work.index_select(0, src))
+
+    padded_ms = time_each_ms(fresh, lambda: run(padded), reps=2)
+    dropped_ms = time_each_ms(fresh, lambda: run(dropped), reps=2)
+    n_all = sum(int(src.numel()) for src, _ in padded)
+    n_real = sum(int(src.numel()) for src, _ in dropped)
+    del padded, dropped, work
+    emit("spare_slot", ops=len(ops), entries=n_all, real_entries=n_real,
+         padded_entries=n_all - n_real, bitwise_equal_to_kernel=True,
+         parent_ea_apply_ms=as_is_ms, padded_lists_ms=padded_ms,
+         dropped_lists_ms=dropped_ms, kernel_ms=kernel_entry["ms"],
+         kernel_device_ms=kernel_entry["device_ms"],
+         per="all extend-add ops of one factorization of the flagship KKT",
+         seconds=time.perf_counter() - t0)
+
+
 def phase_kernels(qp, plan, D_x, C_diag, b, main_path_launches):
     """The ``kernels`` line.  ``ms`` / ``plain_ms`` / ``bound_ms`` of a factor
     kernel are for ALL its calls in one factorization of the flagship KKT
@@ -864,7 +1174,7 @@ def phase_kernels(qp, plan, D_x, C_diag, b, main_path_launches):
     captured: list = []
     vals = torch.cat([qp.h_vals, qp.a_vals, D_x + (ctl.rho if ctl.rho else 1e-8),
                       -(C_diag + ctl.delta)])
-    supernodal_flat.flat_factorize(plan.sym, vals, capture=captured)
+    fac = supernodal_flat.flat_factorize(plan.sym, vals, capture=captured)
     torch.cuda.synchronize()
     small = [c[1:] for c in captured if c[0] == "small"]     # (buffer, items)
     panels = [c[1:] for c in captured if c[0] == "panel"]    # (slab, ncols, b)
@@ -949,6 +1259,10 @@ def phase_kernels(qp, plan, D_x, C_diag, b, main_path_launches):
                  f"one per 32-column panel of a chunk of fronts wider than 128)",
              fronts=sum(P.shape[0] for P, _, pb in panels if pb == 0))])
     del small, panels, outs, captured
+    ea_entry = ea_kernel_entry(plan.sym, fac.store, main_path_launches)
+    line["kernels"].append(ea_entry)
+    phase_spare_slot(plan.sym, fac.store, ea_entry)
+    del fac
     line["kernels"] += sweep_kernel_entries(qp, plan, D_x, C_diag, b,
                                             main_path_launches)
     emit("kernels_seconds", seconds=time.perf_counter() - t0)
@@ -966,9 +1280,9 @@ def main() -> int:
         phase_build()
         phase_kernel()
         qp = flagship_qp(K_FLAGSHIP, "cuda")
-        plan, D_x, C_diag, b = phase_kkt(qp)
+        plan, D_x, C_diag, b, per_factorization = phase_kkt(qp)
         phase_repeat(qp, plan, D_x, C_diag, b)
-        launches = phase_flagship(qp)
+        launches = phase_flagship(qp, per_factorization)
         phase_kernels(qp, plan, D_x, C_diag, b, launches)
     except SmokeFailure as exc:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr)

@@ -1,2 +1,2 @@
 """Linear algebra of the port: the flat supernodal LDL^T, its hand-written
-factor kernel, and the sparse KKT layer."""
+kernels (factor, extend-add, sweeps), and the sparse KKT layer."""

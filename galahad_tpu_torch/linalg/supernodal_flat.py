@@ -21,15 +21,20 @@ src/spral/dense_factor.cu / assemble.cu):
     composition below: per panel of 32 columns one call of the panel
     kernel (csrc/ldlt_panel.cu) and one batched matrix product for the
     trailing update.
+  * The extend-add of each level's children into their parent fronts is
+    the hand-written CUDA kernel of linalg/ea_kernels.py
+    (csrc/extend_add.cu), one call per tree level: this is where the JAX
+    flat path scans ``_ea_slot_apply`` / ``_ea_q_apply`` over buckets of
+    children of one padded shape.
   * The sweeps of a solve are the hand-written CUDA kernels of
     linalg/sweep_kernels.py (csrc/sweep.cu), one call per tree level and
     direction: this is where the JAX flat path scans ``_fwd_one`` /
     ``_bwd_one`` over the chunks.
-  * Every sum with duplicate destinations (value assembly, the forward
-    sweep's updates of shared ancestor rows) runs in a fixed order
-    (core/segsum.py; the sweeps' own accumulation lists), and the
-    extend-add runs one occurrence layer of same-parent children at a
-    time, so two runs give the same bits.
+  * Every sum with duplicate destinations (value assembly, the extend-add
+    of the children of one parent, the forward sweep's updates of shared
+    ancestor rows) runs in a fixed order (core/segsum.py; the extend-add's
+    child order; the sweeps' own accumulation lists), so two runs give the
+    same bits.
 
 Not carried over from the JAX module, because it serves the XLA compiler
 or the TPU's memory tiling and has no role here: the tile-padding caps,
@@ -50,6 +55,7 @@ import numpy as np
 import torch
 
 from ..core.segsum import SegmentSum
+from .ea_kernels import build_ea_level, extend_add
 from .ldlt_kernels import (
     MAX_KERNEL_FRONT,
     build_ldlt_items,
@@ -65,7 +71,6 @@ _FPAD_LADDER = sorted(
      1536, 2048, 3072, 4096, 6144, 8192, 12288, 16384})
 _CH_LADDER = (4096, 512, 64, 8, 1)
 _CHUNK_ELEMS = 1 << 24           # cap CH * Fpad^2 elements per chunk
-_EA_ELEMS = 1 << 24              # cap nc * Um^2 in one extend-add op
 
 
 def _round_up(x: int, m: int) -> int:
@@ -93,10 +98,6 @@ def _chunks_of(nb: int, Fpad: int = 8, cap_elems: int = None):
             out.append((off, ch))
             off += ch
     return out
-
-
-def _p2(x: int) -> int:
-    return 1 << max(int(x) - 1, 0).bit_length() if x > 1 else 1
 
 
 def _B_of(Fpad: int) -> int:
@@ -156,7 +157,7 @@ class FlatGroup:
     frows: np.ndarray        # (nb, Fpad) global rows, sentinel = n_total
     ea: list                 # raw extend-add records, one per child:
                              #   dict(sbase, sncols, fp_src, u, ppos,
-                             #        ppar), bucketed by _device_plan
+                             #        ppar), tabled by ea_kernels
 
 
 @dataclasses.dataclass
@@ -332,8 +333,8 @@ def flat_analyse(rows, cols, n, order: str = "amd",
 
     # --- per-group frows / extend-add ----------------------------------
     # Extend-add is recorded as RAW per-child records here; the device
-    # plan buckets them by shape and occurrence layer (the analogue of
-    # SSIDS's assembly kernels, reference src/spral/assemble.cu).
+    # plan turns each level's records into the tables of its kernel (the
+    # analogue of SSIDS's assembly kernels, reference src/spral/assemble.cu).
     groups: list = []
     ea_by_dst: dict = {}
     for s in range(ns):
@@ -423,11 +424,9 @@ def _device_plan(plan: FlatPlan, device) -> dict:
 
 
 def _device_plan_build(plan: FlatPlan, device) -> dict:
-    """Index tensors for the numeric phases.  Keeps the per-group chunking
-    and, for the extend-add, the buckets by child shape split into
-    OCCURRENCE LAYERS of same-parent children: within one layer no two
-    children share a parent, so their destinations are disjoint and a
-    gather-add without accumulation is exact and ordered."""
+    """Index tensors for the numeric phases: the per-group chunking of the
+    factor and, per tree level, the tables of the extend-add, small-front
+    factor and sweep kernels."""
     n, S = plan.n, plan.S
 
     def t64(a):
@@ -446,7 +445,6 @@ def _device_plan_build(plan: FlatPlan, device) -> dict:
         by_level.setdefault(g.level, []).append(g)
 
     for lv in sorted(by_level):
-        ea_ops: list = []
         chunks: list = []
         for g in by_level[lv]:
             Fd = g.Fpad
@@ -460,38 +458,11 @@ def _device_plan_build(plan: FlatPlan, device) -> dict:
                     ncols_host=nco,
                     ncols=torch.as_tensor(nco.astype(np.int32), device=device),
                 ))
-            if not g.ea:
-                continue
-            by_shape: dict = {}
-            for o in g.ea:
-                Um = max(8, _p2(o["u"]))
-                by_shape.setdefault((Um, o["fp_src"]), []).append(o)
-            for (Um, fps), olist in sorted(by_shape.items()):
-                layers: list = []
-                seen: dict = {}
-                for o in olist:
-                    j = seen.get(o["ppar"], 0)
-                    seen[o["ppar"]] = j + 1
-                    while len(layers) <= j:
-                        layers.append([])
-                    layers[j].append(o)
-                cap = max(1, _EA_ELEMS // (Um * Um))
-                for lay in layers:
-                    for s0 in range(0, len(lay), cap):
-                        sub = lay[s0:s0 + cap]
-                        pt = np.full((len(sub), Um), -1, np.int64)
-                        for k2, o in enumerate(sub):
-                            pt[k2, :o["u"]] = o["ppos"]
-                        ea_ops.append(dict(
-                            Um=Um, fps=fps, Fd=Fd, nc=len(sub),
-                            sstart=t64([o["sbase"] + o["sncols"] * fps
-                                        + o["sncols"] for o in sub]),
-                            pbase=t64([g.goff + o["ppar"] * Fd * Fd
-                                       for o in sub]),
-                            ppos=t64(pt)))
         small = [c for c in chunks if c["Fpad"] <= MAX_KERNEL_FRONT]
+        ea = [(g.goff, g.Fpad, g.ea) for g in by_level[lv] if g.ea]
         dev["levels"].append(dict(
-            ea=ea_ops, fac=chunks,
+            # every child of the level is added into its parent by one call
+            ea=build_ea_level(ea, device) if ea else None, fac=chunks,
             # every small front of the level is factored by one kernel call
             ldlt=build_ldlt_items(
                 [(c["goff"], c["Fpad"], c["ncols_host"]) for c in small],
@@ -539,25 +510,6 @@ def _partial_ldlt_blocked(F, ncols, nblocks: int, B: int,
                                       alpha=-1.0)
 
 
-def _ea_apply(store, o, S: int) -> None:
-    """Extend-add of one bucket layer: each child's (u, u) Schur block is
-    read from its front and added into its parent front at ``ppos``.
-    Padded positions (ppos < 0) are routed to the spare slot ``S``, which
-    holds 0 and receives 0.  Destinations are otherwise distinct, so the
-    add is exact and ordered."""
-    Um, fps, Fd = o["Um"], o["fps"], o["Fd"]
-    ar = torch.arange(Um, device=store.device)
-    pp = o["ppos"]
-    valid = pp >= 0
-    mask = valid[:, :, None] & valid[:, None, :]
-    src = (o["sstart"][:, None, None] + (ar * fps)[None, :, None]
-           + ar[None, None, :])
-    dst = (o["pbase"][:, None] + pp * Fd)[:, :, None] + pp[:, None, :]
-    src = torch.where(mask, src, S).reshape(-1)
-    dst = torch.where(mask, dst, S).reshape(-1)
-    store.index_add_(0, dst, store.index_select(0, src))
-
-
 @dataclasses.dataclass
 class FlatFactors:
     store: Any               # flat slab buffer holding every front (+1 spare)
@@ -597,8 +549,8 @@ def flat_factorize(plan: FlatPlan, vals, shift=0.0,
     _tick("assembly")
 
     for lvp in dev["levels"]:
-        for o in lvp["ea"]:
-            _ea_apply(store, o, S)
+        if lvp["ea"] is not None:
+            extend_add(store, lvp["ea"])
         _tick("extend_add")
         items = lvp["ldlt"]
         if items is not None:

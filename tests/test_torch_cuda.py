@@ -12,10 +12,12 @@ import pytest
 import torch
 
 from galahad_tpu_torch import make_sparse_qp
-from galahad_tpu_torch.linalg import ldlt_kernels
+from galahad_tpu_torch.linalg import ea_kernels, ldlt_kernels
 from galahad_tpu_torch.linalg import supernodal_flat as T
 from galahad_tpu_torch.linalg import sweep_kernels
 from galahad_tpu_torch.qp.ipm import ipm_solve
+
+from _torch_port_helpers import ea_synthetic_level, oracle_factorize
 
 pytestmark = pytest.mark.cuda
 
@@ -411,3 +413,89 @@ def test_ipm_on_the_card_matches_the_cpu_and_repeats_bitwise(cuda):
     np.testing.assert_allclose(xg.cpu().numpy(), xc.numpy(), rtol=0, atol=1e-8)
     xg2, yg2, zg2, _ = ipm_solve(grid_qp(12, cuda))
     assert torch.equal(xg, xg2) and torch.equal(yg, yg2) and torch.equal(zg, zg2)
+
+
+# ---------------------------------------------------------------------------
+# The extend-add kernel (csrc/extend_add.cu)
+# ---------------------------------------------------------------------------
+
+EA_LEVELS = {
+    "8": [(8, [1, 2, 4, 16])],
+    "32": [(32, [1, 2, 4, 16]), (8, [3, 1])],
+    "128": [(128, [1, 2, 4, 16]), (16, [2, 5])],
+    "512": [(512, [1, 2, 4, 16])],
+    "4096": [(4096, [1, 2]), (4096, [16], 512)],
+}
+
+
+def same_bits(a, b):
+    """Bitwise equality, NaN included."""
+    it = torch.int64 if a.dtype == torch.float64 else torch.int32
+    return a.dtype == b.dtype and torch.equal(a.view(it), b.view(it))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", sorted(EA_LEVELS))
+def test_extend_add_kernel_matches_plain_bitwise(cuda, case, dtype):
+    # NaN in every child entry outside its Schur block and in every parent
+    # entry no child reaches: the kernel must neither read nor write them
+    store_np, batches, reached = ea_synthetic_level(EA_LEVELS[case], seed=len(case))
+    store = torch.as_tensor(store_np, dtype=dtype, device=cuda)
+    lvl = ea_kernels.build_ea_level(batches, cuda)
+    before = ea_kernels.ea_counts()
+    got = store.clone()
+    ea_kernels.extend_add(got, lvl)
+    after = ea_kernels.ea_counts()
+    assert after["calls"] == before["calls"] + 1
+    assert after["kernels"] == before["kernels"] + lvl.kernels == before["kernels"] + 1
+    assert after["plain"] == before["plain"]
+    ref = store.clone()
+    ea_kernels.extend_add_plain(ref, lvl)
+    assert same_bits(got, ref)
+    reached = torch.as_tensor(reached, device=cuda)
+    assert bool(torch.isfinite(got[reached]).all())
+    assert same_bits(got[~reached & torch.isnan(store)], store[~reached & torch.isnan(store)])
+    again = store.clone()
+    ea_kernels.extend_add(again, lvl)
+    assert same_bits(again, got)                             # bitwise repeat
+
+
+def test_extend_add_kernel_refuses_what_it_does_not_take(cuda):
+    store_np, batches, _ = ea_synthetic_level([(32, [2, 3])], seed=0)
+    store = torch.as_tensor(store_np, device=cuda)
+    lvl = ea_kernels.build_ea_level(batches, cuda)
+    ea_kernels.extend_add(store.clone(), lvl)                # this one is taken
+    with pytest.raises(TypeError):                           # wrong dtype
+        ea_kernels.extend_add(store.half(), lvl)
+    with pytest.raises(ValueError):                          # tables on another device
+        ea_kernels.extend_add(store, ea_kernels.build_ea_level(batches, "cpu"))
+    with pytest.raises(ValueError):                          # store on another device
+        ea_kernels.extend_add(store.cpu(), lvl)
+    with pytest.raises(ValueError):                          # not contiguous
+        ea_kernels.extend_add(torch.zeros(2 * store.numel(), dtype=store.dtype,
+                                          device=cuda)[::2], lvl)
+    with pytest.raises(ValueError):                          # too short
+        ea_kernels.extend_add(store[:10], lvl)
+
+
+def test_flat_factorize_on_the_card_runs_only_the_extend_add_kernel(cuda):
+    qp = grid_qp(16, "cpu")
+    n, m = qp.n, qp.m
+    rows = np.concatenate([qp.h_pat.rows, qp.a_pat.rows + n, np.arange(n + m)])
+    cols = np.concatenate([qp.h_pat.cols, qp.a_pat.cols, np.arange(n + m)])
+    vals = np.concatenate([qp.h_vals.numpy(), qp.a_vals.numpy(),
+                           np.full(n, 1.0), np.full(m, -1.0)])
+    plan = T.flat_analyse(rows, cols, n + m, relax_cols=16)
+    levels = sum(lvp["ea"] is not None for lvp in T._device_plan(plan, cuda)["levels"])
+    before = ea_kernels.ea_counts()
+    fac = T.flat_factorize(plan, torch.as_tensor(vals, device=cuda))
+    after = ea_kernels.ea_counts()
+    assert 0 < after["calls"] - before["calls"] == after["kernels"] - before["kernels"] \
+        == levels
+    assert after["plain"] == before["plain"]
+    # the bucketed composition this replaced, on the card: the same bits
+    old, calls = oracle_factorize(T, plan, torch.as_tensor(vals, device=cuda))
+    assert calls == levels
+    assert torch.equal(fac.store, old.store)
+    assert torch.equal(T.flat_factorize(plan, torch.as_tensor(vals, device=cuda)).store,
+                       fac.store)

@@ -186,18 +186,24 @@ def test_two_runs_give_the_same_bits():
 
 
 def test_extend_add_layers_have_distinct_parents():
-    """Within one extend-add op no two children share a parent front, so
-    the gather-add needs no accumulation."""
+    """Within one rank of the extend-add's table (the children that the plain
+    version adds in one gather-add) no two children share a parent front, so
+    the gather-add needs no accumulation; every child record is in the table
+    once, the children of a parent together."""
     A = grid_laplacian(20)
     Al = sp.tril(A).tocoo()
     pt = T.flat_analyse(Al.row, Al.col, A.shape[0], relax_cols=16)
     dev = T._device_plan(pt, torch.device("cpu"))
-    n_ops = 0
+    n_layers = 0
     for lv in dev["levels"]:
-        for o in lv["ea"]:
-            pb = o["pbase"].numpy()
-            assert len(np.unique(pb)) == len(pb)
-            n_ops += 1
-    assert n_ops > 0
+        if lv["ea"] is None:
+            continue
+        pb = lv["ea"].children[:, 3]
+        for sel in lv["ea"].layers:
+            assert len(np.unique(pb[sel])) == len(sel)
+            n_layers += 1
+        starts = np.flatnonzero(np.concatenate([[True], pb[1:] != pb[:-1]]))
+        assert len(np.unique(pb)) == len(starts)          # one run per parent
+    assert n_layers > 0
     assert sum(len(g.ea) for g in pt.groups) == sum(
-        o["nc"] for lv in dev["levels"] for o in lv["ea"])
+        len(lv["ea"].children) for lv in dev["levels"] if lv["ea"] is not None)
