@@ -16,8 +16,11 @@ JSON line per phase:
                 card, with time and bound per shape: the small-front
                 partial LDL^T at Fpad in {8..128} x nb in {1, 37, 4096} x
                 {float32, float64}, and through its work-item table; the
-                panel kernel at Fpad in {192..4096} x ch in {1, 8} x
-                {float32, float64} x three panels, on strided views; the
+                wide-front kernel on synthetic tree levels of fronts of
+                Fpad in {192, 384, 1024, 4096} (1 and 8 fronts, ncols of 0,
+                1, 31, 33, partial and nf, nf < Fpad) and one level that
+                mixes them, x {float32, float64}, with NaN in every entry it
+                may not touch, two runs bitwise equal; the
                 sweep kernels on synthetic tree levels of every front size
                 in {8..4096} x {float32, float64}, ncols of 0, 1, partial
                 and full, fronts sharing struct rows, two runs bitwise equal;
@@ -33,7 +36,10 @@ JSON line per phase:
                 one factorization's levels with and without its padded
                 entries (routed to one spare slot), and held bitwise to
                 the kernel
-  8. kernels    one line about every hand-written kernel on that path
+  8. kernels    one line about every hand-written kernel on that path; the
+                ``ldlt_wide`` entry also times the parent's 519 ``baddbmm_``
+                trailing products on the same shapes (``update_library_ms``),
+                as the yardstick of the in-kernel update
 
 and, as its last line, ``{"ok": true, "device": {...}}``.  Any failed
 phase ends the run with a non-zero exit code and no such line.  Without
@@ -60,7 +66,9 @@ K_FLAGSHIP = 316
 TOL = {torch.float32: 1e-4, torch.float64: 1e-11}   # x max|plain result|
 TPU_KERNEL = "galahad_tpu/linalg/pallas_kernels.py:129"
 SOURCE = "galahad_tpu_torch/csrc/partial_ldlt.cu"
-PANEL_SOURCE = "galahad_tpu_torch/csrc/ldlt_panel.cu"
+WIDE_SOURCE = "galahad_tpu_torch/csrc/ldlt_wide.cu"
+TPU_WIDE = (TPU_KERNEL + " (fronts > 128: its XLA twin galahad_tpu/linalg/"
+            "supernodal_flat.py:684 _partial_ldlt_dyn, through _k_factor_scan :852)")
 SWEEP_SOURCE = "galahad_tpu_torch/csrc/sweep.cu"
 TPU_FWD_SWEEP = "galahad_tpu/linalg/supernodal_flat.py:915"
 TPU_BWD_SWEEP = "galahad_tpu/linalg/supernodal_flat.py:955"
@@ -69,7 +77,8 @@ TPU_EA = ("galahad_tpu/linalg/supernodal_flat.py:779 (_ea_slot_apply) / :795 "
           "(_ea_q_apply)")
 MAX_SWEEP_LAUNCHES_PER_SOLVE = 150
 MAX_EA_CALLS_PER_FACTORIZATION = 18
-PANEL = ldlt_kernels.PANEL
+MAX_WIDE_CALLS_PER_FACTORIZATION = 18
+PANEL_W = ldlt_kernels.PANEL
 
 
 class SmokeFailure(RuntimeError):
@@ -235,7 +244,7 @@ def phase_build():
 
     jobs = [("native_symbolic_s", native_build.load_symbolic),
             ("partial_ldlt_s", ldlt_kernels._library),
-            ("ldlt_panel_s", ldlt_kernels._panel_library),
+            ("ldlt_wide_s", ldlt_kernels._wide_library),
             ("sweep_s", sweep_kernels._library),
             ("extend_add_s", ea_kernels._library)]
     t0 = time.perf_counter()
@@ -246,7 +255,7 @@ def phase_build():
         th.join()
     check(not errors, "build failed: " + " | ".join(errors))
     ptxas = {}
-    for src in ("partial_ldlt.cu", "ldlt_panel.cu", "sweep.cu", "extend_add.cu"):
+    for src in ("partial_ldlt.cu", "ldlt_wide.cu", "sweep.cu", "extend_add.cu"):
         log = _cuda_build.build_info.get(src, {}).get("log", "")
         ptxas[src] = [ln.split("ptxas info    : ")[-1] for ln in log.splitlines()
                       if "registers" in ln or "error" in ln.lower()
@@ -303,16 +312,18 @@ def phase_kernel():
     check(torch.equal(ldlt_kernels.partial_ldlt(F, zero), F),
           "ncols == 0 must leave the fronts untouched")
     items_rows = kernel_items_cases(gen)
-    panel_rows = kernel_panel_cases(gen)
+    wide_rows = kernel_wide_cases()
     sweep_rows = kernel_sweep_cases()
     ea_rows = kernel_ea_cases()
     emit("kernel", tolerance="max|kernel-plain| <= 1e-4*scale (float32), "
          "1e-11*scale (float64), scale = max|plain| >= 1; partial_ldlt: on the "
          "lower triangle of eliminated columns and the whole trailing square; "
-         "ldlt_panel: on every entry of the panel, of W and of Lm; sweeps: on "
+         "ldlt_wide: on the lower triangle of eliminated columns and the whole "
+         "trailing square of each front's real rows, and bitwise on every entry "
+         "it may not touch (NaN); sweeps: on "
          "every entry of y after the forward and after the backward sweep; "
          "extend_add: bitwise equal on every entry of the store, NaN included",
-         shapes=rows, items=items_rows, panel_shapes=panel_rows,
+         shapes=rows, items=items_rows, wide_shapes=wide_rows,
          sweep_shapes=sweep_rows, ea_shapes=ea_rows)
 
 
@@ -361,86 +372,116 @@ def kernel_items_cases(gen):
     return out_rows
 
 
-def compare_panel(P0, ncols, b):
-    """Kernel and plain version on copies of the slab ``P0``: checks that
-    they agree on every entry of the slab, of W and of Lm, and returns
-    (max abs err, tolerance, ms of the plain version)."""
-    Pk, Pp = P0.clone(), P0.clone()
-    W = torch.full_like(P0, float("nan"))
-    Lm = torch.full_like(P0, float("nan"))
-    ldlt_kernels.ldlt_panel_slab(Pk, ncols, b, W, Lm)
-    plain: list = []
-    plain_ms = event_ms(
-        lambda: plain.extend(ldlt_kernels.ldlt_panel_slab_plain(Pp, ncols, b)))
-    Wp, Lp = plain
-    for t in (Pk, W, Lm):
-        check(bool(torch.isfinite(t).all()), "panel kernel produced non-finite values")
-    err = max(float((Pk - Pp).abs().max()), float((W - Wp).abs().max()),
-              float((Lm - Lp).abs().max()))
-    tol = TOL[P0.dtype] * max(1.0, float(Pp.abs().max()), float(Wp.abs().max()))
-    check(err <= tol, f"panel kernel disagrees with its plain version: panel "
-          f"{tuple(P0.shape)} b={b} {P0.dtype}: err {err:.3e} > {tol:.3e}")
+def wide_specs(Fpad: int, count: int):
+    """(ncols, nf) of the fronts of one synthetic level: 0, 1, 31, 33, partial
+    and full elimination, nf below and at Fpad."""
+    nf = Fpad - 29
+    if count == 1:
+        return [(nf - 45, nf)]
+    return [(nf, nf), (nf - 45, nf), (33, nf - 7), (1, nf - 3), (31, nf), (0, nf - 1),
+            (Fpad // 2, Fpad), (Fpad - 64, Fpad - 60)][:count]
+
+
+WIDE_CASES = [(f"{Fpad}x{count}", [(Fpad, nc, nf) for nc, nf in wide_specs(Fpad, count)])
+              for Fpad in (192, 384, 1024, 4096) for count in (1, 8)]
+WIDE_CASES.append(("mixed", [(192, 150, 190), (1024, 700, 1000), (384, 1, 290),
+                             (256, 0, 200), (384, 300, 384), (192, 33, 180),
+                             (4096, 200, 3000)]))
+
+
+def wide_level_store(specs, dtype, seed):
+    """A flat store on the card holding the fronts ``specs = [(Fpad, ncols,
+    nf), ...]`` (symmetric definite of either sign on the leading nf x nf
+    block) with NaN in every entry the kernel may neither read nor write: rows
+    and columns at or beyond nf, the upper triangle of rows < ncols, and the
+    gaps between fronts.  Returns (store, level table, contract mask)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    rows, off = [], 40
+    for Fpad, nc, nf in specs:
+        rows.append((off, Fpad, nc, nf))
+        off += Fpad * Fpad + 40
+    store = torch.full((off,), float("nan"), dtype=dtype, device="cuda")
+    contract = torch.zeros(off, dtype=torch.bool, device="cuda")
+    for i, (o, Fpad, nc, nf) in enumerate(rows):
+        G = torch.randn(nf, nf, dtype=torch.float64, device="cuda", generator=gen)
+        A = (G @ G.T / nf + torch.eye(nf, dtype=torch.float64, device="cuda")) \
+            * (1.0 if i % 2 == 0 else -1.0)
+        ar = torch.arange(nf, device="cuda")
+        r, c = ar[:, None], ar[None, :]
+        A[(r < c) & (r < nc)] = float("nan")
+        store[o:o + Fpad * Fpad].view(Fpad, Fpad)[:nf, :nf] = A.to(dtype)
+        contract[o:o + Fpad * Fpad].view(Fpad, Fpad)[:nf, :nf] = \
+            ((c < nc) & (r >= c)) | ((r >= nc) & (c >= nc))
+        del G, A
+    return store, ldlt_kernels.build_wide_level(rows, "cuda"), contract
+
+
+def wide_contract(lvl, n: int):
+    """Mask over a buffer of ``n`` entries: the entries of the level's fronts
+    that the storage contract specifies (within each front's real rows)."""
+    mask = torch.zeros(n, dtype=torch.bool, device="cuda")
+    for off, Fpad, nc, nf in lvl.fronts.tolist():
+        ar = torch.arange(nf, device="cuda")
+        r, c = ar[:, None], ar[None, :]
+        mask[off:off + Fpad * Fpad].view(Fpad, Fpad)[:nf, :nf] = \
+            ((c < nc) & (r >= c)) | ((r >= nc) & (c >= nc))
+    return mask
+
+
+def compare_wide(store, lvl, contract, what: str):
+    """Kernel and plain version on copies of ``store``: checks that they agree
+    on the contract's entries, that the kernel wrote no other entry (NaN there
+    in the synthetic levels), made one launch, never entered the
+    plain version, and gives the same bits twice.  Returns (max abs err,
+    tolerance, ms of the plain version)."""
+    got, ref = store.clone(), store.clone()
+    launches, plain = ldlt_kernels.wide_launch_count(), ldlt_kernels.wide_plain_count()
+    ldlt_kernels.partial_ldlt_wide(got, lvl)
+    made = ldlt_kernels.wide_launch_count() - launches
+    check(made == 1, f"ldlt_wide: {made} kernel launches in one call ({what})")
+    check(ldlt_kernels.wide_plain_count() == plain,
+          f"ldlt_wide: the plain version ran inside the kernel's call ({what})")
+    plain_ms = event_ms(lambda: ldlt_kernels.partial_ldlt_wide_plain(ref, lvl))
+    check(bool(torch.isfinite(got[contract]).all()),
+          f"ldlt_wide kernel produced non-finite values ({what})")
+    err = float((got[contract] - ref[contract]).abs().max())
+    tol = TOL[store.dtype] * max(1.0, float(ref[contract].abs().max()))
+    check(err <= tol, f"ldlt_wide kernel disagrees with its plain version ({what}, "
+          f"{store.dtype}): err {err:.3e} > {tol:.3e}")
+    untouched = ~contract
+    check(same_bits(got[untouched], store[untouched]),
+          f"ldlt_wide kernel wrote an entry outside the contract ({what})")
+    again = store.clone()
+    ldlt_kernels.partial_ldlt_wide(again, lvl)
+    check(same_bits(again, got), f"ldlt_wide kernel: two runs differ ({what})")
+    del got, ref, again
     return err, tol, plain_ms
 
 
-def kernel_panel_cases(gen):
+def kernel_wide_cases():
+    """The wide-front kernel on one synthetic level per case, against its plain
+    version, with time and bound."""
     out_rows = []
-    for dtype in (torch.float32, torch.float64):
-        for Fpad in (192, 256, 512, 1024, 2048, 4096):
-            for ch in ((1,) if Fpad == 4096 else (1, 8)):
-                # a strided view of a larger buffer: rows 8 elements longer
-                # than the front, and an offset that breaks 16-byte alignment
-                big = torch.zeros(3 + ch * Fpad * (Fpad + 8), dtype=dtype, device="cuda")
-                F = big[3:].view(ch, Fpad, Fpad + 8)[:, :, :Fpad]
-                for i in range(ch):
-                    G = torch.randn(Fpad, Fpad, dtype=dtype, device="cuda", generator=gen)
-                    F[i] = (G @ G.T / Fpad + torch.eye(Fpad, dtype=dtype, device="cuda")) \
-                        * (1.0 if i % 2 == 0 else -1.0)
-                    del G
-                for b in (0, (Fpad // 2 // PANEL) * PANEL, Fpad - 2 * PANEL):
-                    # ncols: none active, inside the panel, past it, and random
-                    pool = [0, b + 5, b + PANEL, Fpad, b + 17, b + 31, b + 1, Fpad - 1]
-                    ncols = torch.tensor(pool[4:5] if ch == 1 else pool[:ch],
-                                         dtype=torch.int32, device="cuda")
-                    slab = F[:, b:, b:b + PANEL]
-                    P0 = slab.clone()
-                    err, tol, plain_ms = compare_panel(P0, ncols, b)
-                    # the same call on the strided view itself, in place
-                    W = torch.empty(ch, Fpad - b, PANEL, dtype=dtype, device="cuda")
-                    Lm = torch.empty_like(W)
-                    ms = time_each_ms(
-                        lambda: slab.copy_(P0),
-                        lambda: ldlt_kernels.ldlt_panel(F, ncols, b, PANEL, W, Lm), reps=5)
-                    Pk = P0.clone()
-                    W2, L2 = torch.empty_like(W), torch.empty_like(W)
-                    ldlt_kernels.ldlt_panel_slab(Pk, ncols, b, W2, L2)
-                    check(torch.equal(slab, Pk) and torch.equal(W, W2)
-                          and torch.equal(Lm, L2),
-                          "panel kernel: strided view and contiguous slab differ")
-                    slab.copy_(P0)
-                    copies = [P0.clone() for _ in range(5)]
-                    dev_ms = queued_ms([
-                        lambda Pc=Pc: ldlt_kernels.ldlt_panel_slab(Pc, ncols, b, W2, L2)
-                        for Pc in copies]) / len(copies)
-                    bound, by = ldlt_kernels.ldlt_panel_bound_ms(
-                        ncols, Fpad - b, b, dtype)
-                    out_rows.append(dict(dtype=str(dtype).split(".")[1], Fpad=Fpad,
-                                         ch=ch, b=b, max_abs_err=err, tol=tol, ms=ms,
-                                         device_ms=dev_ms, plain_ms=plain_ms,
-                                         bound_ms=bound, bound_by=by))
-                del F, big
-    # untouched outside the panel: one more call, whole chunk compared
-    Fpad, ch, b = 256, 3, 64
-    G = torch.randn(ch, Fpad, Fpad, dtype=torch.float64, device="cuda", generator=gen)
-    F = G @ G.transpose(-1, -2) / Fpad + torch.eye(Fpad, dtype=torch.float64, device="cuda")
-    ncols = torch.tensor([0, 70, 256], dtype=torch.int32, device="cuda")
-    F0 = F.clone()
-    W = torch.empty(ch, Fpad - b, PANEL, dtype=torch.float64, device="cuda")
-    ldlt_kernels.ldlt_panel(F, ncols, b, PANEL, W, torch.empty_like(W))
-    outside = torch.ones_like(F, dtype=torch.bool)
-    outside[:, b:, b:b + PANEL] = False
-    check(torch.equal(F[outside], F0[outside]), "panel kernel wrote outside its panel")
-    check(torch.equal(F[0], F0[0]), "a front with no active column must stay untouched")
+    for name, specs in WIDE_CASES:
+        for dtype in (torch.float32, torch.float64):
+            store, lvl, contract = wide_level_store(specs, dtype, seed=len(name))
+            check(bool(torch.isnan(store[~contract]).all()),
+                  f"ldlt_wide case {name}: NaN must fill every entry off the contract")
+            err, tol, plain_ms = compare_wide(store, lvl, contract, f"case {name}")
+            work = store.clone()
+            ms = time_each_ms(lambda: work.copy_(store),
+                              lambda: ldlt_kernels.partial_ldlt_wide(work, lvl), reps=3)
+            copies = [store.clone() for _ in range(3)]
+            dev_ms = queued_ms([lambda c=c: ldlt_kernels.partial_ldlt_wide(c, lvl)
+                                for c in copies]) / len(copies)
+            bound, by = ldlt_kernels.wide_bound_ms(lvl, dtype)
+            out_rows.append(dict(
+                dtype=str(dtype).split(".")[1], case=name, fronts=len(specs),
+                steps=lvl.steps, launches=1, max_abs_err=err, tol=tol, ms=ms,
+                device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                bitwise_repeat=True, nan_untouched=True))
+            del store, contract, work, copies
     return out_rows
 
 
@@ -761,14 +802,18 @@ def phase_kkt(qp):
     samples.sort()
     t_factor, t_factor_enqueue = samples[1]       # the median factorization
     launches = ldlt_kernels.launch_count()
-    panel_launches = ldlt_kernels.panel_launch_count()
+    wide_calls = ldlt_kernels.wide_launch_count()       # one launch per call
     ea = ea_kernels.ea_counts()
     inertia = fac.inertia.tolist()
     check(inertia == [n, m, 0], f"inertia {inertia} != {[n, m, 0]}")
     check(launches > 0, "the small-front factor kernel was not launched")
-    check(panel_launches > 0, "the panel kernel was not launched")
-    check(ldlt_kernels.panel_plain_count() == 0,
-          "the plain panel code ran in a factorization on the card")
+    wide_levels = sum(lvp["wide"] is not None for lvp in dev["levels"])
+    check(wide_calls > 0, "the wide-front kernel was not launched")
+    check(wide_calls == wide_levels <= MAX_WIDE_CALLS_PER_FACTORIZATION,
+          f"{wide_calls} wide-front calls in one factorization (levels with wide fronts "
+          f"{wide_levels}, limit {MAX_WIDE_CALLS_PER_FACTORIZATION})")
+    check(ldlt_kernels.wide_plain_count() == 0,
+          "the plain wide-front code ran in a factorization on the card")
     ea_levels = sum(lvp["ea"] is not None for lvp in dev["levels"])
     check(ea["calls"] > 0 and ea["kernels"] > 0, "the extend-add kernel was not launched")
     check(ea["plain"] == 0, "the plain extend-add ran in a factorization on the card")
@@ -808,7 +853,7 @@ def phase_kkt(qp):
           f"{MAX_SWEEP_LAUNCHES_PER_SOLVE}")
     emit("kkt", n=n, m=m, n_kkt=n + m, S=sym.S, nnz_L=sym.nnz_L, ns=sym.ns,
          flops_model=sym.flops, groups=len(sym.groups),
-         levels=len(dev["levels"]), chunks=len(dev["chunks"]),
+         levels=len(dev["levels"]),
          ea_ops=ea_levels,
          fpad_histogram={str(k): v for k, v in sorted(hist.items())},
          store_bytes=(sym.S + 1) * 8, inertia=inertia,
@@ -826,7 +871,8 @@ def phase_kkt(qp):
          sweep_fwd_kernel_launches_per_solve=sweeps["fwd_kernels"],
          sweep_bwd_kernel_launches_per_solve=sweeps["bwd_kernels"],
          kernel_launches_per_factorization=launches,
-         panel_launches_per_factorization=panel_launches,
+         wide_calls_per_factorization=wide_calls,
+         wide_plain_calls=ldlt_kernels.wide_plain_count(),
          ea_calls_per_factorization=ea["calls"],
          ea_kernel_launches_per_factorization=ea["kernels"],
          ea_children=sum(len(lvp["ea"].children) for lvp in dev["levels"] if lvp["ea"]),
@@ -834,7 +880,9 @@ def phase_kkt(qp):
                         for lvp in dev["levels"] if lvp["ea"]),
          ea_tiles=sum(int(lvp["ea"].tiles.shape[0]) for lvp in dev["levels"] if lvp["ea"]),
          ea_pairs=sum(int(lvp["ea"].pairs.shape[0]) for lvp in dev["levels"] if lvp["ea"]),
-         wide_chunks=sum(len(lv["wide"]) for lv in dev["levels"]))
+         wide_fronts=sum(len(lv["wide"].fronts) for lv in dev["levels"] if lv["wide"]),
+         wide_levels=wide_levels,
+         wide_panel_steps=[lv["wide"].steps for lv in dev["levels"] if lv["wide"]])
     return plan, D_x, C_diag, b, launches
 
 
@@ -894,8 +942,8 @@ def phase_flagship(qp, launches_per_factorization: int):
     peak_bytes = torch.cuda.max_memory_allocated()
     sweeps = sweep_kernels.sweep_counts()
     launches = ldlt_kernels.launch_count()
-    panel_launches = ldlt_kernels.panel_launch_count()
-    panel_plain = ldlt_kernels.panel_plain_count()
+    wide_calls = ldlt_kernels.wide_launch_count()       # one launch per call
+    wide_plain = ldlt_kernels.wide_plain_count()
     ea = ea_kernels.ea_counts()
     # small-front factor calls per factorization, as the kkt phase counted them
     factorizations = launches / launches_per_factorization
@@ -907,8 +955,10 @@ def phase_flagship(qp, launches_per_factorization: int):
     kkt, r_p, r_d, comp = host_kkt(qp, x, y, z)
     check(kkt <= 1e-6, f"flagship host KKT error {kkt:.3e} > 1e-6")
     check(launches > 0, "the main path did not launch the small-front factor kernel")
-    check(panel_launches > 0, "the main path did not launch the panel kernel")
-    check(panel_plain == 0, "the main path entered the plain panel code on the card")
+    check(wide_calls > 0, "the main path did not launch the wide-front kernel")
+    check(wide_plain == 0, "the main path entered the plain wide-front code on the card")
+    check(wide_calls <= MAX_WIDE_CALLS_PER_FACTORIZATION * factorizations,
+          f"{wide_calls} wide-front calls in {factorizations:g} factorizations")
     check(sweeps["fwd"] > 0, "the main path did not launch the forward sweep kernels")
     check(sweeps["bwd"] > 0, "the main path did not launch the backward sweep kernels")
     check(sweeps["plain"] == 0, "the main path entered the plain sweeps on the card")
@@ -927,8 +977,8 @@ def phase_flagship(qp, launches_per_factorization: int):
          host_kkt=kkt, host_r_p=r_p, host_r_d=r_d, host_comp=comp,
          objective=st.inform.obj, wall_s=wall, s_per_iteration=wall / max(st.iter, 1),
          analyse_s=st.inform.time.analyse, solve_s=st.inform.time.solve,
-         kernel_launches=launches, panel_launches=panel_launches,
-         panel_plain_calls=panel_plain,
+         kernel_launches=launches, wide_calls=wide_calls, wide_plain_calls=wide_plain,
+         wide_calls_per_factorization=wide_calls / factorizations,
          sweep_fwd_calls=sweeps["fwd"], sweep_bwd_calls=sweeps["bwd"],
          sweep_fwd_kernel_launches=sweeps["fwd_kernels"],
          sweep_bwd_kernel_launches=sweeps["bwd_kernels"],
@@ -945,7 +995,7 @@ def phase_flagship(qp, launches_per_factorization: int):
              refinement_matvecs=split.get("matvec", 0.0),
              fetch=split.get("fetch", 0.0), rest=split.get("rest", 0.0),
              total=t3, iterations=st3.iter))
-    return dict(partial_ldlt=launches, ldlt_panel=panel_launches,
+    return dict(partial_ldlt=launches, ldlt_wide=wide_calls,
                 extend_add=ea["calls"], extend_add_kernels=ea["kernels"],
                 sweep_fwd=sweeps["fwd"], sweep_bwd=sweeps["bwd"],
                 sweep_fwd_kernels=sweeps["fwd_kernels"],
@@ -1160,6 +1210,86 @@ def phase_spare_slot(sym, store0, kernel_entry):
          seconds=time.perf_counter() - t0)
 
 
+def parent_update_ops(sym, store):
+    """The trailing products of the blocked composition that the wide-front
+    kernel replaced: per chunk of wide fronts (the plan's chunking) and per
+    32-column panel ``b`` with columns right of it, ``F[:, b:, b+32:] -= W @
+    Lm[:, 32:, :]^T`` as one ``baddbmm_`` on a view of ``store``, with ``W`` and
+    ``Lm`` of the parent's shapes ``(ch, Fpad-b, 32)``, filled with the chunk's
+    first panel of factors."""
+    ops = []
+    for g in sym.groups:
+        Fp = g.Fpad
+        if Fp <= ldlt_kernels.MAX_KERNEL_FRONT:
+            continue
+        for off, ch in supernodal_flat._chunks_of(g.nb, Fp):
+            goff = g.goff + off * Fp * Fp
+            F = store[goff:goff + ch * Fp * Fp].view(ch, Fp, Fp)
+            W = F[:, :, :PANEL_W].clone()
+            for b in range(0, int(np.max(g.ncols[off:off + ch])), PANEL_W):
+                if b + PANEL_W < Fp:
+                    ops.append((F[:, b:, b + PANEL_W:], W[:, b:, :],
+                                W[:, b + PANEL_W:, :].transpose(-1, -2)))
+    return ops
+
+
+def wide_kernel_entry(sym, wides, store, main_path_launches):
+    """The ``ldlt_wide`` entry of the ``kernels`` line: all calls of one
+    factorization of the flagship KKT (one per tree level with wide fronts),
+    replayed on the windows of the store that the factorization gave them,
+    and the parent's trailing products on a copy of that factorization's
+    store as the yardstick of the in-kernel update."""
+    err = plain_ms = 0.0
+    for win, lvl in wides:
+        e, _, p = compare_wide(win, lvl, wide_contract(lvl, win.numel()),
+                               f"the flagship's level of {len(lvl.fronts)} wide fronts")
+        err = max(err, e)
+        plain_ms += p
+    works = [win.clone() for win, _ in wides]
+
+    def fresh():
+        for w, (win, _) in zip(works, wides):
+            w.copy_(win)
+
+    def run():
+        for w, (_, lvl) in zip(works, wides):
+            ldlt_kernels.partial_ldlt_wide(w, lvl)
+
+    ms = time_each_ms(fresh, run, reps=3)
+    fresh()
+    dev_ms = queued_ms([run])
+    fresh()
+    per_level = each_device_ms([lambda w=w, lvl=lvl: ldlt_kernels.partial_ldlt_wide(w, lvl)
+                                for w, (_, lvl) in zip(works, wides)])
+    del works
+    levels = [lvl for _, lvl in wides]
+    tb, to = ldlt_kernels.wide_bound_terms(levels, store.dtype)
+    # the parent's 519 library products, on a copy of the factored store
+    copy = store.clone()
+    ops = parent_update_ops(sym, copy)
+    thunks = [lambda o=o: o[0].baddbmm_(o[1], o[2], alpha=-1.0) for o in ops]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    update_host_ms = event_ms(lambda: [fn() for fn in thunks])
+    update_ms = queued_ms(thunks)
+    n_products = len(ops)
+    del ops, thunks, copy
+    return dict(
+        name="ldlt_wide", route="cuda", source=WIDE_SOURCE, replaces=TPU_WIDE,
+        launches=main_path_launches["ldlt_wide"], max_abs_err=err, ms=ms, device_ms=dev_ms,
+        plain_ms=plain_ms, bound_ms=max(tb, to) * 1e3,
+        bound_by="bytes" if tb >= to else "operations",
+        bound_bytes_ms=tb * 1e3, bound_operations_ms=to * 1e3, library_ms=None,
+        library_ms_reason="no single PyTorch call computes a non-pivoted partial LDL^T",
+        update_library_ms=update_ms, update_library_host_ms=update_host_ms,
+        update_library_calls=n_products,
+        per=f"one factorization of the flagship KKT ({len(levels)} calls, one per tree "
+            f"level with fronts wider than 128)",
+        fronts=sum(len(lvl.fronts) for lvl in levels),
+        panel_steps_per_tree_level=[lvl.steps for lvl in levels],
+        fronts_per_tree_level=[len(lvl.fronts) for lvl in levels],
+        device_ms_per_tree_level=[round(t, 4) for t in per_level])
+
+
 def phase_kernels(qp, plan, D_x, C_diag, b, main_path_launches):
     """The ``kernels`` line.  ``ms`` / ``plain_ms`` / ``bound_ms`` of a factor
     kernel are for ALL its calls in one factorization of the flagship KKT
@@ -1177,7 +1307,7 @@ def phase_kernels(qp, plan, D_x, C_diag, b, main_path_launches):
     fac = supernodal_flat.flat_factorize(plan.sym, vals, capture=captured)
     torch.cuda.synchronize()
     small = [c[1:] for c in captured if c[0] == "small"]     # (buffer, items)
-    panels = [c[1:] for c in captured if c[0] == "panel"]    # (slab, ncols, b)
+    wides = [c[1:] for c in captured if c[0] == "wide"]      # (window, level table)
 
     # --- partial_ldlt: one call per tree level, out of place -----------------
     outs = [torch.empty_like(buf) for buf, _ in small]
@@ -1213,32 +1343,6 @@ def phase_kernels(qp, plan, D_x, C_diag, b, main_path_launches):
     ms_small = time_ms(run_small, reps=5)
     dev_small = queued_ms([run_small])
 
-    # --- ldlt_panel: one call per panel of a wide chunk, in place ------------
-    scratch = [(torch.empty_like(P), torch.empty_like(P)) for P, _, _ in panels]
-    work: list = []
-
-    def fresh():
-        work[:] = [P.clone() for P, _, _ in panels]
-
-    def run_panels():
-        for Pw, (_, nc, b), (W, Lm) in zip(work, panels, scratch):
-            ldlt_kernels.ldlt_panel_slab(Pw, nc, b, W, Lm)
-
-    ms_panel = time_each_ms(fresh, run_panels, reps=3)
-    fresh()
-    dev_panel = queued_ms([
-        lambda Pw=Pw, nc=nc, b=b, W=W, Lm=Lm: ldlt_kernels.ldlt_panel_slab(Pw, nc, b, W, Lm)
-        for Pw, (_, nc, b), (W, Lm) in zip(work, panels, scratch)])
-    del work[:], scratch
-    err_panel = plain_panel_ms = tb_panel = to_panel = 0.0
-    for P, nc, pb in panels:
-        err, _, plain_ms = compare_panel(P, nc, pb)
-        err_panel = max(err_panel, err)
-        plain_panel_ms += plain_ms
-        tb, to = ldlt_kernels.ldlt_panel_bound_terms(nc, P.shape[1], pb, P.dtype)
-        tb_panel += tb
-        to_panel += to
-
     line = dict(kernels=[
         dict(name="partial_ldlt", route="cuda", source=SOURCE, replaces=TPU_KERNEL,
              launches=main_path_launches["partial_ldlt"], max_abs_err=err_small,
@@ -1248,17 +1352,10 @@ def phase_kernels(qp, plan, D_x, C_diag, b, main_path_launches):
              library_ms=None,
              per=f"one factorization of the flagship KKT ({len(small)} calls, "
                  f"one per tree level)",
-             fronts=sum(items.fronts for _, items in small)),
-        dict(name="ldlt_panel", route="cuda", source=PANEL_SOURCE, replaces=TPU_KERNEL,
-             launches=main_path_launches["ldlt_panel"], max_abs_err=err_panel,
-             ms=ms_panel, device_ms=dev_panel, plain_ms=plain_panel_ms,
-             bound_ms=max(tb_panel, to_panel) * 1e3,
-             bound_by="bytes" if tb_panel >= to_panel else "operations",
-             library_ms=None,
-             per=f"one factorization of the flagship KKT ({len(panels)} calls, "
-                 f"one per 32-column panel of a chunk of fronts wider than 128)",
-             fronts=sum(P.shape[0] for P, _, pb in panels if pb == 0))])
-    del small, panels, outs, captured
+             fronts=sum(items.fronts for _, items in small))])
+    del small, outs
+    line["kernels"].append(wide_kernel_entry(plan.sym, wides, fac.store, main_path_launches))
+    del wides, captured
     ea_entry = ea_kernel_entry(plan.sym, fac.store, main_path_launches)
     line["kernels"].append(ea_entry)
     phase_spare_slot(plan.sym, fac.store, ea_entry)

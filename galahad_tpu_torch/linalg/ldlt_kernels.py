@@ -2,23 +2,25 @@
 their wrappers and their plain PyTorch versions.
 
 Counterpart of galahad_tpu/linalg/pallas_kernels.py (``partial_ldlt_pallas``)
-and, for fronts wider than that kernel takes, of the panel step of its XLA
-twin ``_partial_ldlt_dyn``.  Two CUDA sources, built by ``nvcc`` and bound
-with ``ctypes`` at the first call on a CUDA tensor (see ``_cuda_build.py``);
-importing this module needs no card:
+and, for fronts wider than that kernel takes, of its XLA twin
+``_partial_ldlt_dyn`` (run through ``_k_factor_scan``).  Two CUDA sources,
+built by ``nvcc`` and bound with ``ctypes`` at the first call on a CUDA
+tensor (see ``_cuda_build.py``); importing this module needs no card:
 
 ``csrc/partial_ldlt.cu``  :func:`partial_ldlt` (a uniform batch) and
     :func:`partial_ldlt_items` (every small front of a tree level in one
     call, through a table of work items), ``Fpad`` in 8..128: fronts of
     8, 16, 32 in registers with a lane per row, fronts of 64, 96, 128 in
     shared memory in panels of 8 columns.
-``csrc/ldlt_panel.cu``    :func:`ldlt_panel`, one 32-column panel of a chunk
-    of fronts wider than 128, in place on a strided view of the store; the
-    trailing product stays a library matrix product in the caller.
+``csrc/ldlt_wide.cu``     :func:`partial_ldlt_wide`, every front wider than
+    128 of a tree level in one persistent cooperative launch (panels of 32
+    columns; the trailing update of the lower triangle on the float64 tensor
+    cores), through the work table of :func:`build_wide_level`.
 
 Storage contract (consumed by the solves and the extend-add): column
 ``j < ncols[i]`` of front ``i`` holds ``d_j`` on the diagonal and the
 unit-lower L below it; entries ABOVE the diagonal of eliminated columns
+(and, for the wide fronts, entries above the diagonal in a row ``< ncols``)
 are unspecified; the trailing square holds the Schur complement
 ``F22 - L21 D L21^T`` in both triangles.  A pivot with ``|d| <= 16 tiny``
 is left in place and divided by 1 instead.  Fronts are symmetric on entry.
@@ -26,10 +28,10 @@ is left in place and divided by 1 instead.  Fronts are symmetric on entry.
 Each wrapper takes its plain version only for a tensor on the CPU; on a
 CUDA tensor it launches its kernel (and counts the launch) or raises.
 
-Bounds on the card: :func:`ldlt_bound_ms` and :func:`ldlt_panel_bound_ms`
+Bounds on the card: :func:`ldlt_bound_ms` and :func:`wide_bound_ms`
 return the larger of the bytes (every input read once, every output
-written once) over the memory rate and the operations over the
-float32/float64 vector rate.
+written once) over the memory rate and the operations over the rate of
+the units the kernel uses.
 """
 from __future__ import annotations
 
@@ -43,39 +45,30 @@ from .._device import tiny16
 
 MAX_KERNEL_FRONT = 128
 KERNEL_FRONTS = (8, 16, 32, 64, 96, 128)     # the sizes partial_ldlt.cu serves
-PANEL = 32                                   # the panel width ldlt_panel.cu serves
+PANEL = 32                                   # the panel width ldlt_wide.cu serves
 _BLOCK_THREADS = 256                         # THREADS of partial_ldlt.cu
 
-# wrapper calls that launched a kernel: partial_ldlt / partial_ldlt_items, and
-# ldlt_panel; and calls of ldlt_panel_plain (0 on a path that runs on the card)
+# wrapper calls of partial_ldlt / partial_ldlt_items that launched a kernel
 _launches = 0
-_panel_launches = 0
-_panel_plain_calls = 0
 
 # NVIDIA H100 SXM data sheet: HBM3 3.35 TB/s; 67 TFLOP/s float32 and
-# 34 TFLOP/s float64 outside the tensor cores (dense, 700 W).
+# 34 TFLOP/s float64 outside the tensor cores, 67 TFLOP/s float64 on them
+# (dense, 700 W).
 H100_BYTES_PER_S = 3.35e12
 H100_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+H100_F64_TENSOR_FLOPS = 67e12
 
 
 def launch_count() -> int:
     return _launches
 
 
-def panel_launch_count() -> int:
-    return _panel_launches
-
-
-def panel_plain_count() -> int:
-    return _panel_plain_calls
-
-
 def reset_launch_count() -> None:
-    """Set all three counts to 0."""
-    global _launches, _panel_launches, _panel_plain_calls
+    """Set the counts of both kernels' wrappers to 0."""
+    global _launches
     _launches = 0
-    _panel_launches = 0
-    _panel_plain_calls = 0
+    for k in _wide:
+        _wide[k] = 0
 
 
 def partial_ldlt_plain(F: torch.Tensor, ncols: torch.Tensor) -> torch.Tensor:
@@ -120,22 +113,6 @@ def _library():
             fn.restype = ctypes.c_int
         lib.partial_ldlt_error_string.argtypes = [ctypes.c_int]
         lib.partial_ldlt_error_string.restype = ctypes.c_char_p
-        lib._typed = True
-    return lib
-
-
-def _panel_library():
-    from ._cuda_build import load_cuda_library
-
-    lib = load_cuda_library("ldlt_panel.cu")
-    if not getattr(lib, "_typed", False):
-        for fn in (lib.ldlt_panel_f32, lib.ldlt_panel_f64):
-            fn.argtypes = [_PTR, ctypes.c_longlong, ctypes.c_longlong, _PTR,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_int, _PTR, _PTR,
-                           ctypes.c_double, _PTR]
-            fn.restype = ctypes.c_int
-        lib.ldlt_panel_error_string.argtypes = [ctypes.c_int]
-        lib.ldlt_panel_error_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib
 
@@ -346,19 +323,19 @@ def partial_ldlt_items(src: torch.Tensor, items: LdltItems, out=None) -> torch.T
 
 
 # ---------------------------------------------------------------------------
-# One panel of a chunk of fronts wider than the kernel above takes
+# Every front wider than the kernel above takes, a tree level per call
 # ---------------------------------------------------------------------------
 
 
 def ldlt_panel_slab_plain(P: torch.Tensor, ncols: torch.Tensor, b: int):
-    """The panel kernel's function in plain PyTorch, on the panel slab
-    ``P = F[:, b:, b:b+B]`` (ch, Fpad-b, B) of a chunk, IN PLACE: the B
-    column steps of the blocked right-looking elimination (column ``b+j``
-    is active iff ``b+j < ncols[f]``), then the masked panel ``Lm`` (inactive
-    columns and the diagonal zero) and ``W = Lm * dsafe``.  Returns
-    ``(W, Lm)``.  Same numerics as the JAX package's ``_partial_ldlt_dyn``."""
-    global _panel_plain_calls
-    _panel_plain_calls += 1
+    """One panel step of the blocked elimination in plain PyTorch, on the
+    panel slab ``P = F[:, b:, b:b+B]`` (ch, Fpad-b, B) of a batch of fronts,
+    IN PLACE: the B column steps of the right-looking elimination (column
+    ``b+j`` is active iff ``b+j < ncols[f]``), then the masked panel ``Lm``
+    (inactive columns and the diagonal zero) and ``W = Lm * dsafe``.
+    Returns ``(W, Lm)``; the trailing update is ``F[:, b:, b+B:] -= W @
+    Lm[:, B:, :]^T``.  Same numerics as the JAX package's
+    ``_partial_ldlt_dyn``."""
     ch, rows, B = P.shape
     tiny = tiny16(P.dtype)
     ncols = ncols.to(torch.int64)
@@ -385,69 +362,179 @@ def ldlt_panel_slab_plain(P: torch.Tensor, ncols: torch.Tensor, b: int):
     return Lb * dsafe[:, None, :], Lb
 
 
-def ldlt_panel_plain(F: torch.Tensor, ncols: torch.Tensor, b: int, B: int):
-    """:func:`ldlt_panel_slab_plain` on the panel ``b .. b+B-1`` of the
-    chunk ``F (ch, Fpad, Fpad)``; ``F`` is updated in place."""
-    return ldlt_panel_slab_plain(F[:, b:, b:b + B], ncols, b)
+WIDE_STRIP, WIDE_TILE = 128, 64                    # STRIP, TM of ldlt_wide.cu
+
+# cooperative launches of partial_ldlt_wide as the C launcher reports them (one
+# per call on the card), and calls of the plain version (0 on a path that runs
+# on the card)
+_wide = dict(launches=0, plain=0)
 
 
-def ldlt_panel_slab(P: torch.Tensor, ncols: torch.Tensor, b: int,
-                    W: torch.Tensor, Lm: torch.Tensor) -> None:
-    """Eliminate the panel slab ``P = F[:, b:, b:b+B]`` (ch, rows, B) IN
-    PLACE and fill the scratch ``W`` and ``Lm`` (both (ch, rows, B),
-    contiguous, allocated by the caller), as :func:`ldlt_panel_slab_plain`
-    does.  ``P`` may be any view with unit stride along its columns: the
-    kernel takes its front stride and row stride and copies nothing.
-
-    On a CUDA tensor this launches the hand-written panel kernel on the
-    current stream (``B == 32``, float32 or float64, ``ncols`` int32 on the
-    same device) or raises; a CPU tensor takes the plain version."""
-    global _panel_launches
-    if P.dim() != 3:
-        raise ValueError(f"expected a (ch, rows, B) panel, got {tuple(P.shape)}")
-    ch, rows, B = P.shape
-    if ncols.shape != (ch,):
-        raise ValueError("ncols must have one entry per front")
-    if W.shape != P.shape or Lm.shape != P.shape:
-        raise ValueError(f"W and Lm must have the panel's shape {tuple(P.shape)}")
-    if W.dtype != P.dtype or Lm.dtype != P.dtype:
-        raise TypeError("W and Lm must have the panel's dtype")
-    if P.device.type == "cpu":
-        w, lm = ldlt_panel_slab_plain(P, ncols, b)
-        W.copy_(w)
-        Lm.copy_(lm)
-        return
-    _check_cuda_operands("ldlt_panel", P, ncols)
-    if B != PANEL or rows < B or b < 0:
-        raise ValueError(f"ldlt_panel kernel takes panels of {PANEL} columns "
-                         f"and at least as many rows, got {tuple(P.shape)}")
-    if ch and P.stride(2) != 1:
-        raise ValueError("ldlt_panel kernel takes unit stride along a row")
-    if (W.device != P.device or Lm.device != P.device
-            or not W.is_contiguous() or not Lm.is_contiguous()):
-        raise ValueError("W and Lm must be contiguous tensors on F's device")
-    if ch == 0:
-        return
-    lib = _panel_library()
-    fn = lib.ldlt_panel_f64 if P.dtype == torch.float64 else lib.ldlt_panel_f32
-    _launch("ldlt_panel", fn, lib.ldlt_panel_error_string, P.device,
-            P.data_ptr(), P.stride(0), P.stride(1), ncols.data_ptr(), ch, rows, b,
-            W.data_ptr(), Lm.data_ptr(), tiny16(P.dtype))
-    _panel_launches += 1
+def wide_launch_count() -> int:
+    return _wide["launches"]
 
 
-def ldlt_panel(F: torch.Tensor, ncols: torch.Tensor, b: int, B: int,
-               W: torch.Tensor, Lm: torch.Tensor) -> None:
-    """Eliminate the columns ``b .. b+B-1`` of every front of the chunk
-    ``F (ch, Fpad, Fpad)`` IN PLACE (``F`` may be a strided view of the
-    store) and fill ``W`` and ``Lm`` (ch, Fpad-b, B) for the trailing
-    product ``F[:, b:, b+B:] -= W @ Lm[:, B:, :]^T``, which the caller
-    makes.  See :func:`ldlt_panel_slab`."""
-    if F.dim() != 3 or F.shape[1] != F.shape[2]:
-        raise ValueError(f"expected (ch, Fpad, Fpad) fronts, got {tuple(F.shape)}")
-    if not 0 <= b <= F.shape[1] - B:
-        raise ValueError(f"panel {b}..{b + B} outside a front of {F.shape[1]}")
-    ldlt_panel_slab(F[:, b:, b:b + B], ncols, b, W, Lm)
+def wide_plain_count() -> int:
+    return _wide["plain"]
+
+
+def _cdiv(a, b):
+    return np.maximum(a, 0) // b + (np.maximum(a, 0) % b > 0)
+
+
+def _tri(t):
+    return t * (t + 1) // 2
+
+
+@dataclasses.dataclass
+class WideLevel:
+    """The work table of one call of :func:`partial_ldlt_wide`: the wide
+    fronts of one tree level, built once per plan and device.
+
+    ``fronts`` (host, int64, one row per front) holds the front's first store
+    entry, ``Fpad``, ``ncols`` and ``nf`` (its real rows: the kernel reads and
+    writes nothing at or beyond ``nf``); heaviest first (by panel count, then
+    ``nf``), so that the fronts still active at a panel step are a prefix.
+    ``table`` is the same on the device.  ``steps`` is the largest panel
+    count, ``max_items`` the most work items of any phase of the kernel (no
+    more blocks are launched), ``[start, end)`` the store entries the fronts
+    span."""
+    fronts: np.ndarray
+    table: torch.Tensor
+    steps: int
+    max_items: int
+    start: int
+    end: int
+
+    def shifted(self, delta: int) -> "WideLevel":
+        """The same level with every store offset moved by ``delta`` (a
+        multiple of 4): for a buffer that holds a window of the store."""
+        if delta % 4:
+            raise ValueError("offsets move by multiples of 4 elements")
+        fr = self.fronts.copy()
+        fr[:, 0] += delta
+        move = torch.tensor([delta, 0, 0, 0], dtype=torch.int64,
+                            device=self.table.device)
+        return dataclasses.replace(self, fronts=fr, table=self.table + move,
+                                   start=self.start + delta, end=self.end + delta)
+
+
+def build_wide_level(fronts, device) -> WideLevel:
+    """Work table for ``fronts``, a sequence of ``(offset, Fpad, ncols,
+    nf)``: a front of ``Fpad x Fpad`` (row-major, ``Fpad`` a multiple of 32)
+    starts at element ``offset`` (a multiple of 4, so that its rows stay
+    16-byte aligned) of the flat store, has ``nf`` real rows and eliminates
+    its first ``ncols`` columns."""
+    rows = np.asarray(fronts, np.int64).reshape(-1, 4)
+    if len(rows) == 0:
+        raise ValueError("a wide level needs at least one front")
+    off, fp, nc, nf = rows.T
+    if (off < 0).any() or (nc < 0).any() or (nc > nf).any() or (nf > fp).any():
+        raise ValueError("each front needs offset >= 0 and 0 <= ncols <= nf <= Fpad")
+    if (off % 4).any() or (fp % PANEL).any():
+        raise ValueError(f"offsets must be multiples of 4 elements and Fpad of {PANEL}")
+    npan = _cdiv(nc, PANEL)
+    order = np.lexsort((np.arange(len(rows)), -nf, -npan))
+    off, fp, nc, nf, npan = off[order], fp[order], nc[order], nf[order], npan[order]
+    steps = int(npan.max())
+
+    def tiles(tR, tC):                  # tiles_of of ldlt_wide.cu
+        return np.where(tC > 0, _tri(tC) + (tR - tC) * tC, 0)
+
+    schur = (nc > 0) & (nc < nf)
+    items = [int((nc > 0).sum()),                  # a block per first diagonal block
+             int(_tri(_cdiv(nf - nc, WIDE_TILE))[schur].sum())]
+    for k in range(steps):
+        b = k * PANEL
+        act = nc > b
+        tR = _cdiv(nf[act] - b - PANEL, WIDE_TILE)
+        tC = _cdiv(nc[act] - b - PANEL, WIDE_TILE)
+        items += [int(_cdiv(nf[act] - b - PANEL, WIDE_STRIP).sum()),
+                  int(act.sum() + (tiles(tR, tC) - (tC > 0)).sum())]
+    table = np.stack([off, fp, nc, nf], axis=1)
+    return WideLevel(
+        fronts=table,
+        table=torch.as_tensor(np.ascontiguousarray(table), device=device),
+        steps=steps, max_items=max(1, max(items)),
+        start=int(off.min()), end=int((off + fp * fp).max()))
+
+
+def partial_ldlt_wide_plain(store: torch.Tensor, lvl: WideLevel) -> None:
+    """Plain version of :func:`partial_ldlt_wide`, IN PLACE: front by front
+    on its leading ``nf x nf`` block, per panel of 32 columns
+    :func:`ldlt_panel_slab_plain` and one product for the trailing update
+    (the whole rectangle right of the panel, both triangles)."""
+    _wide["plain"] += 1
+    for off, Fpad, nc, nf in lvl.fronts.tolist():
+        if nc == 0:
+            continue
+        F = store[off:off + Fpad * Fpad].view(1, Fpad, Fpad)[:, :nf, :nf]
+        ncols = torch.tensor([nc], device=store.device)
+        for b in range(0, nc, PANEL):
+            P = F[:, b:, b:b + PANEL]
+            B = P.shape[2]
+            W, Lm = ldlt_panel_slab_plain(P, ncols, b)
+            if b + B < nf:
+                F[:, b:, b + B:] -= W @ Lm[:, B:, :].transpose(-1, -2)
+
+
+def _wide_library():
+    from ._cuda_build import load_cuda_library
+
+    lib = load_cuda_library("ldlt_wide.cu")
+    if not getattr(lib, "_typed", False):
+        for fn in (lib.ldlt_wide_f32, lib.ldlt_wide_f64):
+            fn.argtypes = [_PTR, _PTR, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_double, _PTR, _PTR, _PTR]
+            fn.restype = ctypes.c_int
+        lib.ldlt_wide_error_string.argtypes = [ctypes.c_int]
+        lib.ldlt_wide_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+def partial_ldlt_wide(store: torch.Tensor, lvl: WideLevel) -> torch.Tensor:
+    """Partial LDL^T of every front of ``lvl`` in ONE call, IN PLACE on the
+    flat store (the storage contract of this module, on each front's
+    leading ``nf x nf`` block; nothing at or beyond ``nf`` is read or
+    written, nor any entry above the diagonal in a row ``< ncols``).
+
+    On a CUDA tensor this makes one cooperative launch of the kernel of
+    ``csrc/ldlt_wide.cu`` on the current stream (float32 or float64,
+    contiguous, its first entry 16-byte aligned for the kernel's ``cp.async``
+    copies) or raises, also when the card cannot hold the grid; it never
+    gives way to the plain version.  A CPU tensor takes
+    :func:`partial_ldlt_wide_plain`."""
+    if store.dim() != 1:
+        raise ValueError("store must be a flat vector")
+    if lvl.end > store.numel():
+        raise ValueError("the level's fronts reach outside the store")
+    if lvl.table.device != store.device:
+        raise ValueError("the level's table must be on store's device")
+    if store.device.type == "cpu":
+        partial_ldlt_wide_plain(store, lvl)
+        return store
+    if store.device.type != "cuda":
+        raise ValueError(f"unsupported device {store.device}")
+    if store.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"ldlt_wide kernel takes float32/float64, got {store.dtype}")
+    if not store.is_contiguous():
+        raise ValueError("ldlt_wide kernel takes a contiguous store")
+    if store.data_ptr() % 16:
+        raise ValueError("ldlt_wide kernel takes a store whose first entry is "
+                         "16-byte aligned")
+    if lvl.steps == 0:
+        return store
+    lib = _wide_library()
+    fn = lib.ldlt_wide_f64 if store.dtype == torch.float64 else lib.ldlt_wide_f32
+    counters = torch.empty(3, dtype=torch.int64, device=store.device)   # work queues
+    launched = ctypes.c_int(0)
+    _launch("ldlt_wide", fn, lib.ldlt_wide_error_string, store.device,
+            store.data_ptr(), lvl.table.data_ptr(), len(lvl.fronts), lvl.steps,
+            lvl.max_items, tiny16(store.dtype), counters.data_ptr(),
+            ctypes.addressof(launched))
+    _wide["launches"] += launched.value
+    return store
 
 
 def ldlt_operations(ncols, Fpad: int) -> float:
@@ -483,35 +570,36 @@ def ldlt_bound_ms(ncols, Fpad: int, dtype: torch.dtype):
     return t_ops * 1e3, "operations"
 
 
-def ldlt_panel_bound_terms(ncols, rows: int, b: int, dtype: torch.dtype,
-                           B: int = PANEL):
-    """(seconds for the bytes, seconds for the operations) of one panel call
-    on an H100 SXM, for a slab of ``rows`` rows.  Bytes: a front with an
-    active column has its slab read once and written once and its rows of
-    ``W`` and ``Lm`` written (4 rows B elements); a front with none only has
-    ``W`` and ``Lm`` zeroed (2 rows B).  Operations: with ``a`` active
-    columns, a row below the diagonal block takes ``a`` divisions and
-    ``2 sum_{j<a} (B-1-j)`` for its updates, and the diagonal block
-    ``sum_{j<a} (B-1-j) + 2 (B-1-j)^2``."""
-    nc = torch.as_tensor(ncols).to("cpu", torch.float64)
-    act = (nc - b).clamp(min=0, max=B)
+def wide_bound_terms(levels, dtype: torch.dtype):
+    """(seconds for the bytes, seconds for the operations) of
+    :func:`partial_ldlt_wide` over ``levels`` (a :class:`WideLevel` or a
+    sequence of them) on an H100 SXM.  Bytes, per front with ``c = ncols >
+    0`` and ``u = nf - c``: the lower triangle of its ``nf x nf`` block read
+    once (``nf (nf+1) / 2`` entries), the eliminated columns' lower triangle
+    and the whole Schur block written once (``c (c+1) / 2 + u c + u^2``), and
+    every front's table row.  Operations: the
+    plan's flop count of each front (``c^3/3 + c^2 u + c u^2`` for ``c =
+    ncols``, ``u = nf - ncols``: the lower triangle of the elimination) over
+    the float64 tensor-core rate or the float32 vector rate."""
+    if isinstance(levels, WideLevel):
+        levels = [levels]
     size = torch.finfo(dtype).bits // 8
-    has = float((act > 0).sum())
-    t_bytes = ((4.0 * has + 2.0 * (len(nc) - has)) * rows * B * size
-               + 4.0 * len(nc)) / H100_BYTES_PER_S
-    s1 = act * (B - 1) - act * (act - 1) / 2            # sum_{j<a} (B-1-j)
-    a1 = float(B - 1)
-    s2 = (act * a1 * a1 - a1 * act * (act - 1)
-          + (act - 1) * act * (2 * act - 1) / 6)        # sum_{j<a} (B-1-j)^2
-    below = max(rows - B, 0)
-    ops = float((below * (act + 2 * s1) + s1 + 2 * s2).sum())
-    return t_bytes, ops / H100_FLOPS[dtype]
+    nbytes = ops = 0.0
+    for lvl in levels:
+        nc = lvl.fronts[:, 2].astype(np.float64)
+        nf = lvl.fronts[:, 3].astype(np.float64)
+        u = nf - nc
+        entries = np.where(nc > 0, nf * (nf + 1) / 2 + nc * (nc + 1) / 2
+                           + u * nc + u * u, 0.0)
+        nbytes += float(entries.sum()) * size + 8.0 * lvl.fronts.size
+        ops += float((nc ** 3 / 3 + nc * nc * u + nc * u * u).sum())
+    rate = H100_F64_TENSOR_FLOPS if dtype == torch.float64 else H100_FLOPS[dtype]
+    return nbytes / H100_BYTES_PER_S, ops / rate
 
 
-def ldlt_panel_bound_ms(ncols, rows: int, b: int, dtype: torch.dtype,
-                        B: int = PANEL):
-    """(bound_ms, bound_by) of one panel call: the larger of the two terms."""
-    t_bytes, t_ops = ldlt_panel_bound_terms(ncols, rows, b, dtype, B)
+def wide_bound_ms(levels, dtype: torch.dtype):
+    """(bound_ms, bound_by): the larger of the two bound terms."""
+    t_bytes, t_ops = wide_bound_terms(levels, dtype)
     if t_bytes >= t_ops:
         return t_bytes * 1e3, "bytes"
     return t_ops * 1e3, "operations"

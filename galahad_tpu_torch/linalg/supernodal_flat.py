@@ -17,10 +17,10 @@ src/spral/dense_factor.cu / assemble.cu):
   * Fronts with Fpad <= 128 are factored by the hand-written CUDA kernel
     (linalg/ldlt_kernels.py, csrc/partial_ldlt.cu), all of a tree level
     in one call: this is where the JAX flat path calls
-    ``_partial_ldlt_dyn``.  Larger fronts take the blocked right-looking
-    composition below: per panel of 32 columns one call of the panel
-    kernel (csrc/ldlt_panel.cu) and one batched matrix product for the
-    trailing update.
+    ``_partial_ldlt_dyn``.  Every larger front of a tree level is factored
+    by one call of the wide-front kernel (csrc/ldlt_wide.cu, one
+    cooperative launch: panels of 32 columns and the trailing update of
+    the lower triangle, on each front's real rows only).
   * The extend-add of each level's children into their parent fronts is
     the hand-written CUDA kernel of linalg/ea_kernels.py
     (csrc/extend_add.cu), one call per tree level: this is where the JAX
@@ -59,8 +59,9 @@ from .ea_kernels import build_ea_level, extend_add
 from .ldlt_kernels import (
     MAX_KERNEL_FRONT,
     build_ldlt_items,
-    ldlt_panel,
+    build_wide_level,
     partial_ldlt_items,
+    partial_ldlt_wide,
 )
 from .sweep_kernels import build_sweep_level, sweep_bwd, sweep_fwd
 
@@ -98,10 +99,6 @@ def _chunks_of(nb: int, Fpad: int = 8, cap_elems: int = None):
             out.append((off, ch))
             off += ch
     return out
-
-
-def _B_of(Fpad: int) -> int:
-    return min(32, Fpad)
 
 
 def _etree_postorder(parent) -> np.ndarray:
@@ -425,8 +422,8 @@ def _device_plan(plan: FlatPlan, device) -> dict:
 
 def _device_plan_build(plan: FlatPlan, device) -> dict:
     """Index tensors for the numeric phases: the per-group chunking of the
-    factor and, per tree level, the tables of the extend-add, small-front
-    factor and sweep kernels."""
+    small fronts and, per tree level, the tables of the extend-add, small-
+    and wide-front factor and sweep kernels."""
     n, S = plan.n, plan.S
 
     def t64(a):
@@ -445,69 +442,34 @@ def _device_plan_build(plan: FlatPlan, device) -> dict:
         by_level.setdefault(g.level, []).append(g)
 
     for lv in sorted(by_level):
-        chunks: list = []
+        small: list = []
+        wide: list = []
         for g in by_level[lv]:
             Fd = g.Fpad
-            B = _B_of(Fd)
-            for off, ch in _chunks_of(g.nb, Fd):
-                nco = np.asarray(g.ncols[off:off + ch], np.int64)
-                cmax = int(nco.max(initial=0))
-                chunks.append(dict(
-                    goff=int(g.goff + off * Fd * Fd), ch=ch, Fpad=Fd, B=B,
-                    cmax=cmax, nblocks=-(-cmax // B),
-                    ncols_host=nco,
-                    ncols=torch.as_tensor(nco.astype(np.int32), device=device),
-                ))
-        small = [c for c in chunks if c["Fpad"] <= MAX_KERNEL_FRONT]
+            if Fd > MAX_KERNEL_FRONT:
+                nf = (np.asarray(g.frows) < n).sum(axis=1)
+                wide += [(g.goff + i * Fd * Fd, Fd, int(g.ncols[i]), int(nf[i]))
+                         for i in range(g.nb)]
+                continue
+            small += [(int(g.goff + off * Fd * Fd), Fd,
+                       np.asarray(g.ncols[off:off + ch], np.int64))
+                      for off, ch in _chunks_of(g.nb, Fd)]
         ea = [(g.goff, g.Fpad, g.ea) for g in by_level[lv] if g.ea]
         dev["levels"].append(dict(
             # every child of the level is added into its parent by one call
-            ea=build_ea_level(ea, device) if ea else None, fac=chunks,
+            ea=build_ea_level(ea, device) if ea else None,
             # every small front of the level is factored by one kernel call
-            ldlt=build_ldlt_items(
-                [(c["goff"], c["Fpad"], c["ncols_host"]) for c in small],
-                device) if small else None,
-            wide=[c for c in chunks if c["Fpad"] > MAX_KERNEL_FRONT],
+            ldlt=build_ldlt_items(small, device) if small else None,
+            # and every wide front by one more
+            wide=build_wide_level(wide, device) if wide else None,
             # every front of the level is swept by one call per direction
             sweep=build_sweep_level(
                 [(g.goff, g.Fpad, g.ncols, g.frows) for g in by_level[lv]],
                 n, device)))
-    dev["chunks"] = [c for lvp in dev["levels"] for c in lvp["fac"]]
     dev["sweep_scratch"] = max(
         (lvp["sweep"].work_size + lvp["sweep"].part_size for lvp in dev["levels"]),
         default=0)
     return dev
-
-
-# ---------------------------------------------------------------------------
-# Numeric kernels (plain tensor code around the hand-written factor kernel)
-# ---------------------------------------------------------------------------
-
-
-def _partial_ldlt_blocked(F, ncols, nblocks: int, B: int,
-                          capture: list = None) -> None:
-    """Blocked right-looking partial LDL^T of the fronts ``F (ch, Fpad,
-    Fpad)``, IN PLACE, for fronts wider than the small-front kernel takes.
-    Same numerics as the JAX package's ``_partial_ldlt_dyn``: per panel of
-    B columns one call of the panel kernel (``ldlt_kernels.ldlt_panel``),
-    then one batched product for the trailing update (the only large
-    operation; it stays a library matrix product as it does in the JAX
-    package).  The two scratch panels are allocated once per call."""
-    ch, Fpad, _ = F.shape
-    if nblocks == 0 or ch == 0:
-        return
-    scratch = torch.empty(2, ch * Fpad * B, dtype=F.dtype, device=F.device)
-    for bi in range(nblocks):
-        b = bi * B
-        rows = Fpad - b
-        W = scratch[0, :ch * rows * B].view(ch, rows, B)
-        Lm = scratch[1, :ch * rows * B].view(ch, rows, B)
-        if capture is not None:
-            capture.append(("panel", F[:, b:, b:b + B].clone(), ncols, b))
-        ldlt_panel(F, ncols, b, B, W, Lm)
-        if b + B < Fpad:
-            F[:, b:, b + B:].baddbmm_(W, Lm[:, B:, :].transpose(-1, -2),
-                                      alpha=-1.0)
 
 
 @dataclasses.dataclass
@@ -527,8 +489,8 @@ def flat_factorize(plan: FlatPlan, vals, shift=0.0,
     ``capture``, if a list, receives the input of every call of the two
     factor kernels (for measurement): per level ``("small", clone of the
     window of the store that holds the level's small fronts, the items
-    moved to that window)``, and per panel of a chunk of wide fronts
-    ``("panel", clone of the panel slab, ncols, b)``."""
+    moved to that window)`` and ``("wide", clone of the window that holds
+    its wide fronts, their table moved to that window)``."""
     device, dt = vals.device, vals.dtype
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -558,10 +520,12 @@ def flat_factorize(plan: FlatPlan, vals, shift=0.0,
                 capture.append(("small", store[items.start:items.end].clone(),
                                 items.shifted(-items.start)))
             partial_ldlt_items(store, items)
-        for c in lvp["wide"]:
-            ch, Fp = c["ch"], c["Fpad"]
-            F = store[c["goff"]:c["goff"] + ch * Fp * Fp].view(ch, Fp, Fp)
-            _partial_ldlt_blocked(F, c["ncols"], c["nblocks"], c["B"], capture)
+        wide = lvp["wide"]
+        if wide is not None:
+            if capture is not None:
+                capture.append(("wide", store[wide.start:wide.end].clone(),
+                                wide.shifted(-wide.start)))
+            partial_ldlt_wide(store, wide)
         _tick("factor")
 
     if plan.n:

@@ -92,80 +92,94 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         ldlt_kernels.partial_ldlt(F.to(torch.float16), ncols)
 
 
-def wide_chunk(ch, Fpad, dtype, device, seed=0):
-    """A chunk of wide fronts as a STRIDED view (rows 8 elements longer than
-    the front, base off 16-byte alignment) of a larger buffer."""
+def wide_specs(Fpad, count):
+    """(ncols, nf) of the fronts of one synthetic level: 0, 1, 31, 33, partial
+    and full elimination, nf below and at Fpad."""
+    nf = Fpad - 29
+    if count == 1:
+        return [(nf - 45, nf)]
+    return [(nf, nf), (nf - 45, nf), (33, nf - 7), (1, nf - 3), (31, nf), (0, nf - 1),
+            (Fpad // 2, Fpad), (Fpad - 64, Fpad - 60)][:count]
+
+
+WIDE_LEVELS = {f"{Fpad}x{count}": [(Fpad, nc, nf) for nc, nf in wide_specs(Fpad, count)]
+               for Fpad in (192, 384, 1024, 4096) for count in (1, 8)}
+WIDE_LEVELS["mixed"] = [(192, 150, 190), (1024, 700, 1000), (384, 1, 290), (256, 0, 200),
+                        (384, 300, 384), (192, 33, 180), (4096, 200, 3000)]
+
+
+def wide_level_store(specs, dtype, device, seed=0):
+    """A flat store holding the fronts ``specs = [(Fpad, ncols, nf), ...]``
+    (symmetric definite of either sign on the leading nf x nf block) with NaN
+    in every entry the kernel may neither read nor write: rows and columns at
+    or beyond nf, the upper triangle of rows < ncols, and the gaps between
+    fronts.  Returns (store, level table, contract mask, untouchable mask)."""
     rng = np.random.default_rng(seed)
-    G = rng.normal(size=(ch, Fpad, Fpad))
-    A = G @ G.transpose(0, 2, 1) / Fpad + np.eye(Fpad)
-    A *= np.where(np.arange(ch) % 2 == 0, 1.0, -1.0)[:, None, None]
-    big = torch.zeros(3 + ch * Fpad * (Fpad + 8), dtype=dtype, device=device)
-    F = big[3:].view(ch, Fpad, Fpad + 8)[:, :, :Fpad]
-    F.copy_(torch.as_tensor(A, dtype=dtype))
-    return F
+    rows, off = [], 40
+    for Fpad, nc, nf in specs:
+        rows.append((off, Fpad, nc, nf))
+        off += Fpad * Fpad + 40
+    store = torch.full((off,), float("nan"), dtype=dtype, device=device)
+    contract = torch.zeros(off, dtype=torch.bool, device=device)
+    for i, (o, Fpad, nc, nf) in enumerate(rows):
+        G = torch.as_tensor(rng.normal(size=(nf, nf)), dtype=torch.float64, device=device)
+        A = (G @ G.T / nf + torch.eye(nf, dtype=torch.float64, device=device)) \
+            * (1.0 if i % 2 == 0 else -1.0)
+        ar = torch.arange(nf, device=device)
+        r, c = ar[:, None], ar[None, :]
+        A[(r < c) & (r < nc)] = float("nan")
+        F = store[o:o + Fpad * Fpad].view(Fpad, Fpad)
+        F[:nf, :nf] = A.to(dtype)
+        m = contract[o:o + Fpad * Fpad].view(Fpad, Fpad)
+        m[:nf, :nf] = ((c < nc) & (r >= c)) | ((r >= nc) & (c >= nc))
+        del G, A
+    return store, ldlt_kernels.build_wide_level(rows, device), contract, torch.isnan(store)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 1e-11)])
-@pytest.mark.parametrize("Fpad,ch", [(192, 1), (192, 8), (256, 1), (256, 8), (512, 1),
-                                     (512, 8), (1024, 1), (1024, 8), (2048, 1),
-                                     (2048, 8), (4096, 1)])
-def test_panel_kernel_matches_plain(cuda, dtype, tol, Fpad, ch):
-    # tolerance: float32 / float64 rounding of at most 32 fused updates per
-    # entry, relative to the largest entry of the plain result
-    B = ldlt_kernels.PANEL
-    F = wide_chunk(ch, Fpad, dtype, cuda, seed=Fpad + ch)
-    for b in (0, (Fpad // 2 // B) * B, Fpad - 2 * B):
-        pool = [0, b + 5, b + B, Fpad, b + 17, b + 31, b + 1, Fpad - 1]
-        ncols = torch.tensor(pool[4:5] if ch == 1 else pool[:ch],
-                             dtype=torch.int32, device=cuda)
-        F0 = F.clone()
-        Fp = F.clone()
-        W = torch.full((ch, Fpad - b, B), float("nan"), dtype=dtype, device=cuda)
-        Lm = torch.full_like(W, float("nan"))
-        before = ldlt_kernels.panel_launch_count()
-        plain_before = ldlt_kernels.panel_plain_count()
-        ldlt_kernels.ldlt_panel(F, ncols, b, B, W, Lm)
-        assert ldlt_kernels.panel_launch_count() == before + 1
-        assert ldlt_kernels.panel_plain_count() == plain_before
-        Wp, Lp = ldlt_kernels.ldlt_panel_plain(Fp, ncols, b, B)
-        scale = max(1.0, float(Fp[:, b:, b:b + B].abs().max()), float(Wp.abs().max()))
-        for got, want in ((F, Fp), (W, Wp), (Lm, Lp)):
-            assert bool(torch.isfinite(got).all())
-            assert float((got - want).abs().max()) <= tol * scale
-        outside = torch.ones_like(F, dtype=torch.bool)
-        outside[:, b:, b:b + B] = False
-        assert torch.equal(F[outside], F0[outside])      # nothing else is written
-        # bitwise repeat
-        F2 = F0.clone()
-        W2, L2 = torch.empty_like(W), torch.empty_like(W)
-        ldlt_kernels.ldlt_panel(F2, ncols, b, B, W2, L2)
-        assert torch.equal(F2, F) and torch.equal(W2, W) and torch.equal(L2, Lm)
-        F.copy_(F0)
+@pytest.mark.parametrize("case", sorted(WIDE_LEVELS))
+def test_wide_kernel_matches_plain(cuda, case, dtype, tol):
+    # tolerance: float32 / float64 rounding of up to 4096-term sums taken in
+    # another order, relative to the largest entry of the plain result
+    store, lvl, contract, nan = wide_level_store(WIDE_LEVELS[case], dtype, cuda,
+                                                 seed=len(case))
+    got = store.clone()
+    launches, plain = ldlt_kernels.wide_launch_count(), ldlt_kernels.wide_plain_count()
+    ldlt_kernels.partial_ldlt_wide(got, lvl)
+    torch.cuda.synchronize()
+    assert ldlt_kernels.wide_launch_count() == launches + 1     # one launch per call
+    assert ldlt_kernels.wide_plain_count() == plain
+    ref = store.clone()
+    ldlt_kernels.partial_ldlt_wide_plain(ref, lvl)
+    assert bool(torch.isfinite(got[contract]).all())
+    err = float((got[contract] - ref[contract]).abs().max())
+    assert err <= tol * max(1.0, float(ref[contract].abs().max()))
+    assert same_bits(got[nan], store[nan])               # never read, never written
+    again = store.clone()
+    ldlt_kernels.partial_ldlt_wide(again, lvl)
+    assert same_bits(again, got)                         # bitwise repeat
 
 
-def test_panel_kernel_refuses_what_it_does_not_take(cuda):
-    B = ldlt_kernels.PANEL
-    F = wide_chunk(2, 192, torch.float64, cuda)
-    ncols = torch.tensor([40, 192], dtype=torch.int32, device=cuda)
-    W = torch.empty(2, 192, B, dtype=torch.float64, device=cuda)
-    Lm = torch.empty_like(W)
-    ldlt_kernels.ldlt_panel(F, ncols, 0, B, W, Lm)            # this one is taken
-    with pytest.raises(TypeError):                           # wrong dtype
-        ldlt_kernels.ldlt_panel(F.half(), ncols, 0, B, W.half(), Lm.half())
-    with pytest.raises(ValueError):                          # ncols not int32
-        ldlt_kernels.ldlt_panel(F, ncols.to(torch.int64), 0, B, W, Lm)
-    with pytest.raises(ValueError):                          # ncols not on the device
-        ldlt_kernels.ldlt_panel(F, ncols.cpu(), 0, B, W, Lm)
-    with pytest.raises(ValueError):                          # scratch of the wrong shape
-        ldlt_kernels.ldlt_panel(F, ncols, B, B, W, Lm)
-    with pytest.raises(ValueError):                          # scratch not contiguous
-        ldlt_kernels.ldlt_panel(F, ncols, 0, B, W.transpose(1, 2).contiguous()
-                                .transpose(1, 2), Lm)
-    with pytest.raises(ValueError):                          # another panel width
-        ldlt_kernels.ldlt_panel(F, ncols, 0, 16, W[:, :, :16].contiguous(),
-                                Lm[:, :, :16].contiguous())
-    with pytest.raises(ValueError):                          # no unit stride along a row
-        ldlt_kernels.ldlt_panel(F.transpose(1, 2), ncols, 0, B, W, Lm)
+def test_wide_kernel_refuses_what_it_does_not_take(cuda):
+    store, lvl, _, _ = wide_level_store([(192, 40, 180), (256, 256, 256)], torch.float64,
+                                        cuda)
+    ldlt_kernels.partial_ldlt_wide(store.clone(), lvl)   # this one is taken
+    with pytest.raises(TypeError):                       # wrong dtype
+        ldlt_kernels.partial_ldlt_wide(store.half(), lvl)
+    with pytest.raises(ValueError):                      # table on another device
+        ldlt_kernels.partial_ldlt_wide(
+            store, ldlt_kernels.build_wide_level(lvl.fronts, "cpu"))
+    with pytest.raises(ValueError):                      # store on another device
+        ldlt_kernels.partial_ldlt_wide(store.cpu(), lvl)
+    with pytest.raises(ValueError):                      # not contiguous
+        ldlt_kernels.partial_ldlt_wide(
+            torch.zeros(2 * store.numel(), dtype=store.dtype, device=cuda)[::2], lvl)
+    with pytest.raises(ValueError):                      # too short
+        ldlt_kernels.partial_ldlt_wide(store[:lvl.end - 1], lvl)
+    with pytest.raises(ValueError, match="aligned"):     # first entry off 16 bytes
+        ldlt_kernels.partial_ldlt_wide(store[1:], lvl)
+    with pytest.raises(ValueError):                      # not a flat store
+        ldlt_kernels.partial_ldlt_wide(store[:lvl.end].view(1, -1), lvl)
 
 
 def test_items_kernel_matches_batch_by_batch(cuda):
@@ -206,21 +220,23 @@ def wide_block_matrix():
 
 def test_wide_front_factor_and_solve_match_the_cpu_path(cuda):
     # tolerance 1e-11 on an O(1) solution: float64, the card's fused updates
-    # and cuBLAS product against the CPU's
+    # and tensor-core products against the CPU's
     rows, cols, vals, n = wide_block_matrix()
     plan = T.flat_analyse(rows, cols, n, order="natural")
     assert max(g.Fpad for g in plan.groups) > ldlt_kernels.MAX_KERNEL_FRONT
     b = np.random.default_rng(1).normal(size=n)
     out = {}
     for dev in ("cpu", cuda):
-        before = ldlt_kernels.panel_launch_count()
-        plain_before = ldlt_kernels.panel_plain_count()
+        before = ldlt_kernels.wide_launch_count()
+        plain_before = ldlt_kernels.wide_plain_count()
         fac = T.flat_factorize(plan, torch.as_tensor(vals, device=dev))
         x = T.flat_solve(plan, fac, torch.as_tensor(b, device=dev))
         out[str(dev)] = (fac.inertia.tolist(), x.cpu().numpy(), fac.store)
         if dev != "cpu":
-            assert ldlt_kernels.panel_launch_count() > before
-            assert ldlt_kernels.panel_plain_count() == plain_before
+            levels = sum(lvp["wide"] is not None
+                         for lvp in T._device_plan(plan, cuda)["levels"])
+            assert ldlt_kernels.wide_launch_count() - before == levels >= 1
+            assert ldlt_kernels.wide_plain_count() == plain_before
     assert out["cpu"][0] == out["cuda"][0] == [n, 0, 0]
     np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=0, atol=1e-11)
     fac2 = T.flat_factorize(plan, torch.as_tensor(vals, device=cuda))

@@ -12,7 +12,6 @@ from galahad_tpu.linalg.pallas_kernels import partial_ldlt_pallas
 from galahad_tpu.linalg.supernodal_flat import _partial_ldlt_dyn
 
 from galahad_tpu_torch.linalg import ldlt_kernels
-from galahad_tpu_torch.linalg.supernodal_flat import _partial_ldlt_blocked
 
 
 def fronts(nb, Fpad, seed, ncols=None, extra=4):
@@ -83,7 +82,8 @@ def test_plain_matches_xla_composition_f64(Fpad, nb):
 
 @pytest.mark.parametrize("Fpad,nb", [(64, 3), (192, 2)])
 def test_blocked_large_front_path_matches_xla_composition(Fpad, nb):
-    """Fronts wider than the kernel takes use the blocked composition."""
+    """Fronts wider than the kernel takes use the blocked composition: the
+    plain version of the wide-front call, one front after another."""
     F, ncols = fronts(nb, Fpad, seed=7 + Fpad, extra=Fpad // 3)
     ncols[-1] = Fpad
     F, _ = fronts(nb, Fpad, seed=7 + Fpad, ncols=ncols, extra=Fpad // 3)
@@ -92,7 +92,9 @@ def test_blocked_large_front_path_matches_xla_composition(Fpad, nb):
     ref = np.asarray(_partial_ldlt_dyn(
         jnp.asarray(F), jnp.asarray(ncols), jnp.asarray(nblocks, jnp.int32), B)[0])
     out = torch.as_tensor(F).clone()
-    _partial_ldlt_blocked(out, torch.as_tensor(ncols), nblocks, B)
+    lvl = ldlt_kernels.build_wide_level(
+        [(k * Fpad * Fpad, Fpad, int(nc), Fpad) for k, nc in enumerate(ncols)], "cpu")
+    ldlt_kernels.partial_ldlt_wide(out.view(-1), lvl)
     assert contract_err(ref, out.numpy(), ncols) < 1e-12 * np.abs(ref).max()
     plain = ldlt_kernels.partial_ldlt_plain(torch.as_tensor(F),
                                             torch.as_tensor(ncols)).numpy()

@@ -3,10 +3,11 @@ the per-level work-item table of the small-front kernel, as far as the CPU
 can run them: the plain PyTorch versions that the CUDA kernels of
 linalg/ldlt_kernels.py are held against on the card.
 
-* ``ldlt_panel_plain`` + one product per panel gives the SAME BITS as the
-  column loop it was moved out of (kept below as the oracle);
-* the blocked composition agrees with the JAX package's
-  ``_partial_ldlt_dyn`` on the entries the storage contract specifies;
+* the plain wide-front call (``ldlt_panel_slab_plain`` + one product per
+  panel, front by front) gives the SAME BITS as the column loop it was
+  moved out of (kept below as the oracle);
+* it agrees with the JAX package's ``_partial_ldlt_dyn`` on the entries
+  the storage contract specifies;
 * ``W`` / ``Lm`` are the masked, scaled panel of that composition;
 * the wrappers check their operands, count no launch on the CPU, and never
   give way to the plain version for a tensor that is not on the CPU.
@@ -20,7 +21,6 @@ from galahad_tpu.linalg.supernodal_flat import _partial_ldlt_dyn
 
 from galahad_tpu_torch._device import tiny16
 from galahad_tpu_torch.linalg import ldlt_kernels
-from galahad_tpu_torch.linalg.supernodal_flat import _partial_ldlt_blocked
 
 from test_torch_ldlt_kernel import contract_err, fronts
 
@@ -76,27 +76,35 @@ def wide_fronts(Fpad, dtype, seed):
     return torch.as_tensor(F, dtype=dtype), torch.as_tensor(ncols)
 
 
+def wide_level(F, ncols, offset=0):
+    """The work table of the fronts ``F (nb, Fpad, Fpad)`` laid out one after
+    another from ``offset`` of a flat buffer, every row real."""
+    nb, Fpad, _ = F.shape
+    return ldlt_kernels.build_wide_level(
+        [(offset + k * Fpad * Fpad, Fpad, int(nc), Fpad) for k, nc in enumerate(ncols)],
+        "cpu")
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("Fpad", [192, 256])
 def test_panels_give_the_bits_of_the_column_loop(Fpad, dtype):
     # bitwise: the panel function is the same tensor operations in the same
     # order, and the trailing update is the same product on the same
-    # operands (subtracted by the product call instead of after it)
+    # operands; the oracle runs one front at a time, as the plain call does
     F, ncols = wide_fronts(Fpad, dtype, seed=Fpad)
-    nblocks = Fpad // B
     want = F.clone()
-    blocked_oracle(want, ncols, nblocks, B)
+    for k, nc in enumerate(ncols.tolist()):
+        blocked_oracle(want[k:k + 1], ncols[k:k + 1], -(-nc // B), B)
     got = F.clone()
-    before = ldlt_kernels.panel_plain_count()
-    _partial_ldlt_blocked(got, ncols, nblocks, B)
+    before = ldlt_kernels.wide_plain_count()
+    ldlt_kernels.partial_ldlt_wide(got.view(-1), wide_level(F, ncols))
     assert torch.equal(got, want)
-    assert ldlt_kernels.panel_plain_count() == before + nblocks
-    # a strided view of a larger buffer, as the flat store hands it over
-    buf = torch.zeros(5 + F.numel(), dtype=dtype)
-    view = buf[5:].view_as(F)
-    view.copy_(F)
-    _partial_ldlt_blocked(view, ncols, nblocks, B)
-    assert torch.equal(view, want)
+    assert ldlt_kernels.wide_plain_count() == before + 1
+    # a window of a larger buffer, as the flat store hands it over
+    buf = torch.zeros(4 + F.numel(), dtype=dtype)
+    buf[4:].copy_(F.view(-1))
+    ldlt_kernels.partial_ldlt_wide(buf, wide_level(F, ncols, offset=4))
+    assert torch.equal(buf[4:].view_as(F), want) and float(buf[:4].abs().sum()) == 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
@@ -109,9 +117,7 @@ def test_panel_scratch_is_the_masked_scaled_panel(Fpad, dtype):
     got = F.clone()
     for bi in range(nblocks):
         b = bi * B
-        W = torch.full((F.shape[0], Fpad - b, B), float("nan"), dtype=dtype)
-        Lm = torch.full_like(W, float("nan"))
-        ldlt_kernels.ldlt_panel(got, ncols, b, B, W, Lm)
+        W, Lm = ldlt_kernels.ldlt_panel_slab_plain(got[:, b:, b:b + B], ncols, b)
         if b + B < Fpad:
             assert torch.equal(W, want[bi][0]) and torch.equal(Lm, want[bi][1])
             # zero diagonal, zero inactive columns
@@ -131,41 +137,40 @@ def test_panels_match_xla_composition_f64(Fpad):
         jnp.asarray(F.numpy()), jnp.asarray(ncols.numpy()),
         jnp.asarray(nblocks, jnp.int32), B)[0])
     out = F.clone()
-    _partial_ldlt_blocked(out, ncols, nblocks, B)
+    ldlt_kernels.partial_ldlt_wide(out.view(-1), wide_level(F, ncols))
     assert contract_err(ref, out.numpy(), ncols.numpy()) < 1e-12 * np.abs(ref).max()
 
 
 def test_panel_wrapper_checks_and_counts_nothing_on_cpu():
     F, ncols = wide_fronts(192, torch.float64, seed=3)
-    W = torch.empty(F.shape[0], 192, B, dtype=torch.float64)
-    Lm = torch.empty_like(W)
-    before = (ldlt_kernels.launch_count(), ldlt_kernels.panel_launch_count())
-    ldlt_kernels.ldlt_panel(F, ncols, 0, B, W, Lm)
-    assert (ldlt_kernels.launch_count(),
-            ldlt_kernels.panel_launch_count()) == before
-    with pytest.raises(ValueError):          # scratch of the wrong shape
-        ldlt_kernels.ldlt_panel(F, ncols, B, B, W, Lm)
-    with pytest.raises(TypeError):           # scratch of the wrong type
-        ldlt_kernels.ldlt_panel(F, ncols, 0, B, W.float(), Lm.float())
-    with pytest.raises(ValueError):          # one ncols per front
-        ldlt_kernels.ldlt_panel(F, ncols[:-1], 0, B, W, Lm)
-    with pytest.raises(ValueError):          # panel outside the front
-        ldlt_kernels.ldlt_panel(F, ncols, 192, B, W, Lm)
-    with pytest.raises(ValueError):          # not a batch of square fronts
-        ldlt_kernels.ldlt_panel(F[:, :, :100], ncols, 0, B, W, Lm)
+    lvl = wide_level(F, ncols)
+    store = F.clone().view(-1)
+    before = (ldlt_kernels.launch_count(), ldlt_kernels.wide_launch_count())
+    ldlt_kernels.partial_ldlt_wide(store, lvl)
+    assert (ldlt_kernels.launch_count(), ldlt_kernels.wide_launch_count()) == before
+    with pytest.raises(ValueError):          # the fronts reach outside the store
+        ldlt_kernels.partial_ldlt_wide(store[:-1], lvl)
+    with pytest.raises(ValueError):          # not a flat store
+        ldlt_kernels.partial_ldlt_wide(F.clone(), lvl)
+    with pytest.raises(ValueError):          # the table on another device
+        ldlt_kernels.partial_ldlt_wide(
+            store, ldlt_kernels.build_wide_level(lvl.fronts, "meta"))
+    with pytest.raises(ValueError):          # ncols beyond the front
+        ldlt_kernels.build_wide_level([(0, 192, 193, 192)], "cpu")
+    with pytest.raises(ValueError):          # a negative offset
+        ldlt_kernels.build_wide_level([(-4, 192, 3, 192)], "cpu")
 
 
 def test_panel_wrapper_does_not_fall_back(monkeypatch):
     """A tensor that is not on the CPU must reach the kernel path (and fail
     here for want of a card), never the plain version."""
     called = []
-    monkeypatch.setattr(ldlt_kernels, "ldlt_panel_slab_plain",
+    monkeypatch.setattr(ldlt_kernels, "partial_ldlt_wide_plain",
                         lambda *a, **k: called.append(1))
-    F = torch.zeros(1, 192, 192, device="meta")
-    W = torch.zeros(1, 192, B, device="meta")
+    store = torch.zeros(192 * 192, device="meta")
+    lvl = ldlt_kernels.build_wide_level([(0, 192, 40, 180)], "meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        ldlt_kernels.ldlt_panel(F, torch.zeros(1, dtype=torch.int32, device="meta"),
-                                0, B, W, W.clone())
+        ldlt_kernels.partial_ldlt_wide(store, lvl)
     src = torch.zeros(64, device="meta")
     items = ldlt_kernels.build_ldlt_items([(0, 8, [3])], "meta")
     monkeypatch.setattr(ldlt_kernels, "partial_ldlt_plain",
@@ -266,16 +271,22 @@ def test_items_call_equals_batch_by_batch():
 
 
 def test_panel_bound_counts_bytes_and_operations():
-    ncols = np.array([0, 40, 200])          # panel at b = 32: 0, 8, 32 active
-    rows, b = 160, 32
-    tb, to = ldlt_kernels.ldlt_panel_bound_terms(ncols, rows, b, torch.float64)
-    assert tb == pytest.approx(
-        ((2 * 4 + 2) * rows * B * 8 + 4 * 3) / ldlt_kernels.H100_BYTES_PER_S)
-    ops = 0
-    for act in (0, 8, 32):
-        per_row = sum(1 + 2 * (B - 1 - j) for j in range(act))
-        diag = sum((B - 1 - j) + 2 * (B - 1 - j) ** 2 for j in range(act))
-        ops += (rows - B) * per_row + diag
-    assert to == pytest.approx(ops / ldlt_kernels.H100_FLOPS[torch.float64])
-    ms, by = ldlt_kernels.ldlt_panel_bound_ms(ncols, rows, b, torch.float64)
-    assert by == "bytes" and ms == pytest.approx(tb * 1e3)
+    # the wide-front call's bound: each front's lower triangle read once, its
+    # eliminated columns' lower triangle and its whole Schur block written
+    # once (nothing for a front with ncols = 0), every table row read, and the
+    # plan's flop count over the float64 tensor-core rate
+    lvl = ldlt_kernels.build_wide_level(
+        [(0, 192, 40, 160), (192 * 192, 4096, 3575, 3575), (2 * 4096 ** 2, 256, 0, 200)],
+        "cpu")
+    tb, to = ldlt_kernels.wide_bound_terms(lvl, torch.float64)
+    entries = (160 * 161 / 2 + 40 * 41 / 2 + 120 * 40 + 120 ** 2     # read + written
+               + 2 * 3575 * 3576 / 2)
+    assert tb == pytest.approx((8 * entries + 8 * 12) / ldlt_kernels.H100_BYTES_PER_S)
+    ops = sum(c ** 3 / 3 + c * c * (nf - c) + c * (nf - c) ** 2
+              for c, nf in ((40, 160), (3575, 3575), (0, 200)))
+    assert to == pytest.approx(ops / 67e12)
+    ms, by = ldlt_kernels.wide_bound_ms([lvl], torch.float64)
+    assert ms == pytest.approx(max(tb, to) * 1e3)
+    assert by == ("bytes" if tb >= to else "operations")
+    tb32, _ = ldlt_kernels.wide_bound_terms(lvl, torch.float32)
+    assert tb32 == pytest.approx(tb / 2, rel=1e-4)

@@ -50,7 +50,7 @@ def oracle_chunks(plan):
     for lv in sorted(by_level):
         for g in by_level[lv]:
             Fd = g.Fpad
-            B = T._B_of(Fd)
+            B = min(32, Fd)
             for off, ch in T._chunks_of(g.nb, Fd):
                 nco = np.asarray(g.ncols[off:off + ch], np.int64)
                 fr = np.where(g.frows[off:off + ch] < n, g.frows[off:off + ch], n)
