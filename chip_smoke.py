@@ -28,7 +28,9 @@ JSON line per phase:
                 in {8, 32, 128, 512, 4096} x {float32, float64} with 1, 2, 4
                 and 16 children, bitwise equal to its plain version
   4. kkt        factorize + solve of the flagship KKT system
-                (grid QP, k=316: n=99,856, m=49,928) with D_x = C = 1
+                (grid QP, k=316: n=99,856, m=49,928) with D_x = C = 1; a
+                solve makes at most 3 forward and 2 backward sweep kernel
+                launches per tree level and at most 60 in all
   5. repeat     two factorize+solve runs give the same bits
   6. flagship   ``ipm_solve`` on the flagship QP in float64, default
                 control, checked on the host in float64 with scipy
@@ -75,7 +77,8 @@ TPU_BWD_SWEEP = "galahad_tpu/linalg/supernodal_flat.py:955"
 EA_SOURCE = "galahad_tpu_torch/csrc/extend_add.cu"
 TPU_EA = ("galahad_tpu/linalg/supernodal_flat.py:779 (_ea_slot_apply) / :795 "
           "(_ea_q_apply)")
-MAX_SWEEP_LAUNCHES_PER_SOLVE = 150
+MAX_SWEEP_LAUNCHES_PER_SOLVE = 60
+MAX_SWEEP_LAUNCHES_PER_LEVEL = dict(fwd=3, bwd=2)
 MAX_EA_CALLS_PER_FACTORIZATION = 18
 MAX_WIDE_CALLS_PER_FACTORIZATION = 18
 PANEL_W = ldlt_kernels.PANEL
@@ -534,6 +537,26 @@ def ladder_fronts(Fpad: int, copies: int):
 SWEEP_CASES = [
     (8, 400), (16, 200), (32, 100), (64, 40), (96, 20), (128, 16), (192, 4), (256, 3),
     (384, 2), (512, 2), (768, 1), (1024, 1), (1536, 1), (2048, 1), (3072, 1), (4096, 1)]
+ROOT = (3575, 3575)              # the flagship's root front: ncols = nf = 3,575 in 4096
+
+
+def sweep_case_specs():
+    """(name, level specs) of the sweep kernel cases: one level per front size
+    (a few small fronts ride along: one call serves several sizes), the
+    flagship's root alone and the root beside 300 fronts of 64 with 1..22
+    columns."""
+    out = []
+    for Fpad, copies in SWEEP_CASES:
+        if Fpad <= 512:
+            fronts = ladder_fronts(Fpad, copies)
+        else:                      # ncols partial with a large block below, and full
+            fronts = [(Fpad // 4, Fpad - 3), (Fpad, Fpad)] * copies
+        out.append((f"Fpad={Fpad}", [(Fpad, fronts)]
+                    + ([(8, ladder_fronts(8, 2))] if Fpad != 8 else [])))
+    out.append(("root", [(4096, [ROOT])]))
+    out.append(("root+300x64", [(4096, [ROOT]), (64, [
+        (1 + k % 22, 1 + k % 22 + (7 * k) % (42 - k % 22)) for k in range(300)])]))
+    return out
 
 
 def compare_sweeps(store, levels, y0, work, what: str):
@@ -573,6 +596,10 @@ def compare_sweeps(store, levels, y0, work, what: str):
         check(made == want, f"{name} sweep: the launchers report {made} kernel launches, "
               f"the tables call for {want} ({what})")
         kern(yk2)
+        try:
+            sweep_kernels.sweep_check(levels)
+        except RuntimeError as exc:
+            raise SmokeFailure(f"{name} sweep ({what}): {exc}")
         plain_ms.append(event_ms(lambda: plain(yp)))
         check(bool(torch.isfinite(yk).all()),
               f"{name} sweep kernels produced non-finite values ({what})")
@@ -632,24 +659,20 @@ def kernel_sweep_cases():
     plain versions, with time and bound."""
     out_rows = []
     for dtype in (torch.float32, torch.float64):
-        for Fpad, copies in SWEEP_CASES:
-            if Fpad <= 512:
-                fronts = ladder_fronts(Fpad, copies)
-            else:                      # ncols partial with a heavy block below, and full
-                fronts = [(Fpad // 4, Fpad - 3), (Fpad, Fpad)] * copies
-            # a few small fronts ride along: one call serves several sizes
-            specs = [(Fpad, fronts)] + ([(8, ladder_fronts(8, 2))] if Fpad != 8 else [])
+        for name, specs in sweep_case_specs():
+            Fpad, fronts = specs[0]
             store, lvl, y0 = sweep_level(specs, dtype, seed=Fpad)
-            work = torch.full((lvl.work_size + lvl.part_size,), float("nan"),
-                              dtype=dtype, device="cuda")
+            work = torch.full((lvl.work_size,), float("nan"), dtype=dtype, device="cuda")
             err_f, err_b, plain_f, plain_b, y_fwd = compare_sweeps(
-                store, [lvl], y0, work, f"Fpad={Fpad}")
+                store, [lvl], y0, work, name)
             ms_f, dev_f, ms_b, dev_b = time_sweeps(store, [lvl], y0, y_fwd, work)
             bound_f, by_f = sweep_kernels.sweep_bound_ms(lvl, dtype, "fwd")
             bound_b, by_b = sweep_kernels.sweep_bound_ms(lvl, dtype, "bwd")
             out_rows.append(dict(
-                dtype=str(dtype).split(".")[1], Fpad=Fpad, fronts=len(fronts),
-                strips=int(lvl.strips.shape[0]), launches_fwd=lvl.fwd_kernels,
+                dtype=str(dtype).split(".")[1], Fpad=Fpad, case=name, fronts=len(fronts),
+                wave_items_fwd=int(lvl.fwd_wave.shape[0]),
+                wave_items_bwd=int(lvl.bwd_wave.shape[0]), flags=lvl.n_flags,
+                launches_fwd=lvl.fwd_kernels,
                 launches_bwd=lvl.bwd_kernels, max_abs_err_fwd=err_f, max_abs_err_bwd=err_b,
                 ms_fwd=ms_f, device_ms_fwd=dev_f, plain_ms_fwd=plain_f, bound_ms_fwd=bound_f,
                 ms_bwd=ms_b, device_ms_bwd=dev_b, plain_ms_bwd=plain_b, bound_ms_bwd=bound_b,
@@ -851,6 +874,18 @@ def phase_kkt(qp):
     check(sweep_launches <= MAX_SWEEP_LAUNCHES_PER_SOLVE,
           f"{sweep_launches} sweep kernel launches in one solve > "
           f"{MAX_SWEEP_LAUNCHES_PER_SOLVE}")
+    sweep_levels = [lvp["sweep"] for lvp in dev["levels"]]
+    per_level = {d: [getattr(lvl, d + "_kernels") for lvl in sweep_levels]
+                 for d in ("fwd", "bwd")}
+    for d, most in MAX_SWEEP_LAUNCHES_PER_LEVEL.items():
+        check(sweeps[d] == len(sweep_levels) and sweeps[d + "_kernels"] == sum(per_level[d])
+              and max(per_level[d]) <= most,
+              f"{d} sweeps: {sweeps[d]} calls / {sweeps[d + '_kernels']} launches in one "
+              f"solve; the tables call for {per_level[d]} per level, limit {most}")
+    try:
+        sweep_kernels.sweep_check(sweep_levels)
+    except RuntimeError as exc:
+        raise SmokeFailure(f"flagship solve: {exc}")
     emit("kkt", n=n, m=m, n_kkt=n + m, S=sym.S, nnz_L=sym.nnz_L, ns=sym.ns,
          flops_model=sym.flops, groups=len(sym.groups),
          levels=len(dev["levels"]),
@@ -870,6 +905,10 @@ def phase_kkt(qp):
          sweep_kernel_launches_per_solve=sweep_launches,
          sweep_fwd_kernel_launches_per_solve=sweeps["fwd_kernels"],
          sweep_bwd_kernel_launches_per_solve=sweeps["bwd_kernels"],
+         sweep_fwd_launches_per_level=per_level["fwd"],
+         sweep_bwd_launches_per_level=per_level["bwd"],
+         sweep_wave_items=[int(lvl.fwd_wave.shape[0]) for lvl in sweep_levels],
+         sweep_wave_flags=[lvl.n_flags for lvl in sweep_levels],
          kernel_launches_per_factorization=launches,
          wide_calls_per_factorization=wide_calls,
          wide_plain_calls=ldlt_kernels.wide_plain_count(),

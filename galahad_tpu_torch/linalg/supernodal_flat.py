@@ -6,9 +6,8 @@ src/spral/dense_factor.cu / assemble.cu):
 
   * ALL fronts live in ONE flat device buffer; each (level, Fpad-bucket)
     group owns a contiguous slab, front sizes padded to a short ladder.
-  * Analyse stays host-side (native C++ orderings + numpy maps) and is
-    the JAX package's, line for line: the same pattern gives the same
-    plan.  The per-group index arrays are uploaded ONCE per plan and
+  * Analyse stays host-side (native C++ orderings + numpy maps) and
+    gives the JAX package's plan for the same pattern.  The per-group index arrays are uploaded ONCE per plan and
     device (the SLS_analyse-once contract, reference src/sls/sls.f90:2178).
   * The numeric phases run eagerly, level by level: value assembly,
     extend-add of each child's Schur block into its parent front, the
@@ -28,7 +27,8 @@ src/spral/dense_factor.cu / assemble.cu):
     children of one padded shape.
   * The sweeps of a solve are the hand-written CUDA kernels of
     linalg/sweep_kernels.py (csrc/sweep.cu), one call per tree level and
-    direction: this is where the JAX flat path scans ``_fwd_one`` /
+    direction (the fronts of 64 or more of a level in one wavefront
+    launch): this is where the JAX flat path scans ``_fwd_one`` /
     ``_bwd_one`` over the chunks.
   * Every sum with duplicate destinations (value assembly, the extend-add
     of the children of one parent, the forward sweep's updates of shared
@@ -187,8 +187,10 @@ def flat_analyse(rows, cols, n, order: str = "amd",
                  relax_cols: int = 4) -> FlatPlan:
     """Symbolic analysis producing a flat-slab plan (reference
     src/ssids/anal.f90).  Host-side: native C++ orderings and numpy maps.
-    Kept line for line with the JAX package's ``flat_analyse`` so that both
-    produce the same plan for the same pattern."""
+    Kept with the JAX package's ``flat_analyse`` so that both produce the
+    same plan for the same pattern; only the grouping of the entries by
+    supernode differs (one sort here, a scan of all entries per supernode
+    there)."""
     import scipy.sparse as sp
 
     from ..native import (
@@ -304,10 +306,15 @@ def flat_analyse(rows, cols, n, order: str = "amd",
                             for g in group_of[s_of]], np.int64)
     base = np.array([goffs[int(g)] for g in group_of[s_of]], np.int64) \
         + node_pos[s_of] * fp_of_entry * fp_of_entry
+    # one stable sort groups the entries by supernode (ascending, each
+    # supernode's entries in their input order): O(nnz log nnz), not O(ns x nnz)
     fi = np.zeros(len(a_r), np.int64)
-    for s in np.unique(s_of):
-        sel = np.flatnonzero(s_of == s)
-        fi[sel] = pos_in_front(int(s), a_r[sel])
+    by_sn = np.argsort(s_of, kind="stable")
+    sns, starts = np.unique(s_of[by_sn], return_index=True)
+    ends = np.append(starts[1:], len(by_sn))
+    for s, lo, hi in zip(sns.tolist(), starts.tolist(), ends.tolist()):
+        sel = by_sn[lo:hi]
+        fi[sel] = pos_in_front(s, a_r[sel])
     fj = a_c - sn_first[s_of]
     idx_lower = base + fi * fp_of_entry + fj
     off_diag = a_r != a_c
@@ -467,7 +474,7 @@ def _device_plan_build(plan: FlatPlan, device) -> dict:
                 [(g.goff, g.Fpad, g.ncols, g.frows) for g in by_level[lv]],
                 n, device)))
     dev["sweep_scratch"] = max(
-        (lvp["sweep"].work_size + lvp["sweep"].part_size for lvp in dev["levels"]),
+        (lvp["sweep"].work_size for lvp in dev["levels"]),
         default=0)
     return dev
 

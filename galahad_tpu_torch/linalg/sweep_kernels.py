@@ -46,14 +46,14 @@ from .ldlt_kernels import H100_BYTES_PER_S, H100_FLOPS, _launch
 
 SMALL_FRONTS = (8, 16, 32)        # a lane per row / column, several fronts per warp
 _BLOCK_THREADS = 256              # THREADS of sweep.cu
-STRIP_ROWS = 64                   # STRIP of sweep.cu
 TABLE_WIDTH = 8                   # TW of sweep.cu
-# a front whose block below the triangle, (nf - ncols) x ncols, has more
-# entries than this is cut into strips, one thread block each
-HEAVY_ENTRIES = 32768
-# a front with more eliminated columns than this is cut into column blocks of
-# this width, one round of launches each (a multiple of the kernels' panel of 32)
-BLOCK_COLS = 512
+ITEM = 32                         # rows (forward) / columns (backward) of a wavefront item
+# a front with at most ITEM eliminated columns and at most this many struct
+# rows is one forward item (its triangle and its struct rows)
+STRUCT_INLINE = 96
+# polls of a flag after which a block of the wavefront kernel gives up, marks
+# the call as failed and leaves (a wrong table must not hang the card)
+SPIN_POLLS = 10 ** 8
 
 _counts = dict(fwd=0, bwd=0, fwd_kernels=0, bwd_kernels=0, plain=0)
 
@@ -88,70 +88,126 @@ class SweepLevel:
     contiguous in the store: ``(store offset, Fpad, fronts, row-map offset,
     ncols offset, largest ncols)``.  ``fronts`` (host, one row per front) holds
     ``(Fpad, ncols, nf)``.  The device tensors are what the kernels read:
-    ``rows`` the concatenated row maps (int32), ``ncols`` (int32), and one
-    table of work items (int64, ``TABLE_WIDTH`` columns) per kernel:
+    ``rows`` the concatenated row maps (int32), ``ncols`` (int32), and the
+    work-item tables (int64, ``TABLE_WIDTH`` columns):
 
-    ``small``   a block's worth of fronts of 8 / 16 / 32: store offset, row-map
-                offset, ncols offset, Fpad, fronts
-    ``big``     a column block ``c0 .. c1`` of a front of 64 or more with
-                ``ncols > 0`` (the whole of ``0 .. ncols`` unless that is more
-                than ``BLOCK_COLS``), by round, heaviest first: store offset,
-                row-map offset, Fpad, c0, c1, nf, heavy, partials offset
-    ``strips``  ``STRIP_ROWS`` rows below the triangle of a heavy column block:
-                store offset, row-map offset, Fpad, c0, c1, first row, rows,
-                partials offset
+    ``small``     a block's worth of fronts of 8 / 16 / 32: store offset,
+                  row-map offset, ncols offset, Fpad, fronts
+    ``fwd_wave``  the forward items of the fronts of 64 or more with
+                  ``ncols > 0``, in ticket order: store offset, row-map offset,
+                  Fpad, lo, hi, ncols, nf, flag base.  Rows ``lo .. hi``: the
+                  rows below ``ncols`` are one triangle row block (``lo`` a
+                  multiple of ``ITEM``), the rows from ``ncols`` on struct rows
+                  (an item with both holds its front's last triangle block).
+    ``bwd_wave``  the backward items, one per column block ``lo .. hi`` (the
+                  same columns), in ticket order.
 
-    ``rounds`` (host, int32, one row per round) holds ``(first big item, big
-    items, first strip item, strip items)``: round ``r`` serves the ``r``-th
-    column block of every front that has one, forward in ascending and backward
-    in descending order.  A front is heavy if the block below its triangle has
-    more than ``HEAVY_ENTRIES`` entries or if it has several column blocks.
+    Triangle block ``j`` of a front with ``blocks`` of them publishes flag
+    ``flag base + j`` forward and ``flag base + blocks - 1 - j`` backward; an
+    item waits on the flags of the blocks before its own in its direction
+    (all of them for struct rows), and every item is listed after each item
+    it waits on (:func:`item_waits`).  ``sync`` (int32, device) holds the
+    ticket counter, the abort word and the ``n_flags`` flags, cleared at every
+    call; ``status`` (int32, host memory the card writes) is set to 1 + the
+    item's ticket by a block whose wait timed out, and stays set.
 
     Then the accumulation lists: destination rows ``acc_row`` (distinct,
     ascending), and per destination the scratch positions
     ``acc_pos[acc_ptr[k]:acc_ptr[k+1]]`` (ascending) whose sum it receives.
-    ``work_size`` and ``part_size`` are the scratch lengths a call needs.
-    ``fwd_kernels`` / ``bwd_kernels`` are the kernel launches the tables call
-    for in one :func:`sweep_fwd` / :func:`sweep_bwd` on the card (the counters
-    add what the launchers report, not these)."""
+    ``work_size`` is the scratch length a call needs.  ``fwd_kernels`` /
+    ``bwd_kernels`` are the kernel launches the tables call for in one
+    :func:`sweep_fwd` / :func:`sweep_bwd` on the card (the counters add what
+    the launchers report, not these)."""
     n: int
     batches: list
     fronts: np.ndarray
     rows: torch.Tensor
     ncols: torch.Tensor
     small: torch.Tensor
-    big: torch.Tensor
-    strips: torch.Tensor
-    rounds: np.ndarray
+    fwd_wave: torch.Tensor
+    bwd_wave: torch.Tensor
+    n_flags: int
+    sync: torch.Tensor
+    status: torch.Tensor
     acc_row: torch.Tensor
     acc_ptr: torch.Tensor
     acc_pos: torch.Tensor
     acc_len: torch.Tensor        # int64 run lengths, for the plain accumulation
     work_size: int
-    part_size: int
     store_end: int               # one past the last store element a front covers
 
     fwd_kernels: int = 0
     bwd_kernels: int = 0
-    _pointers: tuple = None
+    _pointers: dict = None
 
     def __post_init__(self):
-        self.bwd_kernels = int(self.small.shape[0] > 0) + int(
-            (self.rounds[:, 1] > 0).sum() + (self.rounds[:, 3] > 0).sum())
-        self.fwd_kernels = self.bwd_kernels + int(self.acc_row.shape[0] > 0)
+        self.bwd_kernels = int(self.small.shape[0] > 0) + int(self.bwd_wave.shape[0] > 0)
+        self.fwd_kernels = (int(self.small.shape[0] > 0) + int(self.fwd_wave.shape[0] > 0)
+                            + int(self.acc_row.shape[0] > 0))
+        self._status = self.status.numpy() if self.status.device.type == "cpu" else None
 
-    def pointers(self) -> tuple:
-        """The launchers' table arguments (the tables never move): rows, ncols,
-        small, its items, big, strips, rounds, its rows; then the accumulation's
-        rows, pointers, positions and count."""
+    def pointers(self, direction: str) -> tuple:
+        """The launchers' table arguments (the tables never move): rows,
+        ncols, small, its items, the direction's wavefront items and their
+        count, sync, flags, status; forward also the accumulation's rows,
+        pointers, positions and count."""
         if self._pointers is None:
-            self._pointers = (
-                self.rows.data_ptr(), self.ncols.data_ptr(), self.small.data_ptr(),
-                self.small.shape[0], self.big.data_ptr(), self.strips.data_ptr(),
-                self.rounds.ctypes.data, self.rounds.shape[0],
-                self.acc_row.data_ptr(), self.acc_ptr.data_ptr(),
-                self.acc_pos.data_ptr(), self.acc_row.shape[0])
-        return self._pointers
+            common = (self.rows.data_ptr(), self.ncols.data_ptr(), self.small.data_ptr(),
+                      self.small.shape[0])
+            sync = (self.sync.data_ptr(), self.n_flags, self.status.data_ptr())
+            self._pointers = dict(
+                fwd=common + (self.fwd_wave.data_ptr(), self.fwd_wave.shape[0]) + sync
+                + (self.acc_row.data_ptr(), self.acc_ptr.data_ptr(),
+                   self.acc_pos.data_ptr(), self.acc_row.shape[0]),
+                bwd=common + (self.bwd_wave.data_ptr(), self.bwd_wave.shape[0]) + sync)
+        return self._pointers[direction]
+
+    def failed_item(self):
+        """The ticket of the wavefront item whose wait timed out in an earlier
+        call on the card, or None.  Reads host memory: no synchronisation, so
+        a call still running is not seen."""
+        if self._status is None or not self._status[0]:
+            return None
+        return int(self._status[0]) - 1
+
+
+def item_waits(item, direction: str):
+    """(the flags a wavefront item waits on, in order; the flag it publishes,
+    or None) for one row of ``fwd_wave`` / ``bwd_wave``."""
+    _, _, _, lo, hi, nc, _, fb = (int(v) for v in item)
+    blocks = -(-nc // ITEM)
+    if direction == "fwd":
+        if lo < nc:
+            b = lo // ITEM
+            return list(range(fb, fb + b)), fb + b
+        return list(range(fb, fb + blocks)), None
+    k = blocks - 1 - lo // ITEM
+    return list(range(fb, fb + k)), fb + k
+
+
+def _wave_items(o, r, Fpad, nc, nf, fb, order):
+    """The forward and backward items of one front of 64 or more, each with
+    its sort key: items that wait or are waited on by (wave, longest chain
+    first, front), the others after them, heaviest first."""
+    blocks = -(-nc // ITEM)
+    head = (o, r, Fpad)
+    fwd, bwd = [], []
+    if blocks == 1 and nf - nc <= STRUCT_INLINE:
+        fwd.append(((1, -nc * nf, order), head + (0, nf, nc, nf, fb)))
+    else:
+        for b in range(blocks):
+            fwd.append(((0, b, -blocks, order),
+                        head + (b * ITEM, min(b * ITEM + ITEM, nc), nc, nf, fb)))
+        for r0 in range(nc, nf, ITEM):
+            fwd.append(((0, blocks, -blocks, order),
+                        head + (r0, min(r0 + ITEM, nf), nc, nf, fb)))
+    if blocks == 1:
+        bwd.append(((1, -nc * nf, order), head + (0, nc, nc, nf, fb)))
+    else:
+        for c in range(blocks - 1, -1, -1):
+            bwd.append(((0, blocks - 1 - c, -blocks, order),
+                        head + (c * ITEM, min(c * ITEM + ITEM, nc), nc, nf, fb)))
+    return fwd, bwd
 
 
 def build_sweep_level(batches, n: int, device) -> SweepLevel:
@@ -161,10 +217,11 @@ def build_sweep_level(batches, n: int, device) -> SweepLevel:
     ``>= n``.  ``n`` is the spare slot's index in ``y``."""
     if n + 1 >= 2 ** 31:
         raise ValueError("the sweep kernels index y with 32-bit integers")
+    device = torch.device(device)
     host, fronts, rows_all, nc_all = [], [], [], []
-    small, big, strips = [], [], []
+    small, fwd, bwd = [], [], []
     acc_dest, acc_src = [], []
-    fro = nco = part = store_end = 0
+    fro = nco = n_flags = store_end = 0
     for off, Fpad, nco_b, frows in batches:
         nco_b = np.asarray(nco_b, np.int64)
         frows = np.asarray(frows, np.int64).reshape(len(nco_b), Fpad)
@@ -194,18 +251,12 @@ def build_sweep_level(batches, n: int, device) -> SweepLevel:
         else:
             for i in np.flatnonzero(nco_b > 0):
                 nc, nfi = int(nco_b[i]), int(nf[i])
-                o, r = off + int(i) * Fpad * Fpad, fro + int(i) * Fpad
-                heavy = (nfi - nc) * nc > HEAVY_ENTRIES or nc > BLOCK_COLS
-                for rnd, c0 in enumerate(range(0, nc, BLOCK_COLS)):
-                    c1 = min(nc, c0 + BLOCK_COLS)
-                    nst = -(-(nfi - c1) // STRIP_ROWS) if heavy else 0
-                    big.append((rnd, -(c1 - c0) * nfi, o, r, Fpad, c0, c1, nfi,
-                                int(heavy), part))
-                    for s in range(nst):
-                        r0 = c1 + s * STRIP_ROWS
-                        strips.append((rnd, o, r, Fpad, c0, c1, r0,
-                                       min(STRIP_ROWS, nfi - r0), part + s * (c1 - c0)))
-                    part += nst * (c1 - c0)
+                f_items, b_items = _wave_items(
+                    int(off) + int(i) * Fpad * Fpad, fro + int(i) * Fpad, Fpad, nc, nfi,
+                    n_flags, len(host) * 2 ** 32 + int(i))
+                fwd += f_items
+                bwd += b_items
+                n_flags += -(-nc // ITEM)
         # scratch positions of the struct rows of fronts that eliminate something
         pos = np.arange(Fpad)[None, :]
         struct = (pos >= nco_b[:, None]) & (pos < nf[:, None]) & (nco_b[:, None] > 0)
@@ -217,21 +268,16 @@ def build_sweep_level(batches, n: int, device) -> SweepLevel:
     if fro >= 2 ** 31:
         raise ValueError("the sweep kernels index a level's rows with 32-bit integers")
     small.sort(key=lambda r: r[0])
-    big.sort(key=lambda r: r[:2])
-    strips.sort(key=lambda r: r[0])
-    n_rounds = max((r[0] + 1 for r in big), default=0)
-    rounds = np.zeros((n_rounds, 4), np.int32)
-    for col, items in ((0, big), (2, strips)):
-        per_round = np.bincount(np.asarray([r[0] for r in items], np.int64),
-                                minlength=n_rounds)
-        rounds[:, col + 1] = per_round
-        rounds[:, col] = np.cumsum(per_round) - per_round
 
     def table(items, skip):
         out = np.zeros((len(items), TABLE_WIDTH), np.int64)
         for k, item in enumerate(items):
             out[k, :len(item) - skip] = item[skip:]
         return torch.as_tensor(out, device=device)
+
+    def wave(items):
+        items.sort(key=lambda r: r[0])
+        return table([it[1] for it in items], 0)
 
     def i32(a):
         return torch.as_tensor(np.ascontiguousarray(a, np.int32), device=device)
@@ -240,15 +286,20 @@ def build_sweep_level(batches, n: int, device) -> SweepLevel:
     dest, src = cat(acc_dest), cat(acc_src)
     order = np.argsort(dest, kind="stable")      # sources stay ascending per destination
     uniq, counts = np.unique(dest, return_counts=True)
+    status = torch.zeros(1, dtype=torch.int32)
+    if device.type == "cuda":
+        status = status.pin_memory()             # the card writes it, the host reads it
     return SweepLevel(
         n=int(n), batches=host,
         fronts=(np.concatenate(fronts) if fronts else np.zeros((0, 3), np.int64)),
         rows=i32(cat(rows_all)), ncols=i32(cat(nc_all)),
-        small=table(small, 1), big=table(big, 2), strips=table(strips, 1), rounds=rounds,
+        small=table(small, 1), fwd_wave=wave(fwd), bwd_wave=wave(bwd),
+        n_flags=n_flags, sync=torch.zeros(2 + n_flags, dtype=torch.int32, device=device),
+        status=status,
         acc_row=i32(uniq), acc_ptr=i32(np.concatenate([[0], np.cumsum(counts)])),
         acc_pos=i32(src[order]),
         acc_len=torch.as_tensor(counts.astype(np.int64), device=device),
-        work_size=fro, part_size=part, store_end=store_end)
+        work_size=fro, store_end=store_end)
 
 
 # ---------------------------------------------------------------------------
@@ -341,13 +392,14 @@ def _library():
 
     lib = load_cuda_library("sweep.cu")
     if not getattr(lib, "_typed", False):
-        tables = [_PTR, ctypes.c_int, _PTR, _PTR, _PTR, ctypes.c_int]
+        tables = [_PTR, ctypes.c_int, _PTR, ctypes.c_int, _PTR, ctypes.c_int, _PTR,
+                  ctypes.c_longlong]
         for fn in (lib.sweep_fwd_f32, lib.sweep_fwd_f64):
             fn.argtypes = [_PTR] * 4 + tables + [_PTR, _PTR, _PTR, ctypes.c_int, _PTR,
                                                  ctypes.c_double, _PTR, _PTR]
             fn.restype = ctypes.c_int
         for fn in (lib.sweep_bwd_f32, lib.sweep_bwd_f64):
-            fn.argtypes = [_PTR] * 4 + tables + [_PTR, _PTR, ctypes.c_int, _PTR, _PTR]
+            fn.argtypes = [_PTR] * 4 + tables + [_PTR, ctypes.c_int, _PTR, _PTR]
             fn.restype = ctypes.c_int
         lib.sweep_error_string.argtypes = [ctypes.c_int]
         lib.sweep_error_string.restype = ctypes.c_char_p
@@ -366,10 +418,9 @@ def _check_operands(store, y, lvl: SweepLevel, work) -> None:
     if store.numel() < lvl.store_end:
         raise ValueError("the level's fronts reach outside the store")
     if (work.dim() != 1 or work.dtype != store.dtype or work.device != store.device
-            or work.numel() < lvl.work_size + lvl.part_size):
-        raise ValueError(f"work must be a vector of at least "
-                         f"{lvl.work_size + lvl.part_size} entries of store's dtype "
-                         f"and device")
+            or work.numel() < lvl.work_size):
+        raise ValueError(f"work must be a vector of at least {lvl.work_size} entries "
+                         f"of store's dtype and device")
     if lvl.rows.device != store.device:
         raise ValueError("the level's tables must be on store's device")
     if store.device.type == "cpu":
@@ -380,14 +431,35 @@ def _check_operands(store, y, lvl: SweepLevel, work) -> None:
         raise TypeError(f"sweep kernels take float32/float64, got {store.dtype}")
     if not (store.is_contiguous() and y.is_contiguous() and work.is_contiguous()):
         raise ValueError("sweep kernels take contiguous vectors")
+    item = lvl.failed_item()
+    if item is not None:
+        raise RuntimeError(
+            f"an earlier sweep on this level gave up waiting in the wavefront kernel "
+            f"(item {item} of its table): the table breaks the ticket order")
+
+
+def sweep_check(levels) -> None:
+    """Synchronise the card and raise if a call on any of ``levels`` (a
+    :class:`SweepLevel` or a sequence of them) gave up waiting in the
+    wavefront kernel.  The wrappers raise for it at their next call on the
+    level; this asks at once."""
+    if isinstance(levels, SweepLevel):
+        levels = [levels]
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    for lvl in levels:
+        item = lvl.failed_item()
+        if item is not None:
+            raise RuntimeError(f"a sweep gave up waiting in the wavefront kernel (item "
+                               f"{item} of its table): the table breaks the ticket order")
 
 
 def sweep_fwd(store, y, lvl: SweepLevel, work) -> None:
     """Forward sweep and diagonal scale of every front of the level, on ``y``
     IN PLACE (see the module's text).  ``store`` is the flat factor store,
     ``y (n + 1,)`` the right-hand side with its spare slot, ``work``
-    scratch of at least ``lvl.work_size + lvl.part_size`` entries (its contents
-    on entry do not matter).  On CUDA tensors this launches the kernels of
+    scratch of at least ``lvl.work_size`` entries (its contents on entry do
+    not matter).  On CUDA tensors this launches the kernels of
     ``csrc/sweep.cu`` on the current stream or raises; CPU tensors take the
     plain version."""
     _check_operands(store, y, lvl, work)
@@ -403,8 +475,9 @@ def sweep_fwd(store, y, lvl: SweepLevel, work) -> None:
     fn = lib.sweep_fwd_f64 if store.dtype == torch.float64 else lib.sweep_fwd_f32
     launched = ctypes.c_int(0)
     _launch("sweep_fwd", fn, lib.sweep_error_string, store.device,
-            store.data_ptr(), y.data_ptr(), *lvl.pointers(), work.data_ptr(),
-            tiny16(store.dtype), ctypes.addressof(launched))
+            store.data_ptr(), y.data_ptr(), *lvl.pointers("fwd")[:9], SPIN_POLLS,
+            *lvl.pointers("fwd")[9:], work.data_ptr(), tiny16(store.dtype),
+            ctypes.addressof(launched))
     _counts["fwd"] += 1
     _counts["fwd_kernels"] += launched.value
 
@@ -422,11 +495,10 @@ def sweep_bwd(store, y, lvl: SweepLevel, work) -> None:
         return
     lib = _library()
     fn = lib.sweep_bwd_f64 if store.dtype == torch.float64 else lib.sweep_bwd_f32
-    part = work.data_ptr() + lvl.work_size * work.element_size()
     launched = ctypes.c_int(0)
     _launch("sweep_bwd", fn, lib.sweep_error_string, store.device,
-            store.data_ptr(), y.data_ptr(), *lvl.pointers()[:8], work.data_ptr(), part,
-            lvl.n, ctypes.addressof(launched))
+            store.data_ptr(), y.data_ptr(), *lvl.pointers("bwd"), SPIN_POLLS,
+            work.data_ptr(), lvl.n, ctypes.addressof(launched))
     _counts["bwd"] += 1
     _counts["bwd_kernels"] += launched.value
 
@@ -444,9 +516,10 @@ def sweep_bound_terms(levels, dtype: torch.dtype, direction: str):
     of the eliminated columns (and, forward, the diagonal); the front's row map
     (int32) and its ``ncols``; of ``y`` the eliminated rows read and written,
     backward the struct rows read, forward each distinct destination row read
-    and written.  The kernels' own scratch (struct-row changes, partial sums)
-    and accumulation lists are traffic of this design, not of the sweep, and
-    do not count.  Operations: two per L entry, forward one division per eliminated column
+    and written.  The kernels' own scratch (struct-row changes, the
+    published z and x), the ready flags, the ticket counter and the
+    accumulation lists are traffic of this design, not of the sweep, and do
+    not count.  Operations: two per L entry, forward one division per eliminated column
     and one addition per accumulated entry."""
     if direction not in ("fwd", "bwd"):
         raise ValueError("direction is 'fwd' or 'bwd'")

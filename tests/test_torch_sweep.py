@@ -190,7 +190,7 @@ CASES = {
 def scratch(store, lvl):
     """The scratch a sweep over ``lvl`` needs, filled with NaN: a result that
     read an entry no kernel wrote would show it."""
-    return torch.full((lvl.work_size + lvl.part_size,), float("nan"), dtype=store.dtype,
+    return torch.full((lvl.work_size,), float("nan"), dtype=store.dtype,
                       device=store.device)
 
 
@@ -272,10 +272,10 @@ def test_item_tables_cover_every_front_and_struct_row_once():
             offsets += [off + i * Fpad * Fpad for i in range(count)]
         small_with_cols = sum(int((g.ncols > 0).sum()) for g in groups if g.Fpad <= 32)
         assert len(offsets) >= small_with_cols
-        big_off = s.big[:, 0].tolist()
-        want_big = [g.goff + i * g.Fpad ** 2 for g in groups if g.Fpad > 32
-                    for i in np.flatnonzero(g.ncols > 0)]
-        assert sorted(big_off) == sorted(want_big)
+        want_big = sorted(g.goff + i * g.Fpad ** 2 for g in groups if g.Fpad > 32
+                          for i in np.flatnonzero(g.ncols > 0))
+        for wave in (s.fwd_wave, s.bwd_wave):
+            assert sorted(set(wave[:, 0].tolist())) == want_big
         assert len(set(offsets)) == len(offsets)
         want_small = {g.goff + i * g.Fpad ** 2 for g in groups if g.Fpad <= 32
                       for i in np.flatnonzero(g.ncols > 0)}
@@ -302,53 +302,83 @@ def test_item_tables_cover_every_front_and_struct_row_once():
             fro += g.nb * g.Fpad
         assert sorted(pos.tolist()) == want
     assert seen_fronts == plan.ns
-    assert dev["sweep_scratch"] == max(
-        lvp["sweep"].work_size + lvp["sweep"].part_size for lvp in dev["levels"])
+    assert dev["sweep_scratch"] == max(lvp["sweep"].work_size for lvp in dev["levels"])
 
 
-def test_column_blocks_and_strips_tile_a_front(monkeypatch):
-    """With low thresholds the wide fronts are cut into column blocks (one
-    round of launches each) and the rows below each block into strips: the
-    blocks tile 0..ncols, a block's strips tile the rows below it, the round
-    table delimits the items of each round, and the partial-sum ranges do not
-    overlap."""
-    monkeypatch.setattr(K, "HEAVY_ENTRIES", 64)
-    monkeypatch.setattr(K, "BLOCK_COLS", 32)
-    A = grid_kkt(20)
-    Al = sp.tril(A).tocoo()
-    plan = T.flat_analyse(Al.row, Al.col, A.shape[0], relax_cols=16)
-    dev = T._device_plan(plan, torch.device("cpu"))
-    n_strips = n_multi = 0
-    for lvp in dev["levels"]:
-        s = lvp["sweep"]
-        big, strips = s.big.tolist(), s.strips.tolist()
-        assert s.rounds[:, 1].sum() == len(big) and s.rounds[:, 3].sum() == len(strips)
-        blocks, spans = {}, []
-        for rnd, (b0, nbig, s0, nstr) in enumerate(s.rounds.tolist()):
-            for off, fro, Fpad, c0, c1, nf, heavy, part in big[b0:b0 + nbig]:
-                assert c0 == rnd * 32 and 0 < c1 - c0 <= 32
-                blocks.setdefault(off, []).append((c0, c1))
-                mine = [r for r in strips[s0:s0 + nstr] if r[0] == off]
-                assert all(r[3:5] == [c0, c1] for r in mine)
-                if heavy:
-                    assert [r[5] for r in mine] == list(range(c1, nf, K.STRIP_ROWS))
-                    assert sum(r[6] for r in mine) == nf - c1
-                    assert [r[7] for r in mine] == \
-                        [part + i * (c1 - c0) for i in range(len(mine))]
-                    spans.append((part, part + len(mine) * (c1 - c0)))
+def wave_levels():
+    """The sweep tables of every level of the grid KKT k=20 plan and of the
+    synthetic levels of the walk below."""
+    _, _, plan = analysed("grid_kkt20")
+    out = [lvp["sweep"] for lvp in T._device_plan(plan, torch.device("cpu"))["levels"]]
+    for case in ("ladder", "wide", "root_and_small"):
+        specs, pool = WALK_CASES[case]
+        _, batches, n, _ = synthetic_level(specs, torch.float64, seed=1, pool=pool)
+        out.append(K.build_sweep_level(batches, n, "cpu"))
+    return out
+
+
+def test_wave_items_tile_every_front():
+    """Every front of 64 or more that eliminates a column has forward items
+    whose rows tile 0..nf (triangle row blocks of 32 from 0, struct rows from
+    ncols, at most one item holding both: the front's last triangle block)
+    and backward items whose columns tile 0..ncols in blocks of 32; every
+    flag is published by exactly one item per direction."""
+    n_inline = n_split = 0
+    for lvl in wave_levels():
+        for direction, wave in (("fwd", lvl.fwd_wave), ("bwd", lvl.bwd_wave)):
+            spans, pubs = {}, []
+            for item in wave.tolist():
+                off, fro, Fpad, lo, hi, nc, nf, fb = item
+                assert 0 < nc <= nf <= Fpad >= 64 and lo < hi
+                spans.setdefault((off, nc, nf, fb), []).append((lo, hi))
+                pubs.append(K.item_waits(item, direction)[1])
+                if direction == "fwd":
+                    if lo < nc:
+                        assert lo % K.ITEM == 0 and min(hi, nc) - lo <= K.ITEM
+                        assert hi <= nc or nc - lo <= K.ITEM   # both: the last block
+                    else:
+                        assert hi - lo <= K.ITEM
                 else:
-                    assert mine == [] and (nf - c1) * c1 <= 64 and c0 == 0
-        for off, cols in blocks.items():
-            assert cols[0][0] == 0 and all(a[1] == b[0] for a, b in zip(cols, cols[1:]))
-            n_multi += len(cols) > 1
-        spans = sorted(sp_ for sp_ in spans if sp_[1] > sp_[0])
-        assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
-        assert s.part_size == max((sp_[1] for sp_ in spans), default=0)
-        assert s.fwd_kernels == s.bwd_kernels + int(s.acc_row.shape[0] > 0)
-        assert s.bwd_kernels == int(s.small.shape[0] > 0) + int(
-            (s.rounds[:, 1] > 0).sum() + (s.rounds[:, 3] > 0).sum())
-        n_strips += len(strips)
-    assert n_strips > 0 and n_multi > 0
+                    assert lo % K.ITEM == 0 and hi == min(lo + K.ITEM, nc)
+            for (off, nc, nf, fb), sp_ in spans.items():
+                sp_.sort()
+                end = nf if direction == "fwd" else nc
+                assert sp_[0][0] == 0 and sp_[-1][1] == end
+                assert all(a[1] == b[0] for a, b in zip(sp_, sp_[1:]))
+                if direction == "fwd" and nc <= K.ITEM:
+                    n_inline += len(sp_) == 1
+                    n_split += len(sp_) > 1
+            pubs = sorted(p for p in pubs if p is not None)
+            assert pubs == list(range(lvl.n_flags))
+            assert lvl.sync.shape == (2 + lvl.n_flags,)
+        fronts = int(((lvl.fronts[:, 0] >= 64) & (lvl.fronts[:, 1] > 0)).sum())
+        assert len(set(lvl.fwd_wave[:, 0].tolist())) == fronts
+        assert lvl.bwd_kernels == int(lvl.small.shape[0] > 0) + int(lvl.bwd_wave.shape[0] > 0)
+        assert lvl.fwd_kernels == lvl.bwd_kernels + int(lvl.acc_row.shape[0] > 0)
+        assert lvl.fwd_kernels <= 3 and lvl.bwd_kernels <= 2
+    assert n_inline > 0 and n_split > 0
+
+
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+def test_every_wait_is_on_an_earlier_ticket(direction):
+    """The kernel hands items out by ticket (table order); a wait that is on
+    an item of a smaller ticket always ends, because that item is held by a
+    running block.  So every flag an item waits on is published by an item
+    listed before it, and the waits of an item go up the flags."""
+    checked = 0
+    for lvl in wave_levels():
+        wave = (lvl.fwd_wave if direction == "fwd" else lvl.bwd_wave).tolist()
+        publisher = {}
+        for t, item in enumerate(wave):
+            pub = K.item_waits(item, direction)[1]
+            if pub is not None:
+                publisher[pub] = t
+        for t, item in enumerate(wave):
+            waits, pub = K.item_waits(item, direction)
+            assert waits == sorted(waits) and pub not in waits
+            assert all(publisher[f] < t for f in waits)
+            checked += len(waits)
+    assert checked > 0
 
 
 # --- the kernels' walk over the tables, in numpy -----------------------------
@@ -358,12 +388,41 @@ def _dsafe(d, tiny):
     return np.where(np.abs(d) > tiny, d, 1.0)
 
 
+def walk_wave(st, y, lvl, work, direction, tiny=None):
+    """The wavefront launch of csrc/sweep.cu, item by item in ticket order, in
+    numpy float64.  An item may read z / x (in ``work``) only of blocks whose
+    flags are published: asserted at every wait."""
+    rows = lvl.rows.numpy()
+    published = np.zeros(lvl.n_flags, bool)
+    for item in (lvl.fwd_wave if direction == "fwd" else lvl.bwd_wave).tolist():
+        waits, pub = K.item_waits(item, direction)
+        assert published[waits].all()
+        off, fro, ld, lo, hi, nc, nf, _ = item
+        F = st[off:off + ld * ld].reshape(ld, ld)
+        fr, z = rows[fro:fro + ld], work[fro:fro + ld]
+        if direction == "fwd":
+            for j in range(lo, min(hi, nc)):
+                z[j] = y[fr[j]] - F[j, :j] @ z[:j]
+                y[fr[j]] = z[j] / _dsafe(F[j, j], tiny)
+            s0 = max(lo, nc)
+            z[s0:hi] = -(F[s0:hi, :nc] @ z[:nc])
+        else:
+            acc = (y[fr[lo:hi]] - F[nc:nf, lo:hi].T @ y[fr[nc:nf]]
+                   - F[hi:nc, lo:hi].T @ z[hi:nc])
+            for j in range(hi - 1, lo - 1, -1):
+                z[j] = acc[j - lo]
+                acc[:j - lo] -= F[j, lo:j] * acc[j - lo]
+            y[fr[lo:hi]] = z[lo:hi]
+        if pub is not None:
+            published[pub] = True
+
+
 def tables_fwd(store, y, lvl, tiny):
     """What csrc/sweep.cu's forward launches compute, item by item in launch
     order, in numpy float64.  The scratch starts as NaN: reading an entry that
     no item wrote shows in the result."""
     st, rows, ncols = store.numpy(), lvl.rows.numpy(), lvl.ncols.numpy()
-    work = np.full(lvl.work_size + lvl.part_size, np.nan)
+    work = np.full(lvl.work_size, np.nan)
     for off, fro, nco, N, count in lvl.small[:, :5].tolist():
         for f in range(count):
             nc = int(ncols[nco + f])
@@ -376,22 +435,7 @@ def tables_fwd(store, y, lvl, tiny):
                 v[j + 1:] -= F[j + 1:, j] * v[j]
             y[fr[:nc]] = v[:nc] / _dsafe(np.diag(F)[:nc], tiny)
             work[fro + f * N + nc:fro + (f + 1) * N] = v[nc:]
-    big, strips = lvl.big.tolist(), lvl.strips.tolist()
-    for b0, nbig, s0, nstr in lvl.rounds.tolist():
-        for off, fro, ld, c0, c1, nf, heavy, _ in big[b0:b0 + nbig]:
-            F = st[off:off + ld * ld].reshape(ld, ld)
-            fr, z = rows[fro:fro + ld], work[fro:fro + ld]
-            for j in range(c0, c1):
-                v = y[fr[j]] - F[j, c0:j] @ z[c0:j] + (z[j] if c0 > 0 else 0.0)
-                z[j] = v
-                y[fr[j]] = v / _dsafe(F[j, j], tiny)
-            if not heavy:
-                z[c1:nf] = -(F[c1:nf, c0:c1] @ z[c0:c1])
-        for off, fro, ld, c0, c1, r0, nr, _ in strips[s0:s0 + nstr]:
-            F = st[off:off + ld * ld].reshape(ld, ld)
-            z = work[fro:fro + ld]
-            s = F[r0:r0 + nr, c0:c1] @ z[c0:c1]
-            z[r0:r0 + nr] = (z[r0:r0 + nr] if c0 > 0 else 0.0) - s
+    walk_wave(st, y, lvl, work, "fwd", tiny)
     ptr, pos = lvl.acc_ptr.numpy(), lvl.acc_pos.numpy()
     for k, row in enumerate(lvl.acc_row.tolist()):
         y[row] += work[pos[ptr[k]:ptr[k + 1]]].sum()
@@ -400,25 +444,7 @@ def tables_fwd(store, y, lvl, tiny):
 def tables_bwd(store, y, lvl):
     """The backward launches of csrc/sweep.cu, item by item, in numpy."""
     st, rows, ncols = store.numpy(), lvl.rows.numpy(), lvl.ncols.numpy()
-    part = np.full(lvl.part_size, np.nan)
-    big, strips = lvl.big.tolist(), lvl.strips.tolist()
-    for b0, nbig, s0, nstr in reversed(lvl.rounds.tolist()):
-        for off, fro, ld, c0, c1, r0, nr, po in strips[s0:s0 + nstr]:
-            F = st[off:off + ld * ld].reshape(ld, ld)
-            fr = rows[fro:fro + ld]
-            part[po:po + c1 - c0] = F[r0:r0 + nr, c0:c1].T @ y[fr[r0:r0 + nr]]
-        for off, fro, ld, c0, c1, nf, heavy, po in big[b0:b0 + nbig]:
-            F = st[off:off + ld * ld].reshape(ld, ld)
-            fr = rows[fro:fro + ld]
-            acc = y[fr[c0:c1]].copy()
-            if heavy:
-                for s in range(-(-(nf - c1) // K.STRIP_ROWS)):
-                    acc -= part[po + s * (c1 - c0):po + (s + 1) * (c1 - c0)]
-            else:
-                acc -= F[c1:nf, c0:c1].T @ y[fr[c1:nf]]
-            for j in range(c1 - 1, c0 - 1, -1):
-                y[fr[j]] = acc[j - c0]
-                acc[:j - c0] -= F[j, c0:j] * acc[j - c0]
+    walk_wave(st, y, lvl, np.full(lvl.work_size, np.nan), "bwd")
     for off, fro, nco, N, count in lvl.small[:, :5].tolist():
         for f in range(count):
             nc = int(ncols[nco + f])
@@ -433,21 +459,30 @@ def tables_bwd(store, y, lvl):
             y[fr[:nc]] = v[:nc]
 
 
-@pytest.mark.parametrize("block_cols,heavy_entries", [(512, 32768), (32, 64), (64, 10 ** 9)])
-def test_the_tables_drive_the_sweeps_as_the_kernels_walk_them(
-        monkeypatch, block_cols, heavy_entries):
+# (specs, pool of shared struct rows): an int is ncols with a random number of
+# struct rows, a pair (ncols, struct rows) fixes both
+WALK_CASES = {
+    "ladder": ([(8, [0, 3, 8, 1, 5]), (32, [32, 7, 0, 31]), (64, [0, 1, 64, 20, 33]),
+                (128, [100, 128, 5]), (192, [150, 40])], 24),
+    "wide": ([(256, [(20, 200), (33, 120), 256, 1]), (512, [(300, 150), (500, 0)]),
+              (1024, [(1000, 24), 0, (31, 97)])], 300),
+    "root": ([(4096, [(3575, 0)])], 24),
+    "root_and_small": ([(4096, [(3575, 0)]),
+                        (64, [(1 + k % 22, (7 * k) % (42 - k % 22)) for k in range(300)])],
+                       64),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WALK_CASES))
+def test_the_tables_drive_the_sweeps_as_the_kernels_walk_them(case):
     """The kernels cannot run here, but the tables they read can be walked in
-    their launch order: small fronts, then per round the column blocks and
-    their strips, then the accumulation.  Against the dense reference, with
-    NaN wherever a front does not hold L or d and in the unwritten scratch."""
-    monkeypatch.setattr(K, "BLOCK_COLS", block_cols)
-    monkeypatch.setattr(K, "HEAVY_ENTRIES", heavy_entries)
-    specs = [(8, [0, 3, 8, 1, 5]), (32, [32, 7, 0, 31]), (64, [0, 1, 64, 20, 33]),
-             (128, [100, 128, 5]), (192, [150, 40])]
-    store, batches, n, dense = synthetic_level(specs, torch.float64, seed=5)
+    their launch order (small fronts, the wavefront items by ticket, the
+    accumulation; backward the wavefront, then the small fronts), honouring
+    every wait.  Against the dense reference, with NaN wherever a front does
+    not hold L or d and in the unwritten scratch."""
+    specs, pool = WALK_CASES[case]
+    store, batches, n, dense = synthetic_level(specs, torch.float64, seed=5, pool=pool)
     lvl = K.build_sweep_level(batches, n, "cpu")
-    if block_cols < 128:
-        assert lvl.rounds.shape[0] == -(-150 // block_cols)
     y0 = np.random.default_rng(4).normal(size=n + 1)
     y0[n] = 0.0
     ref_fwd, ref_bwd = dense_reference(dense, y0, tiny16(torch.float64))
@@ -456,6 +491,7 @@ def test_the_tables_drive_the_sweeps_as_the_kernels_walk_them(
     assert np.abs(y - ref_fwd).max() <= 1e-12 * np.abs(ref_fwd).max()
     tables_bwd(store, y, lvl)
     assert np.abs(y - ref_bwd).max() <= 1e-12 * np.abs(ref_bwd).max()
+    assert y[n] == 0.0
 
 
 def test_two_solves_give_the_same_bits():
@@ -469,13 +505,16 @@ def test_two_solves_give_the_same_bits():
 
 
 def synthetic_level(specs, dtype, seed, garbage=float("nan"), pool=24):
-    """A level of fronts ``specs = [(Fpad, [ncols, ...]), ...]`` with random L
+    """A level of fronts ``specs = [(Fpad, [ncols, ...]), ...]`` (an entry may
+    be a pair ``(ncols, struct rows)``; else the struct rows are drawn) with random L
     and d, eliminated rows distinct over all fronts and struct rows drawn from
     a shared pool of ``pool`` rows, so that fronts add into the same rows.
     Every entry of a front that is neither L nor d is ``garbage``, on the
     padded rows too.  Returns (store, batches, n, dense fronts)."""
     rng = np.random.default_rng(seed)
-    n_elim = sum(sum(ncs) for _, ncs in specs)
+    specs = [(Fpad, [nc if isinstance(nc, tuple) else (nc, None) for nc in ncs])
+             for Fpad, ncs in specs]
+    n_elim = sum(nc for _, ncs in specs for nc, _ in ncs)
     n = n_elim + pool
     parts, batches, dense = [], [], []
     off, next_row = 0, 0
@@ -483,8 +522,9 @@ def synthetic_level(specs, dtype, seed, garbage=float("nan"), pool=24):
         nb = len(ncs)
         F = np.empty((nb, Fpad, Fpad))
         frows = np.full((nb, Fpad), n, np.int64)
-        for i, nc in enumerate(ncs):
-            ns = int(rng.integers(0, min(pool, Fpad - nc) + 1))
+        for i, (nc, ns) in enumerate(ncs):
+            if ns is None:
+                ns = int(rng.integers(0, min(pool, Fpad - nc) + 1))
             nf = nc + ns
             F[i] = garbage
             L = np.tril(rng.normal(size=(nf, nc)) * 0.5 / np.sqrt(max(nc, 1)), -1)
@@ -498,7 +538,7 @@ def synthetic_level(specs, dtype, seed, garbage=float("nan"), pool=24):
             frows[i, nc:nf] = n_elim + np.sort(rng.choice(pool, ns, replace=False))
             next_row += nc
             dense.append((L, d, frows[i, :nf].copy(), nc))
-        batches.append((off, Fpad, np.asarray(ncs, np.int64), frows))
+        batches.append((off, Fpad, np.asarray([nc for nc, _ in ncs], np.int64), frows))
         parts.append(F.ravel())
         off += F.size
     store = torch.as_tensor(np.concatenate(parts + [np.zeros(1)]), dtype=dtype)
@@ -636,16 +676,16 @@ def test_sweep_bound_counts_bytes_and_operations():
 @pytest.mark.parametrize("direction", ["fwd", "bwd"])
 def test_sweep_bound_leaves_out_the_design_s_own_scratch(monkeypatch, direction):
     """The bound counts what the sweep must move, not this design's workspace:
-    cutting the fronts into strips and column blocks (partial sums, more
-    scratch traffic) does not move it, and a destination row that several
-    fronts add into counts once."""
-    specs = [(192, [150, 40]), (64, [20, 33]), (8, [3, 5])]
-    _, batches, n, dense = synthetic_level(specs, torch.float64, seed=9)
+    cutting the fronts into more wavefront items (more flags, more tickets,
+    struct rows in items of their own) does not move it, and a destination
+    row that several fronts add into counts once."""
+    specs = [(192, [150, 40, (20, 150)]), (64, [20, 33]), (8, [3, 5])]
+    _, batches, n, dense = synthetic_level(specs, torch.float64, seed=9, pool=160)
     whole = K.build_sweep_level(batches, n, "cpu")
-    monkeypatch.setattr(K, "BLOCK_COLS", 32)
-    monkeypatch.setattr(K, "HEAVY_ENTRIES", 64)
+    monkeypatch.setattr(K, "STRUCT_INLINE", 0)
     cut = K.build_sweep_level(batches, n, "cpu")
-    assert cut.part_size > whole.part_size and cut.rounds.shape[0] > 1
+    assert cut.fwd_wave.shape[0] > whole.fwd_wave.shape[0]
+    assert cut.n_flags == whole.n_flags > 0
     tb, to = K.sweep_bound_terms(whole, torch.float64, direction)
     assert K.sweep_bound_terms(cut, torch.float64, direction) == (tb, to)
     nc = sum(d[3] for d in dense)

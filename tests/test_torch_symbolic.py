@@ -66,6 +66,34 @@ def test_plan_equals_reference(case):
     plans_equal(pj, pt)
 
 
+def duplicated_pattern():
+    """The grid KKT pattern at k=12 with a third of its entries given twice
+    and some once more as their mirror image (upper for lower), shuffled:
+    the analyse must take COO input as it comes."""
+    rows, cols, n = grid_kkt_pattern(12)
+    rng = np.random.default_rng(7)
+    dup = rng.choice(len(rows), len(rows) // 3, replace=False)
+    mir = rng.choice(len(rows), len(rows) // 5, replace=False)
+    r = np.concatenate([rows, rows[dup], cols[mir]])
+    c = np.concatenate([cols, cols[dup], rows[mir]])
+    perm = rng.permutation(len(r))
+    return r[perm], c[perm], n
+
+
+@pytest.mark.parametrize("case", ["grid_kkt_k60", "duplicate_entries"])
+def test_plan_equals_reference_with_many_supernodes(case):
+    """Thousands of supernodes (k=60: KKT order 5,400) and a pattern with
+    duplicate entries: a wrong grouping of the entries by supernode would
+    move ``a_idx``."""
+    rows, cols, n = (grid_kkt_pattern(60) if case == "grid_kkt_k60"
+                     else duplicated_pattern())
+    pj = J.flat_analyse(rows, cols, n, order="amd", relax_cols=16)
+    pt = T.flat_analyse(rows, cols, n, order="amd", relax_cols=16)
+    if case == "grid_kkt_k60":
+        assert pt.ns > 1000
+    plans_equal(pj, pt)
+
+
 @pytest.mark.parametrize("order", ["amd", "rcm", "nd", "natural"])
 def test_orderings_equal_reference(order):
     A = grid_laplacian(7)
