@@ -26,7 +26,9 @@ JSON line per phase:
                 and full, fronts sharing struct rows, two runs bitwise equal;
                 the extend-add kernel on synthetic levels of parent fronts
                 in {8, 32, 128, 512, 4096} x {float32, float64} with 1, 2, 4
-                and 16 children, bitwise equal to its plain version
+                and 16 children, a level of fronts of 64 with 33 and 40
+                children each, and one of odd counts of fronts of 8, 16 and
+                64, bitwise equal to its plain version
   4. kkt        factorize + solve of the flagship KKT system
                 (grid QP, k=316: n=99,856, m=49,928) with D_x = C = 1; a
                 solve makes at most 3 forward and 2 backward sweep kernel
@@ -41,7 +43,10 @@ JSON line per phase:
   8. kernels    one line about every hand-written kernel on that path; the
                 ``ldlt_wide`` entry also times the parent's 519 ``baddbmm_``
                 trailing products on the same shapes (``update_library_ms``),
-                as the yardstick of the in-kernel update
+                as the yardstick of the in-kernel update; the ``extend_add``
+                entry has per tree level its device time, bound, tiles, warps,
+                pairs and longest chain of pairs, and the kernel's registers,
+                spill bytes (0 checked) and resident warps per SM, f32 and f64
 
 and, as its last line, ``{"ok": true, "device": {...}}``.  Any failed
 phase ends the run with a non-zero exit code and no such line.  Without
@@ -725,12 +730,17 @@ def ea_level(specs, seed):
     return store, groups, reached
 
 
-EA_CASES = [
-    (8, [(8, [1, 2, 4, 16] * 256, 8)]),
-    (32, [(32, [1, 2, 4, 16] * 64, 32), (8, [3, 1] * 64, 8)]),
-    (128, [(128, [1, 2, 4, 16] * 8, 128)]),
-    (512, [(512, [1, 2, 4, 16], 512)]),
-    (4096, [(4096, [1, 2], 4096), (4096, [16], 512)])]
+EA_CASES = [                     # (case, seed, parents: (Fd, children per parent, umax))
+    ("8", 8, [(8, [1, 2, 4, 16] * 256, 8)]),
+    ("32", 32, [(32, [1, 2, 4, 16] * 64, 32), (8, [3, 1] * 64, 8)]),
+    ("128", 128, [(128, [1, 2, 4, 16] * 8, 128)]),
+    ("512", 512, [(512, [1, 2, 4, 16], 512)]),
+    ("4096", 4096, [(4096, [1, 2], 4096), (4096, [16], 512)]),
+    # more pairs in a tile than a warp has lanes
+    ("heavy", 64, [(64, [40, 40, 33] * 16, 32)]),
+    # odd counts of parents of 8, 16 and 64: packed four and two to a warp
+    ("packed", 65, [(8, [3, 1, 5, 2, 9] * 101, 8), (16, [2, 7, 1] * 151, 16),
+                    (64, [3, 1, 2, 1, 4] * 21, 40)])]
 
 
 def same_bits(a, b) -> bool:
@@ -743,8 +753,9 @@ def kernel_ea_cases():
     """The extend-add kernel on one synthetic level per parent size, against
     its plain version (bitwise), with time and bound."""
     out_rows = []
-    for Fd, specs in EA_CASES:
-        store64, batches, reached = ea_level(specs, seed=Fd)
+    for case, seed, specs in EA_CASES:
+        Fd = specs[0][0]
+        store64, batches, reached = ea_level(specs, seed=seed)
         lvl = ea_kernels.build_ea_level(batches, "cuda")
         reached = torch.as_tensor(reached, device="cuda")
         for dtype in (torch.float32, torch.float64):
@@ -754,15 +765,15 @@ def kernel_ea_cases():
             ea_kernels.extend_add(got, lvl)
             made = ea_kernels.ea_counts()["kernels"] - before["kernels"]
             check(made == lvl.kernels, f"extend_add: the launcher reports {made} kernel "
-                  f"launches, the table calls for {lvl.kernels} (Fd={Fd})")
+                  f"launches, the table calls for {lvl.kernels} ({case})")
             plain_ms = event_ms(lambda: ea_kernels.extend_add_plain(ref, lvl))
             check(same_bits(got, ref), f"extend_add kernel and plain version differ "
-                  f"(Fd={Fd}, {dtype})")
+                  f"({case}, {dtype})")
             check(bool(torch.isfinite(got[reached]).all()),
-                  f"extend_add kernel: non-finite destination (Fd={Fd}, {dtype})")
+                  f"extend_add kernel: non-finite destination ({case}, {dtype})")
             again = store.clone()
             ea_kernels.extend_add(again, lvl)
-            check(same_bits(again, got), f"extend_add kernel: two runs differ (Fd={Fd})")
+            check(same_bits(again, got), f"extend_add kernel: two runs differ ({case})")
             ms = time_each_ms(lambda: got.copy_(store),
                               lambda: ea_kernels.extend_add(got, lvl), reps=5)
             copies = [store.clone() for _ in range(5)]
@@ -770,10 +781,11 @@ def kernel_ea_cases():
                                 for c in copies]) / len(copies)
             bound, by = ea_kernels.ea_bound_ms(lvl, dtype)
             out_rows.append(dict(
-                dtype=str(dtype).split(".")[1], Fd=Fd, parents=sum(
+                dtype=str(dtype).split(".")[1], case=case, Fd=Fd, parents=sum(
                     len(c) for _, c, _ in specs), children=len(lvl.children),
                 entries=int((lvl.children[:, 2] ** 2).sum()),
                 tiles=int(lvl.tiles.shape[0]), pairs=int(lvl.pairs.shape[0]),
+                max_pairs_per_tile=int(lvl.tile_fields()[3].max()), warps=lvl.warps,
                 launches=lvl.kernels, bitwise_equal=True, max_abs_err=0.0, ms=ms,
                 device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by))
             del store, got, ref, again, copies
@@ -1117,6 +1129,10 @@ def ea_kernel_entry(sym, store0, main_path_launches):
                                 for lvl in levels])
     del work
     tb, to = ea_kernels.ea_bound_terms(levels, store0.dtype)
+    attributes = {str(dt).split(".")[1]: ea_kernels.ea_attributes(dt)
+                  for dt in (torch.float32, torch.float64)}
+    check(all(a["spill_bytes"] == 0 for a in attributes.values()),
+          f"extend_add kernel spills: {attributes}")
     return dict(
         name="extend_add", route="cuda", source=EA_SOURCE, replaces=TPU_EA,
         launches=main_path_launches["extend_add"], max_abs_err=0.0, bitwise_equal=True,
@@ -1131,7 +1147,14 @@ def ea_kernel_entry(sym, store0, main_path_launches):
         entries=sum(int((lvl.children[:, 2] ** 2).sum()) for lvl in levels),
         dest_entries=sum(lvl.dest_entries for lvl in levels),
         tiles=sum(int(lvl.tiles.shape[0]) for lvl in levels),
-        device_ms_per_tree_level=[round(t, 4) for t in per_level])
+        kernel_attributes=attributes,
+        device_ms_per_tree_level=[round(t, 4) for t in per_level],
+        bound_ms_per_tree_level=[round(ea_kernels.ea_bound_ms(lvl, store0.dtype)[0], 4)
+                                 for lvl in levels],
+        tiles_per_tree_level=[int(lvl.tiles.shape[0]) for lvl in levels],
+        warps_per_tree_level=[lvl.warps for lvl in levels],
+        pairs_per_tree_level=[int(lvl.pairs.shape[0]) for lvl in levels],
+        max_pairs_per_tile_per_tree_level=[int(lvl.tile_fields()[3].max()) for lvl in levels])
 
 
 EA_ELEMS = 1 << 24               # the bucketed composition's cap of nc * Um^2 per op

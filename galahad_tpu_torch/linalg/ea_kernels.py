@@ -42,7 +42,11 @@ import torch
 
 from .ldlt_kernels import H100_BYTES_PER_S, H100_FLOPS, _launch
 
-TILE = 32                  # TILE of extend_add.cu: a warp owns a 32 x 32 destination tile
+TILE = 32                  # columns of a tile of extend_add.cu (a lane each)
+ROWS = 16                  # ROWS of extend_add.cu: rows of a tile (registers of a lane)
+LANES = (8, 16, 32)        # lanes of a tile: fronts of 1..8 and 9..16 are packed 4 and 2 to a warp
+INLINE = 2                 # INLINE of extend_add.cu: pair records a tile's row carries
+TILE_WORDS = 4 + 2 * INLINE  # TILE_WORDS of extend_add.cu: int64 words of a tile's row
 
 _counts = dict(calls=0, kernels=0, plain=0)
 
@@ -63,6 +67,21 @@ def reset_ea_counts() -> None:
         _counts[k] = 0
 
 
+def _runs(pp, cid, poff, size: int, n_children: int):
+    """Runs of a child's positions ``pp`` (``cid``: each position's child,
+    ``poff``: each child's first position) that fall in one block of ``size``
+    parent rows or columns: each run's block, first child row and bit mask of
+    the block's positions it reaches; each child's first run and run count."""
+    blk = pp // size
+    new = np.ones(len(pp), bool)
+    new[1:] = (cid[1:] != cid[:-1]) | (blk[1:] != blk[:-1])
+    rs = np.flatnonzero(new)
+    run_cid = cid[rs]
+    bit = np.left_shift(np.uint64(1), (pp % size).astype(np.uint64))
+    n = np.bincount(run_cid, minlength=n_children)
+    return blk[rs], rs - poff[run_cid], np.bitwise_or.reduceat(bit, rs), np.cumsum(n) - n, n
+
+
 def _p2(x: int) -> int:
     return 1 << (int(x) - 1).bit_length() if x > 1 else 1
 
@@ -80,15 +99,20 @@ class EaLevel:
     children of one rank have distinct parents, so their destinations are
     distinct (the plain version adds one rank at a time).
 
-    The kernel's work list: ``tiles`` (int64, one row per ``TILE x TILE`` tile
-    of a parent front that some child reaches: first store entry of the tile,
-    the parent's ``Fd``, first pair, pairs) and ``pairs`` (int64, one row per
-    child that reaches a tile, a tile's rows in the children's order: the store
-    entry of the first child row and column that land in the tile, ``fps``, and
-    the bit masks of the tile rows (low 32 bits) and columns (high 32 bits) the
-    child reaches).  Since ``ppos`` is strictly increasing, the child rows that
-    land in a tile are consecutive, and the k-th set bit of a mask is the k-th
-    of them.
+    The kernel's work list: ``tiles`` (int64, one row per tile, ``ROWS`` rows by
+    up to ``TILE`` columns of a parent front that some child reaches: first
+    store entry of the tile, ``Fd | pairs << 32``, first pair, 0, then the
+    records of its first ``INLINE`` pairs, zero where it has fewer) and
+    ``pairs`` (int64, one row per child that reaches a tile, a tile's rows in
+    the children's order: the store entry of the first child row and column
+    that land in the tile, and ``fps | row mask << 16 | column mask << 32``, the
+    masks of the tile rows and columns the child reaches).  Since ``ppos`` is
+    strictly increasing, the child rows that land in a tile are consecutive, and
+    the k-th set bit of a mask is the k-th of them.  ``classes`` counts the
+    tiles of fronts wider than 16, of 9..16 and of 1..8, which come in that
+    order (each class with its longest chains of pairs first): the kernel gives
+    them a warp each, two to a warp and four to a warp (:attr:`warps`).
+    :meth:`tile_fields` reads the rows back.
 
     ``dest_entries`` counts the distinct destination entries (the union of
     ``ppos x ppos`` over a parent's children); ``store_end`` is one past the last
@@ -100,12 +124,26 @@ class EaLevel:
     child_table: torch.Tensor        # ``children`` on the device (plain version)
     tiles: torch.Tensor
     pairs: torch.Tensor
+    classes: tuple                   # tiles of fronts > 16, 9..16, 1..8
     dest_entries: int
     store_end: int
     kernels: int = 0
 
     def __post_init__(self):
         self.kernels = int(self.tiles.shape[0] > 0)
+
+    def tile_fields(self):
+        """(first store entry, Fd, first pair, pairs) of every tile, int64
+        numpy columns, from the packed rows of ``tiles``."""
+        t = self.tiles.cpu().numpy()
+        return t[:, 0], t[:, 1] & 0xFFFFFFFF, t[:, 2], t[:, 1] >> 32
+
+    @property
+    def warps(self) -> int:
+        """Warps of the kernel's launch: one per tile of a front wider than 16,
+        one per two of 9..16 and per four of 1..8."""
+        n32, n16, n8 = self.classes
+        return n32 + -(-n16 // 2) + -(-n8 // 4)
 
     @property
     def layers(self) -> list:
@@ -153,26 +191,20 @@ def build_ea_level(batches, device) -> EaLevel:
     # --- the kernel's work list ---------------------------------------------
     pp = np.concatenate(pos)
     cid = np.repeat(np.arange(len(ch)), u)
-    blk = pp // TILE
-    new = np.ones(len(pp), bool)
-    new[1:] = (cid[1:] != cid[:-1]) | (blk[1:] != blk[:-1])
-    rs = np.flatnonzero(new)                       # runs of one child in one block
-    run_cid, run_blk = cid[rs], blk[rs]
-    run_lo = rs - poff[run_cid]                    # the run's first child row
-    bit = np.left_shift(np.uint64(1), (pp % TILE).astype(np.uint64))
-    run_mask = np.bitwise_or.reduceat(bit, rs)
-    nr = np.bincount(run_cid, minlength=len(ch))
-    first_run = np.cumsum(nr) - nr
-    npair = nr * nr
+    r_blk, r_lo, r_mask, r_first, r_n = _runs(pp, cid, poff, ROWS, len(ch))
+    c_blk, c_lo, c_mask, c_first, c_n = _runs(pp, cid, poff, TILE, len(ch))
+    npair = r_n * c_n
     pc = np.repeat(np.arange(len(ch)), npair)      # each pair's child
     t = np.arange(int(npair.sum())) - np.repeat(np.cumsum(npair) - npair, npair)
-    a = t // nr[pc]
-    ra = first_run[pc] + a
-    rb = first_run[pc] + (t - a * nr[pc])
+    a = t // c_n[pc]
+    ra = r_first[pc] + a
+    rb = c_first[pc] + (t - a * c_n[pc])
     fps, fd = ch[pc, 1], ch[pc, 4]
-    src = ch[pc, 0] + run_lo[ra] * fps + run_lo[rb]
-    dst = ch[pc, 3] + run_blk[ra] * TILE * fd + run_blk[rb] * TILE
-    rmask, cmask = run_mask[ra], run_mask[rb]
+    if len(fps) and fps.max() > 0xFFFF:
+        raise ValueError("the extend-add kernel takes child fronts narrower than 65536")
+    src = ch[pc, 0] + r_lo[ra] * fps + c_lo[rb]
+    dst = ch[pc, 3] + r_blk[ra] * ROWS * fd + c_blk[rb] * TILE
+    rmask, cmask = r_mask[ra], c_mask[rb]
     by_tile = np.lexsort((pc, dst))                # a tile's pairs in the children's order
     src, dst, fps, fd = src[by_tile], dst[by_tile], fps[by_tile], fd[by_tile]
     rmask, cmask = rmask[by_tile], cmask[by_tile]
@@ -185,15 +217,31 @@ def build_ea_level(batches, device) -> EaLevel:
     union = np.bitwise_or.reduceat(cols, tstart, axis=0)
     dest_entries = int(_POP8[union.view(np.uint8)].sum())
 
-    tiles = np.stack([dst[tstart], fd[tstart], tstart, tcount], axis=1)
-    pairs = np.stack([src, fps, (rmask | (cmask << np.uint64(32))).view(np.int64)], axis=1)
+    # the kernel's order of tiles: a warp each for fronts wider than 16, then two
+    # to a warp (9..16), then four (1..8); within a class the longest chains first
+    tfd = fd[tstart]
+    cls = np.searchsorted(LANES, np.minimum(tfd, TILE))         # 0: 8, 1: 16, 2: 32 lanes
+    order = np.lexsort((dst[tstart], -tcount, -cls))
+    classes = tuple(int(x) for x in np.bincount(cls, minlength=3)[::-1])
+    n_in = tcount[order]
+    new_first = np.cumsum(n_in) - n_in
+    pair_order = np.repeat(tstart[order] - new_first, n_in) + np.arange(int(n_in.sum()))
+    word = (fps.astype(np.uint64) | (rmask << np.uint64(16)) | (cmask << np.uint64(32)))
+    pairs = np.stack([src[pair_order], word[pair_order].view(np.int64)], axis=1)
+    tiles = np.zeros((len(order), TILE_WORDS), np.int64)
+    tiles[:, 0] = dst[tstart][order]
+    tiles[:, 1] = tfd[order] | (n_in << 32)
+    tiles[:, 2] = new_first
+    for k in range(INLINE):                        # the first pairs' records, inline
+        has = n_in > k
+        tiles[has, 4 + 2 * k:6 + 2 * k] = pairs[new_first[has] + k]
     store_end = int(max((ch[:, 0] + (u - 1) * ch[:, 1] + u).max(),
                         (ch[:, 3] + ch[:, 4] * ch[:, 4]).max()))
     t64 = lambda x: torch.as_tensor(np.ascontiguousarray(x, np.int64), device=device)
     return EaLevel(
         children=children, rank=rank,
         ppos=torch.as_tensor(pp.astype(np.int32), device=device),
-        child_table=t64(children), tiles=t64(tiles), pairs=t64(pairs),
+        child_table=t64(children), tiles=t64(tiles), pairs=t64(pairs), classes=classes,
         dest_entries=dest_entries, store_end=store_end)
 
 
@@ -245,10 +293,21 @@ def _library():
     lib = load_cuda_library("extend_add.cu")
     if not getattr(lib, "_typed", False):
         for fn in (lib.extend_add_f32, lib.extend_add_f64):
-            fn.argtypes = [_PTR, _PTR, ctypes.c_int, _PTR, _PTR, _PTR]
+            fn.argtypes = [_PTR, _PTR, _PTR, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                           _PTR, _PTR]
             fn.restype = ctypes.c_int
+        lib.extend_add_attributes.argtypes = [ctypes.c_int, _PTR]
+        lib.extend_add_attributes.restype = ctypes.c_int
         lib.extend_add_error_string.argtypes = [ctypes.c_int]
         lib.extend_add_error_string.restype = ctypes.c_char_p
+        lib.extend_add_layout.argtypes = [_PTR]
+        lib.extend_add_layout.restype = None
+        layout = (ctypes.c_int * 4)()
+        lib.extend_add_layout(layout)
+        if tuple(layout) != (ROWS, TILE, INLINE, TILE_WORDS):
+            raise RuntimeError(f"extend_add.cu reads tables of (ROWS, TILE, INLINE, "
+                               f"TILE_WORDS) = {tuple(layout)}, build_ea_level writes "
+                               f"{(ROWS, TILE, INLINE, TILE_WORDS)}")
         lib._typed = True
     return lib
 
@@ -279,10 +338,28 @@ def extend_add(store, lvl: EaLevel) -> None:
     fn = lib.extend_add_f64 if store.dtype == torch.float64 else lib.extend_add_f32
     launched = ctypes.c_int(0)
     _launch("extend_add", fn, lib.extend_add_error_string, store.device,
-            store.data_ptr(), lvl.tiles.data_ptr(), lvl.tiles.shape[0],
-            lvl.pairs.data_ptr(), ctypes.addressof(launched))
+            store.data_ptr(), lvl.tiles.data_ptr(), lvl.pairs.data_ptr(), *lvl.classes,
+            ctypes.addressof(launched))
     _counts["calls"] += 1
     _counts["kernels"] += launched.value
+
+
+def ea_attributes(dtype: torch.dtype) -> dict:
+    """What the compiler and the card made of the kernel for ``dtype``
+    (``cudaFuncGetAttributes``, ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``):
+    registers per thread, local (spill) bytes per thread, threads per block,
+    resident blocks and warps per SM.  Needs the card."""
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"the extend-add kernel takes float32/float64, got {dtype}")
+    lib = _library()
+    out = (ctypes.c_int * 4)()
+    err = lib.extend_add_attributes(int(dtype == torch.float64), out)
+    if err:
+        raise RuntimeError("extend_add_attributes: "
+                           + lib.extend_add_error_string(err).decode())
+    regs, local, threads, blocks = out
+    return dict(registers=regs, spill_bytes=local, threads_per_block=threads,
+                blocks_per_sm=blocks, warps_per_sm=blocks * threads // 32)
 
 
 # ---------------------------------------------------------------------------

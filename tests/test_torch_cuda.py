@@ -468,6 +468,10 @@ EA_LEVELS = {
     "128": [(128, [1, 2, 4, 16]), (16, [2, 5])],
     "512": [(512, [1, 2, 4, 16])],
     "4096": [(4096, [1, 2]), (4096, [16], 512)],
+    # more pairs in a tile than a warp has lanes
+    "heavy": [(64, [40, 40, 33], 64)],
+    # odd counts of parents of 8, 16 and 64: packed four and two to a warp
+    "packed": [(8, [3, 1, 5, 2, 9]), (16, [2, 7, 1]), (64, [3, 1, 2, 1, 4], 40)],
 }
 
 
@@ -501,6 +505,13 @@ def test_extend_add_kernel_matches_plain_bitwise(cuda, case, dtype):
     again = store.clone()
     ea_kernels.extend_add(again, lvl)
     assert same_bits(again, got)                             # bitwise repeat
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_extend_add_kernel_spills_nothing_and_keeps_16_warps_per_sm(cuda, dtype):
+    att = ea_kernels.ea_attributes(dtype)
+    assert att["spill_bytes"] == 0
+    assert att["warps_per_sm"] >= 16
 
 
 def test_extend_add_kernel_refuses_what_it_does_not_take(cuda):
@@ -540,5 +551,13 @@ def test_flat_factorize_on_the_card_runs_only_the_extend_add_kernel(cuda):
     old, calls = oracle_factorize(T, plan, torch.as_tensor(vals, device=cuda))
     assert calls == levels
     assert torch.equal(fac.store, old.store)
+    # the plain extend-add in the kernel's place: the same bits
+    saved = T.extend_add
+    T.extend_add = ea_kernels.extend_add_plain
+    try:
+        plain = T.flat_factorize(plan, torch.as_tensor(vals, device=cuda))
+    finally:
+        T.extend_add = saved
+    assert torch.equal(fac.store, plain.store)
     assert torch.equal(T.flat_factorize(plan, torch.as_tensor(vals, device=cuda)).store,
                        fac.store)

@@ -13,11 +13,15 @@ against on the card, and the tables both read.
   a time in the same order;
 * NaN outside every child's Schur block and in every parent entry that no
   child reaches changes nothing;
-* a numpy walk of the kernel's tiles and pairs, as the kernel walks them,
-  gives the plain version's bits;
+* a numpy walk of the kernel's tiles and pairs, as the kernel's warps and
+  lanes walk them, gives the plain version's bits and reads nothing off the
+  contract; every destination entry is owned by one lane of one warp;
 * the table's invariants, the operand checks, no fallback for a tensor that is
   not on the CPU, and the bound.
 """
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -195,33 +199,92 @@ def test_nan_outside_the_blocks_changes_nothing(dtype):
 # ---------------------------------------------------------------------------
 
 
-def tables_walk(store, lvl):
-    """What csrc/extend_add.cu computes, tile by tile and pair by pair: the
-    warp's touched rows of each column from the pairs' masks, the tile's
-    reached entries loaded once, each pair's block added in the pairs' order
-    (the k-th set bit of a mask is the k-th child row or column in the tile),
-    each reached entry written once."""
-    tiles, pairs = lvl.tiles.numpy(), lvl.pairs.numpy()
-    bits = lambda mask: np.flatnonzero((mask >> np.arange(E.TILE)) & 1)
-    for dst, Fd, first, npairs in tiles:
-        masks = [int(m) & 0xFFFFFFFFFFFFFFFF for m in pairs[first:first + npairs, 2]]
-        touched = np.zeros((E.TILE, E.TILE), bool)
-        for m in masks:
-            touched[np.ix_(bits(m & 0xFFFFFFFF), bits(m >> 32))] = True
-        where = dst + np.arange(E.TILE)[:, None] * Fd + np.arange(E.TILE)[None, :]
-        acc = np.zeros((E.TILE, E.TILE), store.dtype)
-        acc[touched] = store[where[touched]]
-        for (src, fps, _), m in zip(pairs[first:first + npairs], masks):
-            r, c = bits(m & 0xFFFFFFFF), bits(m >> 32)
-            block = store[src + np.arange(len(r))[:, None] * fps + np.arange(len(c))[None, :]]
-            acc[np.ix_(r, c)] = acc[np.ix_(r, c)] + block
-        store[where[touched]] = acc[touched]
+def warp_tiles(lvl):
+    """The kernel's share-out of the tiles, as ``extend_add_kernel`` computes it
+    from ``classes``: per warp, per lane, (tile or -1, lane's column)."""
+    n32, n16, n8 = lvl.classes
+    out = []
+    for first, count, width in ((0, n32, 32), (n32, n16, 16), (n32 + n16, n8, 8)):
+        per = 32 // width
+        for w in range(-(-count // per)):
+            lane = np.arange(32)
+            t = first + w * per + lane // width
+            out.append((np.where(t < first + count, t, -1), lane % width))
+    return out
+
+
+def tables_walk(store, lvl, reads=None):
+    """What csrc/extend_add.cu computes, warp by warp and lane by lane: each
+    tile's pair records taken once; a lane's touched rows from the records'
+    masks; its column's 16 rows loaded with unreached rows clamped onto the
+    first touched row; per pair, every row load issued (a row the child does
+    not reach reads the child's next row in the tile, or its last) and only the
+    reached ones added, in the pairs' order; each reached entry written once.
+    ``reads``, if given, is a boolean mask of the store that every load marks."""
+    rows_of = lvl.tiles.numpy()
+    pairs = lvl.pairs.numpy()
+    tiles = np.stack(lvl.tile_fields(), axis=1)
+    R = E.ROWS
+    below = lambda mask, k: bin(mask & ((1 << k) - 1)).count("1")
+
+    def load(i):
+        if reads is not None:
+            reads[i] = True
+        return store[i]
+
+    for tile_of_lane, col in warp_tiles(lvl):
+        for t, c in zip(tile_of_lane.tolist(), col.tolist()):
+            if t < 0:
+                continue
+            dst, Fd, first, npairs = (int(x) for x in tiles[t])
+            # the first INLINE records from the tile's row, the rest from pairs
+            inline = rows_of[t, 4:4 + 2 * E.INLINE].reshape(E.INLINE, 2)[:npairs]
+            recs = []
+            for src, word in inline.tolist() + pairs[first + E.INLINE:first + npairs].tolist():
+                word &= 0xFFFFFFFFFFFFFFFF
+                recs.append((src, word & 0xFFFF, (word >> 16) & 0xFFFF, word >> 32))
+            touched = 0
+            for _, _, rows, cols in recs:
+                if cols >> c & 1:
+                    touched |= rows
+            if not touched:
+                continue
+            t0 = (touched & -touched).bit_length() - 1
+            acc = [load(dst + c + (r if touched >> r & 1 else t0) * Fd) for r in range(R)]
+            for src, fps, rows, cols in recs:
+                if not cols >> c & 1:
+                    continue
+                last = bin(rows).count("1") - 1
+                base = src + below(cols, c)
+                v = [load(base + min(below(rows, r), last) * fps) for r in range(R)]
+                for r in range(R):
+                    if rows >> r & 1:
+                        acc[r] = acc[r] + v[r]
+            for r in range(R):
+                if touched >> r & 1:
+                    store[dst + c + r * Fd] = acc[r]
+
+
+def readable(store_size, lvl):
+    """The store entries the contract lets the kernel read: every child's
+    Schur block and every destination entry."""
+    ok = np.zeros(store_size, bool)
+    pp = lvl.ppos.numpy().astype(np.int64)
+    for sstart, fps, u, pbase, Fd, po in lvl.children:
+        p = pp[po:po + u]
+        ok[(sstart + np.arange(u)[:, None] * fps + np.arange(u)[None, :]).ravel()] = True
+        ok[(pbase + p[:, None] * Fd + p[None, :]).ravel()] = True
+    return ok
 
 
 WALK_SPECS = {
     "small": [(8, [1, 2, 4, 16, 0, 3]), (16, [2, 5])],
     "mid": [(32, [1, 16, 2]), (96, [4, 1])],
     "wide": [(192, [2, 16]), (512, [1, 4])],
+    # more pairs in a tile than a warp has lanes
+    "heavy": [(64, [40, 40, 33], 64)],
+    # odd counts of parents of 8, 16 and 64 in one level
+    "packed": [(8, [3, 1, 5, 2, 9]), (16, [2, 7, 1]), (64, [3, 1, 2, 1, 4], 40)],
 }
 
 
@@ -232,11 +295,13 @@ def test_the_tables_drive_the_extend_add_as_the_kernel_walks_them(case, dtype):
     store = store.astype(dtype)
     lvl = E.build_ea_level(batches, "cpu")
     walked = store.copy()
-    tables_walk(walked, lvl)
+    reads = np.zeros(len(store), bool)
+    tables_walk(walked, lvl, reads)
     plain = torch.as_tensor(store.copy())
     E.extend_add(plain, lvl)
     assert np.array_equal(walked, plain.numpy(), equal_nan=True)
     assert np.isfinite(walked[reached]).all()
+    assert not (reads & ~readable(len(store), lvl)).any()    # nothing off the contract
 
 
 def test_the_tables_drive_a_factorization_as_the_kernel_walks_them():
@@ -285,33 +350,80 @@ def check_table(batches, lvl):
                 assert tuple(row[:3]) == (start, o["fp_src"], o["u"])
                 assert np.array_equal(pp[row[5]:row[5] + row[2]], o["ppos"])
     assert sorted(seen_parents) == sorted(expect)
-    # the work list, rebuilt child by child: one pair per (child, tile reached)
-    want = []
+    # the work list, rebuilt child by child: one pair per (child, tile reached),
+    # a tile ROWS rows of the parent by TILE columns
+    want = {}
     for k, (sstart, fps, u, pbase, Fd, po) in enumerate(ch):
         p = pp[po:po + u].astype(np.int64)
-        for rb in np.unique(p // E.TILE):
+        for rb in np.unique(p // E.ROWS):
             for cb in np.unique(p // E.TILE):
-                rows = np.flatnonzero(p // E.TILE == rb)
+                rows = np.flatnonzero(p // E.ROWS == rb)
                 cols = np.flatnonzero(p // E.TILE == cb)
-                rm = sum(1 << int(x % E.TILE) for x in p[rows])
+                rm = sum(1 << int(x % E.ROWS) for x in p[rows])
                 cm = sum(1 << int(x % E.TILE) for x in p[cols])
-                want.append((pbase + rb * E.TILE * Fd + cb * E.TILE, k,
-                             sstart + rows[0] * fps + cols[0], fps, rm | cm << 32, Fd))
-    want.sort(key=lambda w: w[:2])                       # by tile, then child order
-    tiles, pairs = lvl.tiles.numpy(), lvl.pairs.numpy()
-    assert [tuple(r[:3]) for r in pairs.tolist()] == \
-        [(w[2], w[3], w[4] - (1 << 64) if w[4] >= 1 << 63 else w[4]) for w in want]
-    dsts = [w[0] for w in want]
-    starts = [i for i in range(len(want)) if i == 0 or dsts[i] != dsts[i - 1]]
-    assert tiles.tolist() == [
-        [dsts[i], want[i][5], i, (starts[j + 1] if j + 1 < len(starts) else len(want)) - i]
-        for j, i in enumerate(starts)]
+                word = int(fps) | rm << 16 | cm << 32
+                want.setdefault((pbase + rb * E.ROWS * Fd + cb * E.TILE, Fd), []).append(
+                    (int(sstart + rows[0] * fps + cols[0]),
+                     word - (1 << 64) if word >= 1 << 63 else word))
+    lanes = lambda Fd: 8 if Fd <= 8 else 16 if Fd <= 16 else 32
+    order = sorted(want, key=lambda key: (-lanes(key[1]), -len(want[key]), key[0]))
+    assert lvl.classes == tuple(sum(lanes(Fd) == n for _, Fd in want) for n in (32, 16, 8))
+    first = np.cumsum([0] + [len(want[key]) for key in order])
+    rows = []
+    for i, key in enumerate(order):
+        inline = [x for r in (want[key] + [(0, 0)] * E.INLINE)[:E.INLINE] for x in r]
+        rows.append([key[0], key[1] | len(want[key]) << 32, int(first[i]), 0] + inline)
+    assert lvl.tiles.numpy().tolist() == rows
+    assert [tuple(r) for r in lvl.pairs.numpy().tolist()] == \
+        [r for key in order for r in want[key]]
 
 
 def test_table_keeps_each_parent_s_children_together_in_order():
     specs = [(8, [1, 2, 4, 16, 0, 3]), (32, [16, 1]), (192, [3, 2])]
     _, batches, _ = ea_synthetic_level(specs, seed=3)
     check_table(batches, E.build_ea_level(batches, "cpu"))
+
+
+@pytest.mark.parametrize("case", sorted(WALK_SPECS))
+def test_every_destination_has_one_lane_and_packed_parents_share_none(case):
+    """Over the kernel's share-out of the tiles (warp, lane -> tile, column):
+    every destination entry is owned by exactly one lane of one warp, a lane
+    owns entries of one parent only, and a tile's pairs never reach past its
+    own lanes' columns or rows."""
+    _, batches, reached = ea_synthetic_level(WALK_SPECS[case], seed=len(case))
+    lvl = E.build_ea_level(batches, "cpu")
+    tiles, pairs = np.stack(lvl.tile_fields(), axis=1), lvl.pairs.numpy()
+    owners = np.zeros(len(reached), np.int64)
+    parent_of = {}
+    for goff, Fd, recs in batches:
+        for o in recs:
+            parent_of[goff + o["ppar"] * Fd * Fd] = (goff + o["ppar"] * Fd * Fd, Fd)
+    share = warp_tiles(lvl)
+    assert len(share) == lvl.warps
+    seen = set()
+    for w, (tile_of_lane, col) in enumerate(share):
+        for lane, (t, c) in enumerate(zip(tile_of_lane.tolist(), col.tolist())):
+            if t < 0:
+                continue
+            assert (t, c) not in seen                       # one lane per tile column
+            seen.add((t, c))
+            dst, Fd, first, n = (int(x) for x in tiles[t])
+            width = 8 if Fd <= 8 else 16 if Fd <= 16 else 32
+            assert (w < lvl.classes[0]) == (width == 32)
+            base = max(b for b in parent_of if b <= dst)
+            off = dst - base                                 # a tile of its own parent
+            assert parent_of[base][1] == Fd and off < Fd * Fd
+            assert (off // Fd) % E.ROWS == 0 and (off % Fd) % E.TILE == 0
+            words = [int(x) & 0xFFFFFFFFFFFFFFFF for x in pairs[first:first + n, 1]]
+            assert all(wd >> 32 < 1 << width for wd in words)    # the tile's own lanes
+            touched = 0
+            for wd in words:
+                if wd >> 32 >> c & 1:
+                    touched |= (wd >> 16) & 0xFFFF
+            for r in range(E.ROWS):
+                if touched >> r & 1:
+                    owners[dst + c + r * Fd] += 1
+    assert (owners[reached] == 1).all() and (owners[~reached] == 0).all()
 
 
 def test_table_of_a_factorization_level():
@@ -328,6 +440,27 @@ def test_table_of_a_factorization_level():
             check_table(batches, lvp["ea"])
             checked += 1
     assert checked >= 2
+
+
+def test_the_kernel_source_reads_the_layout_the_tables_write():
+    """The table layout that csrc/extend_add.cu reports through
+    ``extend_add_layout`` (held against these constants when the wrapper loads
+    the library on the card) is the one ``build_ea_level`` writes."""
+    path = Path(E.__file__).resolve().parents[1] / "csrc" / "extend_add.cu"
+    src = path.read_text()
+    defs = dict(re.findall(r"^#define (\w+) +(.+?)(?: +//.*)?$", src, re.M))
+    body = re.search(r"extend_add_layout\(int\* out\)\s*\{(.*?)\}", src, re.S).group(1)
+    reported = dict(re.findall(r"out\[(\d)\] = (\w+);", body))
+
+    def value(expr):
+        while re.search(r"[A-Z_]{2,}", expr):
+            expr = re.sub(r"[A-Z_]{2,}", lambda m: f"({defs[m.group(0)]})", expr)
+        return eval(expr, {})
+
+    assert tuple(value(reported[str(i)]) for i in range(4)) == \
+        (E.ROWS, E.TILE, E.INLINE, E.TILE_WORDS)
+    _, batches, _ = ea_synthetic_level(WALK_SPECS["packed"], seed=1)
+    assert E.build_ea_level(batches, "cpu").tiles.shape[1] == E.TILE_WORDS
 
 
 # ---------------------------------------------------------------------------
