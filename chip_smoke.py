@@ -35,12 +35,19 @@ JSON line per phase:
                 launches per tree level and at most 60 in all
   5. repeat     two factorize+solve runs give the same bits
   6. flagship   ``ipm_solve`` on the flagship QP in float64, default
-                control, checked on the host in float64 with scipy
-  7. spare_slot the bucketed extend-add that the kernel replaced, timed on
+                control (the iteration captured once as a CUDA graph and
+                replayed), checked on the host in float64 with scipy; the
+                split of three profiled iterations on the direct path
+  7. fused      the flagship through the direct path (GALAHAD_TPU_FUSED=0)
+                and the graph path in turns (direct, graph, graph, direct),
+                then ``steps_per_fetch=4`` and ``ipm_solve_compiled`` on the
+                graph path: x, y, z and the host KKT bitwise equal on every
+                run, every hand kernel launched in each replay, no plain code
+  8. spare_slot the bucketed extend-add that the kernel replaced, timed on
                 one factorization's levels with and without its padded
                 entries (routed to one spare slot), and held bitwise to
                 the kernel
-  8. kernels    one line about every hand-written kernel on that path; the
+  9. kernels    one line about every hand-written kernel on that path; the
                 ``ldlt_wide`` entry also times the parent's 519 ``baddbmm_``
                 trailing products on the same shapes (``update_library_ms``),
                 as the yardstick of the in-kernel update; the ``extend_add``
@@ -55,7 +62,9 @@ the CPU.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -67,7 +76,8 @@ from galahad_tpu_torch import make_sparse_qp
 from galahad_tpu_torch.core.status import Status
 from galahad_tpu_torch.linalg import ea_kernels, ldlt_kernels, supernodal_flat, sweep_kernels
 from galahad_tpu_torch.linalg.sbls import sparse_kkt_factorize, sparse_kkt_plan
-from galahad_tpu_torch.qp.ipm import IPMControl, ipm_solve
+from galahad_tpu_torch.qp.fused import launch_counts
+from galahad_tpu_torch.qp.ipm import IPMControl, ipm_solve, ipm_solve_compiled
 
 K_FLAGSHIP = 316
 TOL = {torch.float32: 1e-4, torch.float64: 1e-11}   # x max|plain result|
@@ -87,6 +97,10 @@ MAX_SWEEP_LAUNCHES_PER_LEVEL = dict(fwd=3, bwd=2)
 MAX_EA_CALLS_PER_FACTORIZATION = 18
 MAX_WIDE_CALLS_PER_FACTORIZATION = 18
 PANEL_W = ldlt_kernels.PANEL
+# the counters of the kernels of the main path (qp/fused.py::launch_counts)
+KERNEL_COUNTS = ("partial_ldlt", "ldlt_wide", "extend_add", "extend_add_kernels", "sweep_fwd",
+                 "sweep_bwd", "sweep_fwd_kernels", "sweep_bwd_kernels")
+PLAIN_COUNTS = ("ldlt_wide_plain", "extend_add_plain", "sweep_plain")
 
 
 class SmokeFailure(RuntimeError):
@@ -977,27 +991,60 @@ def host_kkt(qp, x, y, z):
     return max(r_p, r_d, comp), r_p, r_d, comp
 
 
-def phase_flagship(qp, launches_per_factorization: int):
-    """The main path: ``ipm_solve`` with the default control.  The launch
-    count is set to 0 just before and read just after."""
-    ctl = IPMControl()
+@contextlib.contextmanager
+def fused_path(on: bool):
+    """Run ``ipm_solve`` on the graph path (``on``) or the direct one
+    (``GALAHAD_TPU_FUSED=0``)."""
+    saved = os.environ.get("GALAHAD_TPU_FUSED")
+    os.environ["GALAHAD_TPU_FUSED"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ["GALAHAD_TPU_FUSED"]
+        else:
+            os.environ["GALAHAD_TPU_FUSED"] = saved
+
+
+def counted_solve(qp, ctl, solver=ipm_solve):
+    """One solve with the kernels' counters set to 0 just before and read just
+    after.  Returns (x, y, z, state, wall seconds, peak device bytes, device
+    launches by counter).  On the graph path the wrappers count once while the
+    step is captured, and the card launches that step's kernels in every replay:
+    device launches = counted - per replay + replays x per replay."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ldlt_kernels.reset_launch_count()
     sweep_kernels.reset_sweep_counts()
     ea_kernels.reset_ea_counts()
     t0 = time.perf_counter()
-    x, y, z, st = ipm_solve(qp, ctl)
+    x, y, z, st = solver(qp, ctl)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    peak_bytes = torch.cuda.max_memory_allocated()
-    sweeps = sweep_kernels.sweep_counts()
-    launches = ldlt_kernels.launch_count()
-    wide_calls = ldlt_kernels.wide_launch_count()       # one launch per call
-    wide_plain = ldlt_kernels.wide_plain_count()
-    ea = ea_kernels.ea_counts()
+    counted = launch_counts()
+    per = st.run.launches_per_replay or {k: 0 for k in counted}
+    device = {k: counted[k] + (st.run.replays - 1) * per[k] if st.run.replays else counted[k]
+              for k in counted}
+    return x, y, z, st, wall, torch.cuda.max_memory_allocated(), device
+
+
+def phase_flagship(qp, launches_per_factorization: int):
+    """The main path: ``ipm_solve`` with the default control, on its default
+    path on the card (the captured iteration).  The launch counts are set to 0
+    just before and read just after."""
+    ctl = IPMControl()
+    x, y, z, st, wall, peak_bytes, counts = counted_solve(qp, ctl)
+    launches = counts["partial_ldlt"]
+    wide_calls = counts["ldlt_wide"]                    # one launch per call
+    wide_plain = counts["ldlt_wide_plain"]
+    ea = dict(calls=counts["extend_add"], kernels=counts["extend_add_kernels"],
+              plain=counts["extend_add_plain"])
+    sweeps = dict(fwd=counts["sweep_fwd"], bwd=counts["sweep_bwd"],
+                  fwd_kernels=counts["sweep_fwd_kernels"],
+                  bwd_kernels=counts["sweep_bwd_kernels"], plain=counts["sweep_plain"])
     # small-front factor calls per factorization, as the kkt phase counted them
     factorizations = launches / launches_per_factorization
+    check(st.run.path == "graph", f"the main path ran {st.run.path}, not the captured graph")
     check(st.status == int(Status.OK), f"flagship status {st.status} != 0")
     check(x.shape == (qp.n,) and y.shape == (qp.m,) and z.shape == (qp.n,),
           "flagship solution has the wrong shape")
@@ -1018,16 +1065,20 @@ def phase_flagship(qp, launches_per_factorization: int):
     check(ea["calls"] <= MAX_EA_CALLS_PER_FACTORIZATION * factorizations,
           f"{ea['calls']} extend-add calls in {factorizations:g} factorizations")
     # per-phase split of three iterations, with a device synchronisation at
-    # every phase boundary (so these iterations run slower than the above)
-    supernodal_flat.profile_start()
-    t0 = time.perf_counter()
-    _, _, _, st3 = ipm_solve(qp, IPMControl(maxit=3))
-    split = supernodal_flat.profile_stop()
-    t3 = time.perf_counter() - t0
-    emit("flagship", status=st.status, iterations=st.iter, maxit_cut=None,
+    # every phase boundary (so these iterations run slower than the above);
+    # a synchronisation cannot be captured, so they take the direct path
+    with fused_path(False):
+        supernodal_flat.profile_start()
+        t0 = time.perf_counter()
+        _, _, _, st3 = ipm_solve(qp, IPMControl(maxit=3))
+        split = supernodal_flat.profile_stop()
+        t3 = time.perf_counter() - t0
+    emit("flagship", status=st.status, iterations=st.iter, maxit_cut=None, path=st.run.path,
          host_kkt=kkt, host_r_p=r_p, host_r_d=r_d, host_comp=comp,
          objective=st.inform.obj, wall_s=wall, s_per_iteration=wall / max(st.iter, 1),
          analyse_s=st.inform.time.analyse, solve_s=st.inform.time.solve,
+         capture_s=st.run.capture_s, instantiate_s=st.run.instantiate_s,
+         replays=st.run.replays, replay_s=st.run.replay_s,
          kernel_launches=launches, wide_calls=wide_calls, wide_plain_calls=wide_plain,
          wide_calls_per_factorization=wide_calls / factorizations,
          sweep_fwd_calls=sweeps["fwd"], sweep_bwd_calls=sweeps["bwd"],
@@ -1040,17 +1091,93 @@ def phase_flagship(qp, launches_per_factorization: int):
          ea_kernel_launches_per_factorization=ea["kernels"] / factorizations,
          peak_device_memory_bytes=peak_bytes,
          split_of_3_profiled_iterations_s=dict(
+             path=st3.run.path,
              assembly=split.get("assembly", 0.0),
              extend_add=split.get("extend_add", 0.0),
              factor=split.get("factor", 0.0), sweeps=split.get("sweeps", 0.0),
              refinement_matvecs=split.get("matvec", 0.0),
              fetch=split.get("fetch", 0.0), rest=split.get("rest", 0.0),
              total=t3, iterations=st3.iter))
-    return dict(partial_ldlt=launches, ldlt_wide=wide_calls,
-                extend_add=ea["calls"], extend_add_kernels=ea["kernels"],
-                sweep_fwd=sweeps["fwd"], sweep_bwd=sweeps["bwd"],
-                sweep_fwd_kernels=sweeps["fwd_kernels"],
-                sweep_bwd_kernels=sweeps["bwd_kernels"])
+    out = {k: counts[k] for k in KERNEL_COUNTS}
+    out["per_replay"] = st.run.launches_per_replay
+    return out, (x, y, z, kkt)
+
+
+def phase_fused(qp, flagship_solution):
+    """The direct and the graph path on the flagship in one call (direct,
+    graph, graph, direct), then ``steps_per_fetch=4`` and
+    ``ipm_solve_compiled`` on the graph path: x, y, z and the host KKT
+    bitwise equal on every run and to the main path's, every hand kernel
+    launched in each replay, no plain code, every sweep level checked at
+    every fetch."""
+    t_phase = time.perf_counter()
+    rows = []
+    ref = flagship_solution
+    for label, on, solver, ctl in (
+            ("direct", False, ipm_solve, IPMControl()),
+            ("graph", True, ipm_solve, IPMControl()),
+            ("graph", True, ipm_solve, IPMControl()),
+            ("direct", False, ipm_solve, IPMControl()),
+            ("graph_steps_per_fetch_4", True, ipm_solve, IPMControl(steps_per_fetch=4)),
+            ("graph_ipm_solve_compiled", True, ipm_solve_compiled, IPMControl())):
+        with fused_path(on):
+            x, y, z, st, wall, peak, counts = counted_solve(qp, ctl, solver)
+        run = st.run
+        kkt = host_kkt(qp, x, y, z)[0]
+        got = (x, y, z, kkt)
+        check(st.status == int(Status.OK), f"fused phase, {label}: status {st.status}")
+        check(run.path == ("graph" if on else "direct"),
+              f"fused phase, {label}: ran the {run.path} path")
+        check(all(same_bits(a, b) for a, b in zip(got[:3], ref[:3])) and kkt == ref[3],
+              f"fused phase, {label}: x, y, z or the host KKT differ from the main path's")
+        check(all(counts[k] == 0 for k in PLAIN_COUNTS),
+              f"fused phase, {label}: plain code ran on the card: "
+              f"{ {k: counts[k] for k in PLAIN_COUNTS} }")
+        check(run.sweep_checks == run.fetches > 0,
+              f"fused phase, {label}: {run.sweep_checks} sweep checks in {run.fetches} fetches")
+        per = run.launches_per_replay
+        if on:
+            check(all(per[k] > 0 for k in KERNEL_COUNTS),
+                  f"fused phase, {label}: a hand kernel is missing from the captured "
+                  f"iteration: {per}")
+            check(run.direct_steps == 1 and run.replays - run.halted_replays == st.iter - 1,
+                  f"fused phase, {label}: {run.direct_steps} direct steps, {run.replays} "
+                  f"replays ({run.halted_replays} halted) for {st.iter} iterations")
+        rows.append(dict(
+            run=label, path=run.path, wall_s=wall, s_per_iteration=wall / max(st.iter, 1),
+            status=st.status, iterations=st.iter, host_kkt=kkt,
+            capture_s=run.capture_s, instantiate_s=run.instantiate_s, replays=run.replays,
+            replay_s=run.replay_s, s_per_replay=run.replay_s / max(run.replays, 1),
+            halted_replays=run.halted_replays, direct_steps=run.direct_steps,
+            fetches=run.fetches, sweep_checks=run.sweep_checks,
+            launches_per_replay=({k: per[k] for k in KERNEL_COUNTS} if per else None),
+            plain_counts={k: counts[k] for k in PLAIN_COUNTS},
+            device_launches={k: counts[k] for k in KERNEL_COUNTS},
+            peak_device_memory_bytes=peak,
+            bitwise_equal_to_main_path=True))
+    emit("fused", runs=rows, replay_device_ms=replay_device_ms(qp),
+         seconds=time.perf_counter() - t_phase)
+
+
+def replay_device_ms(qp, reps: int = 10) -> float:
+    """Device time of one replay of the flagship's captured iteration: the
+    solve is run to its halt, then ``reps`` more replays (steps on the halted
+    state: the same kernels on the same shapes, whose result is discarded)
+    are timed by an event pair; the host enqueues a replay in far less time
+    than the card runs it."""
+    from galahad_tpu_torch.core.problem import classify_bounds
+    from galahad_tpu_torch.qp import ipm
+
+    ctl = IPMControl()
+    masks = classify_bounds(qp, ctl.infinity)
+    with fused_path(True):
+        stepper = ipm._stepper(qp, masks, ipm.ipm_init(qp, masks, ctl), ctl)
+    halt = ipm.MONITOR.index("halt")
+    stepper.run_to_halt(lambda v: v[halt] != 0)
+    check(stepper.stats.path == "graph", "replay timing: no graph was captured")
+    ms = event_ms(lambda: stepper.advance(reps)) / reps
+    del stepper
+    return ms
 
 
 def sweep_kernel_entries(qp, plan, D_x, C_diag, b, main_path_launches):
@@ -1084,7 +1211,9 @@ def sweep_kernel_entries(qp, plan, D_x, C_diag, b, main_path_launches):
         n_kernels = sum(getattr(lvl, which + "_kernels") for lvl in levels)
         entries.append(dict(
             name=name, route="cuda", source=SWEEP_SOURCE, replaces=replaces,
-            launches=main_path_launches[name], max_abs_err=err, ms=ms, device_ms=dev_ms,
+            launches=main_path_launches[name],
+            launches_per_replay=main_path_launches["per_replay"][name],
+            max_abs_err=err, ms=ms, device_ms=dev_ms,
             plain_ms=plain, bound_ms=max(tb, to) * 1e3,
             bound_by="bytes" if tb >= to else "operations", library_ms=None,
             library_ms_reason="no single PyTorch call gathers, solves a batch of "
@@ -1135,7 +1264,9 @@ def ea_kernel_entry(sym, store0, main_path_launches):
           f"extend_add kernel spills: {attributes}")
     return dict(
         name="extend_add", route="cuda", source=EA_SOURCE, replaces=TPU_EA,
-        launches=main_path_launches["extend_add"], max_abs_err=0.0, bitwise_equal=True,
+        launches=main_path_launches["extend_add"],
+        launches_per_replay=main_path_launches["per_replay"]["extend_add"],
+        max_abs_err=0.0, bitwise_equal=True,
         ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=max(tb, to) * 1e3,
         bound_by="bytes" if tb >= to else "operations", library_ms=None,
         library_ms_reason="no single PyTorch call gathers ragged blocks and adds them "
@@ -1337,7 +1468,9 @@ def wide_kernel_entry(sym, wides, store, main_path_launches):
     del ops, thunks, copy
     return dict(
         name="ldlt_wide", route="cuda", source=WIDE_SOURCE, replaces=TPU_WIDE,
-        launches=main_path_launches["ldlt_wide"], max_abs_err=err, ms=ms, device_ms=dev_ms,
+        launches=main_path_launches["ldlt_wide"],
+        launches_per_replay=main_path_launches["per_replay"]["ldlt_wide"],
+        max_abs_err=err, ms=ms, device_ms=dev_ms,
         plain_ms=plain_ms, bound_ms=max(tb, to) * 1e3,
         bound_by="bytes" if tb >= to else "operations",
         bound_bytes_ms=tb * 1e3, bound_operations_ms=to * 1e3, library_ms=None,
@@ -1407,7 +1540,9 @@ def phase_kernels(qp, plan, D_x, C_diag, b, main_path_launches):
 
     line = dict(kernels=[
         dict(name="partial_ldlt", route="cuda", source=SOURCE, replaces=TPU_KERNEL,
-             launches=main_path_launches["partial_ldlt"], max_abs_err=err_small,
+             launches=main_path_launches["partial_ldlt"],
+             launches_per_replay=main_path_launches["per_replay"]["partial_ldlt"],
+             max_abs_err=err_small,
              ms=ms_small, device_ms=dev_small, plain_ms=plain_small_ms,
              bound_ms=max(tb_small, to_small) * 1e3,
              bound_by="bytes" if tb_small >= to_small else "operations",
@@ -1441,7 +1576,9 @@ def main() -> int:
         qp = flagship_qp(K_FLAGSHIP, "cuda")
         plan, D_x, C_diag, b, per_factorization = phase_kkt(qp)
         phase_repeat(qp, plan, D_x, C_diag, b)
-        launches = phase_flagship(qp, per_factorization)
+        launches, solution = phase_flagship(qp, per_factorization)
+        phase_fused(qp, solution)
+        del solution
         phase_kernels(qp, plan, D_x, C_diag, b, launches)
     except SmokeFailure as exc:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr)

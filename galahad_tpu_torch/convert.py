@@ -13,7 +13,7 @@ import torch
 from ._device import resolve_device, resolve_dtype
 from .core.sparse import COOPattern, SparseQP
 from .linalg.supernodal_flat import FlatGroup, FlatPlan
-from .qp.ipm import IPMState
+from .qp.ipm import IPMState, device_state
 
 
 def _pattern(p) -> COOPattern:
@@ -77,7 +77,8 @@ def ipm_state_from_numpy(fields: dict, dtype=None, device=None) -> IPMState:
     """Build an IPMState from the JAX ``IPMState``'s fields, folding each
     double-word ``(hi, lo)`` pair into one value of the working type:
     ``x``+``x_lo``, ``c``+``c_lo``, ``y``+``y_lo``, ``z_l``+``zl_lo``,
-    ``z_u``+``zu_lo``, ``y_l``+``yl_lo``, ``y_u``+``yu_lo``."""
+    ``z_u``+``zu_lo``, ``y_l``+``yl_lo``, ``y_u``+``yu_lo``.  The scalar
+    fields become 0-d tensors on ``device``, as the step takes them."""
     device = resolve_device(device)
     dt = resolve_dtype(dtype)
     npdt = np.float64 if dt == torch.float64 else np.float32
@@ -93,7 +94,7 @@ def ipm_state_from_numpy(fields: dict, dtype=None, device=None) -> IPMState:
         v = fields.get(name)
         return default if v is None else cast(np.asarray(v))
 
-    return IPMState(
+    return device_state(IPMState(
         x=fold("x", "x_lo"), c=fold("c", "c_lo"), y=fold("y", "y_lo"),
         z_l=fold("z_l", "zl_lo"), z_u=fold("z_u", "zu_lo"),
         y_l=fold("y_l", "yl_lo"), y_u=fold("y_u", "yu_lo"),
@@ -108,4 +109,4 @@ def ipm_state_from_numpy(fields: dict, dtype=None, device=None) -> IPMState:
         res_d=scalar("res_d", float("inf"), float),
         res_c=scalar("res_c", float("inf"), float),
         best_infeas=scalar("best_infeas", float("inf"), float),
-        stall=scalar("stall", 0, int))
+        stall=scalar("stall", 0, int)))

@@ -71,16 +71,18 @@ def reset_launch_count() -> None:
         _wide[k] = 0
 
 
-def partial_ldlt_plain(F: torch.Tensor, ncols: torch.Tensor) -> torch.Tensor:
+def partial_ldlt_plain(F: torch.Tensor, ncols: torch.Tensor,
+                       cmax: int = None) -> torch.Tensor:
     """The kernel's function in plain PyTorch: a right-looking column
     loop over the whole batch.  Runs on any device; used by the CPU tests
-    and, on the card, only to hold the kernel against."""
+    and, on the card, only to hold the kernel against.  ``cmax``, the
+    largest of ``ncols`` if the caller knows it, spares a host read."""
     nb, Fpad, _ = F.shape
     F = F.clone()
     if nb == 0:
         return F
     ncols = ncols.to(device=F.device, dtype=torch.int64).clamp(max=Fpad)
-    cmax = int(ncols.max())
+    cmax = min(int(ncols.max()) if cmax is None else cmax, Fpad)
     tiny = tiny16(F.dtype)
     for j in range(cmax):
         active = ncols > j                                   # (nb,)
@@ -195,12 +197,14 @@ class LdltItems:
     """Work items of one call of :func:`partial_ldlt_items`: batches of
     fronts of the ladder sizes, each contiguous in one flat buffer.
 
-    ``batches`` is the host-side list ``(offset, Fpad, nb, ncols offset)``;
+    ``batches`` is the host-side list ``(offset, Fpad, nb, ncols offset)``
+    and ``cmax`` the largest ncols of each batch;
     ``table`` is what the kernel reads, one row ``(offset of the first
     front, offset of its ncols, Fpad, number of fronts)`` per thread block:
     first the single fronts of 64..128 (heaviest first: the blocks that run
     longest start first), then the blocks' worths of fronts of 8..32."""
     batches: list
+    cmax: list
     ncols: torch.Tensor          # int32, all batches' ncols, in batch order
     table: torch.Tensor          # (items, 4) int64
     n_medium: int
@@ -231,7 +235,7 @@ def build_ldlt_items(batches, device) -> LdltItems:
     ``len(ncols)`` fronts of ``Fpad`` (in ``KERNEL_FRONTS``) start at
     element ``offset`` (a multiple of 4, so that rows stay 16-byte aligned)
     of the flat buffer."""
-    host, medium, small, nc_all = [], [], [], []
+    host, cmax, medium, small, nc_all = [], [], [], [], []
     nc_off = 0
     for off, Fpad, nco in batches:
         nco = np.asarray(nco, np.int64)
@@ -242,6 +246,7 @@ def build_ldlt_items(batches, device) -> LdltItems:
         if off % 4:
             raise ValueError("batch offsets must be multiples of 4 elements")
         host.append((int(off), int(Fpad), nb, nc_off))
+        cmax.append(int(nco.max()) if nb else 0)
         nc_all.append(nco)
         if Fpad > 32:
             for i in range(nb):
@@ -257,7 +262,7 @@ def build_ldlt_items(batches, device) -> LdltItems:
     small.sort(key=lambda r: r[0])
     rows = [r[2:] for r in medium + small]
     return LdltItems(
-        batches=host,
+        batches=host, cmax=cmax,
         ncols=torch.as_tensor(
             np.concatenate(nc_all).astype(np.int32) if nc_all
             else np.zeros(0, np.int32), device=device),
@@ -272,11 +277,11 @@ def build_ldlt_items(batches, device) -> LdltItems:
 
 
 def _items_plain_into(src, items: LdltItems, out) -> None:
-    for lo, Fpad, nb, nc_off in items.batches:
+    for (lo, Fpad, nb, nc_off), cmax in zip(items.batches, items.cmax):
         hi = lo + nb * Fpad * Fpad
         out[lo:hi] = partial_ldlt_plain(
             src[lo:hi].view(nb, Fpad, Fpad),
-            items.ncols[nc_off:nc_off + nb]).reshape(-1)
+            items.ncols[nc_off:nc_off + nb], cmax).reshape(-1)
 
 
 def partial_ldlt_items_plain(src: torch.Tensor, items: LdltItems) -> torch.Tensor:

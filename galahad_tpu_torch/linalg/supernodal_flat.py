@@ -379,7 +379,9 @@ def flat_analyse(rows, cols, n, order: str = "amd",
 # ---------------------------------------------------------------------------
 # Optional phase clock.  Off by default (no synchronisation anywhere on the
 # numeric path).  When started, every _tick(name) synchronises the device and
-# charges the time since the previous tick to ``name``.
+# charges the time since the previous tick to ``name``.  A synchronisation
+# cannot be captured in a CUDA graph, so a tick raises while the current
+# stream is capturing: profile the direct path (GALAHAD_TPU_FUSED=0).
 # ---------------------------------------------------------------------------
 
 _PROF = None
@@ -404,6 +406,10 @@ def profile_stop() -> dict:
 def _tick(name: str) -> None:
     if _PROF is None:
         return
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            "the phase clock synchronises the card and cannot run while a CUDA "
+            "graph is captured: profile the direct path (GALAHAD_TPU_FUSED=0)")
     if torch.cuda.is_available():
         torch.cuda.synchronize()
     t = time.perf_counter()

@@ -438,14 +438,16 @@ def _check_operands(store, y, lvl: SweepLevel, work) -> None:
             f"(item {item} of its table): the table breaks the ticket order")
 
 
-def sweep_check(levels) -> None:
+def sweep_check(levels, synchronize: bool = True) -> None:
     """Synchronise the card and raise if a call on any of ``levels`` (a
     :class:`SweepLevel` or a sequence of them) gave up waiting in the
     wavefront kernel.  The wrappers raise for it at their next call on the
-    level; this asks at once."""
+    level; this asks at once.  ``synchronize=False`` is for a caller that
+    has already waited for the calls it asks about (a replayed CUDA graph
+    runs no wrapper, so its driver asks here after each read)."""
     if isinstance(levels, SweepLevel):
         levels = [levels]
-    if torch.cuda.is_available():
+    if synchronize and torch.cuda.is_available():
         torch.cuda.synchronize()
     for lvl in levels:
         item = lvl.failed_item()

@@ -8,4 +8,5 @@ from .ipm import (  # noqa: F401
     ipm_indicators,
     ipm_init,
     ipm_solve,
+    ipm_solve_compiled,
 )

@@ -18,24 +18,25 @@ What differs from the JAX module, and why:
     package carries every iterate as a double-word (hi, lo) pair and has
     a float64 "island" for float32 hardware; a card with native float64
     needs neither, so ``IPMState`` has no ``*_lo`` fields.
-  * The step is the JAX package's split step (``_sparse_ipm_step``):
-    plain tensor code run eagerly, with the KKT factorize and solves in
-    between.  Nothing is traced or compiled.
-  * Each iteration makes exactly ONE device-to-host transfer: the
-    residuals, mu, the step lengths and a finiteness probe travel
-    together, and the convergence test, the failure guards and the
-    non-finite rollback are decided on the host from them.
+  * One iteration (``_sparse_ipm_step``) is plain tensor code with the
+    KKT factorize and solves in between, and makes no host read: the
+    convergence test, the failure guards, the WCP centrality test and the
+    non-finite rollback are decided on the device (JAX ``ipm_step``'s
+    tail), and a step on a halted state changes nothing.  On the card
+    ``ipm_solve`` captures it once per solve as a CUDA graph and replays
+    it (qp/fused.py, the counterpart of the JAX package's one fused jitted
+    step per iteration); ``GALAHAD_TPU_FUSED=0`` runs it directly, as on
+    the CPU.  The host reads one small monitor tensor per
+    ``steps_per_fetch`` iterations.
   * ``clock_time_limit`` counts ALL wall time (the JAX host loop leaves its
     first, compile-dominated round out).
   * Not ported yet, and raising ``NotImplementedError`` when asked for:
-    the series arcs (``arc`` other than "mehrotra"), ``mu_target`` > 0,
-    the dense and banded KKT branches, ``ipm_solve_compiled``.
-    ``steps_per_fetch`` and ``endgame_f64`` are accepted and ignored.
+    the series arcs (``arc`` other than "mehrotra") and the dense and
+    banded KKT branches.  ``endgame_f64`` is accepted and ignored.
 """
 from __future__ import annotations
 
 import dataclasses
-import math
 import time
 from typing import Any
 
@@ -48,6 +49,7 @@ from ..core.problem import INFINITY, BoundMasks, check_qp, classify_bounds
 from ..core.sparse import SparseQP, make_sparse_qp
 from ..core.status import Status
 from ..linalg import supernodal_flat as _flat
+from .fused import Stepper, fused_enabled
 
 BIG = 1.0e20
 
@@ -70,15 +72,15 @@ class IPMControl:
     rho: float = 0.0            # primal regularization (0 -> 1e-8)
     delta: float = 1.0e-8       # dual regularization on equality rows
     refine: int = 2             # iterative-refinement sweeps per solve
-    steps_per_fetch: int = 1    # accepted and ignored: every iteration
-                                # fetches its monitoring scalars once
+    steps_per_fetch: int = 1    # iterations per host read of the monitor
     tau: float = 0.995          # fraction-to-boundary factor
     series_order: int = 2       # 1 = pure Newton, 2 = Mehrotra PC, 3+ extra correctors
     arc: str = "mehrotra"       # only "mehrotra" is ported
     print_level: int = 0        # >= 1: one line per iteration on stdout
     mu_min_factor: float = 1.0e-12
-    mu_target: float = 0.0      # > 0 (the WCP mode) is not ported
-    gamma_c: float = 0.1
+    mu_target: float = 0.0      # > 0: stop the barrier AT this value and
+                                # converge to the centred point (WCP mode)
+    gamma_c: float = 0.1        # centrality band [gamma*mu_t, mu_t/gamma]
     infeas_max: int = 10        # consecutive non-improving iterations before
                                 # declaring infeasibility (cqp.f90:163-168)
     indicator_type: str = "pd_ratio"   # 'primal' | 'pd_ratio' | 'tapia'
@@ -97,9 +99,6 @@ def _check_control(ctl: IPMControl) -> None:
     if ctl.arc != "mehrotra":
         raise NotImplementedError(
             f"IPMControl.arc={ctl.arc!r}: only the 'mehrotra' arc is ported")
-    if ctl.mu_target > 0:
-        raise NotImplementedError(
-            "IPMControl.mu_target > 0 (centered-point mode) is not ported")
     if ctl.series_order < 1:
         raise NotImplementedError("IPMControl.series_order must be >= 1")
 
@@ -118,17 +117,67 @@ class IPMState:
     t_l: Any          # recomputing x - x_l, which cancels near convergence)
     t_u: Any
     mu: Any           # 0-d tensor
-    # host-side scalars, decided from the one fetch per iteration
-    iter: int = 0
-    converged: bool = False
-    halt: bool = False         # stop the loop (success OR declared failure)
-    status: int = int(Status.MAX_ITERATIONS)
-    res_p: float = float("inf")
-    res_d: float = float("inf")
-    res_c: float = float("inf")
-    best_infeas: float = float("inf")   # best primal infeasibility so far
-    stall: int = 0             # consecutive non-improving iterations
+    # 0-d tensors on the iterate's device while the solve runs (the step
+    # decides them there); the state ipm_solve returns holds them as Python
+    # values, read in its last fetch
+    iter: Any = 0
+    converged: Any = False
+    halt: Any = False          # stop the loop (success OR declared failure)
+    status: Any = int(Status.MAX_ITERATIONS)
+    res_p: Any = float("inf")
+    res_d: Any = float("inf")
+    res_c: Any = float("inf")
+    best_infeas: Any = float("inf")     # best primal infeasibility so far
+    stall: Any = 0             # consecutive non-improving iterations
     inform: Any = None         # IPMInform, set by ipm_solve
+    run: Any = None            # fused.RunStats: how the iterations ran
+
+
+VECTOR_FIELDS = ("x", "c", "y", "z_l", "z_u", "y_l", "y_u",
+                 "s_l", "s_u", "t_l", "t_u", "mu")
+# the scalar fields and their tensor types (None: the iterate's)
+SCALAR_FIELDS = dict(iter=torch.int32, converged=torch.bool, halt=torch.bool,
+                     status=torch.int32, res_p=None, res_d=None, res_c=None,
+                     best_infeas=None, stall=torch.int32)
+TENSOR_FIELDS = VECTOR_FIELDS + tuple(SCALAR_FIELDS)
+# what the host reads of a state, in this order, as one tensor of the
+# iterate's type (small integers and flags are exact in float32 too)
+MONITOR = ("res_p", "res_d", "res_c", "mu", "halt", "iter", "status",
+           "converged", "stall", "best_infeas")
+
+
+def device_state(st: IPMState) -> IPMState:
+    """``st`` with every scalar field a 0-d tensor on the iterate's device
+    (the form the step takes; a no-op for a state that already has it)."""
+    like = st.x
+    upd = {name: torch.tensor(getattr(st, name), dtype=dt or like.dtype,
+                              device=like.device)
+           for name, dt in SCALAR_FIELDS.items()
+           if not torch.is_tensor(getattr(st, name))}
+    return dataclasses.replace(st, **upd) if upd else st
+
+
+def monitor(st: IPMState):
+    """The monitor tensor of ``st`` (fields ``MONITOR``)."""
+    return torch.stack([getattr(st, f).to(st.x.dtype) for f in MONITOR])
+
+
+def host_state(st: IPMState, values) -> IPMState:
+    """``st`` with its scalar fields as Python values, from ``values``, the
+    host copy of its monitor."""
+    v = dict(zip(MONITOR, values))
+    return dataclasses.replace(
+        st, iter=int(v["iter"]), converged=bool(v["converged"]),
+        halt=bool(v["halt"]), status=int(v["status"]), res_p=v["res_p"],
+        res_d=v["res_d"], res_c=v["res_c"], best_infeas=v["best_infeas"],
+        stall=int(v["stall"]))
+
+
+def _select(cond, a: IPMState, b: IPMState) -> IPMState:
+    """Field by field ``a`` where the 0-d ``cond`` holds, else ``b``
+    (a select: the chosen side's bits are kept)."""
+    return dataclasses.replace(a, **{f: torch.where(cond, getattr(a, f), getattr(b, f))
+                                     for f in TENSOR_FIELDS})
 
 
 def _safe_div(a, b, mask):
@@ -179,8 +228,9 @@ def ipm_init(qp: SparseQP, masks: BoundMasks, ctl: IPMControl) -> IPMState:
 
     s_l, s_u, t_l, t_u = _distances(qp, masks, x, c)
     mu = _avg_complementarity(masks, s_l, s_u, t_l, t_u, z_l, z_u, y_l, y_u)
-    return IPMState(x=x, c=c, y=y, z_l=z_l, z_u=z_u, y_l=y_l, y_u=y_u,
-                    s_l=s_l, s_u=s_u, t_l=t_l, t_u=t_u, mu=mu)
+    return device_state(IPMState(x=x, c=c, y=y, z_l=z_l, z_u=z_u, y_l=y_l,
+                                 y_u=y_u, s_l=s_l, s_u=s_u, t_l=t_l, t_u=t_u,
+                                 mu=mu))
 
 
 def _distances(qp, masks: BoundMasks, x, c):
@@ -389,15 +439,31 @@ def _sp_sigma(qp, masks, st, ctl, aff):
     mu_floor = 3e-3 * ctl.stop_abs_c
     sigma = torch.minimum(torch.maximum(sigma, mu_floor / mu_safe),
                           torch.full_like(sigma, 10.0))
+    if ctl.mu_target > 0:
+        # WCP mode: the barrier target never drops below mu_target
+        # (reference wcp.f90 drives pairs TO mu, not to zero)
+        sigma = torch.clamp(torch.maximum(sigma, ctl.mu_target / mu_safe),
+                            max=2.0)
     return sigma * mu_now
+
+
+def _centred(qp, masks, st: IPMState, ctl):
+    """WCP convergence: every active complementarity pair inside the band
+    [gamma_c mu_t, mu_t / gamma_c] (the centred-point measures of
+    WCP_solve, reference wcp.f90:935)."""
+    lo, hi = ctl.gamma_c * ctl.mu_target, ctl.mu_target / ctl.gamma_c
+    ml_x, mu_x, ml_c, mu_c = _active_masks(masks)
+    pairs = [(st.z_l * st.s_l, ml_x), (st.z_u * st.s_u, mu_x)]
+    if qp.m > 0:
+        pairs += [(st.y_l * st.t_l, ml_c), (st.y_u * st.t_u, mu_c)]
+    inside = [torch.where(mask, (p >= lo) & (p <= hi), True).all() for p, mask in pairs]
+    return torch.stack(inside).all()
 
 
 def _apply_direction(qp, masks, st: IPMState, ctl, d, a_p, a_d) -> IPMState:
     """Step tail: update, dual absorption, convergence test, failure
-    guards and the non-finite rollback.  The new iterate is computed on
-    the device; ONE stacked fetch then brings the residuals, mu, the step
-    lengths and a finiteness probe to the host, where the rest is
-    decided."""
+    guards and the non-finite rollback, all on the device (the tail of
+    the JAX package's ``ipm_step``)."""
     dt = qp.g.dtype
     m = qp.m
     ml_x, mu_x, ml_c, mu_c = _active_masks(masks)
@@ -443,64 +509,60 @@ def _apply_direction(qp, masks, st: IPMState, ctl, d, a_p, a_d) -> IPMState:
         z_l=new.z_l + torch.where(take_l, r_d_vec, 0.0),
         z_u=new.z_u + torch.where(take_u, -r_d_vec, 0.0))
     r_d_vec = torch.where(take_l | take_u, 0.0, r_d_vec)
-    res_d_t = _max0(r_d_vec.abs())
-    res_p_t = _max0(r_p_vec.abs())
-    res_c_t = _comp_inf(qp, masks, new)
-    probe = x.sum() + z_l.sum() + z_u.sum()
-    # --- the iteration's one device-to-host transfer --------------------
-    _flat._tick("rest")
-    res_p, res_d, res_c, a_p_h, a_d_h, probe_h = torch.stack(
-        [res_p_t, res_d_t, res_c_t, a_p, a_d, probe]).tolist()
-    _flat._tick("fetch")
-
-    # --- non-finite guard: NEVER return NaN with a confident status ----
-    # A non-finite step rolls the state back to the previous iterate and
-    # halts with ILL_CONDITIONED (-12); a blow-up while the primal
-    # infeasibility is still LARGE is the classic infeasibility
-    # certificate (diverging duals), diagnosed as -5.
-    if not math.isfinite(res_p + res_d + res_c + a_p_h + a_d_h + probe_h):
-        far = (math.isfinite(st.best_infeas)
-               and st.best_infeas > max(1e3 * ctl.stop_abs_p, 1e-3))
-        return dataclasses.replace(
-            st, iter=st.iter + 1, halt=True,
-            status=int(Status.PRIMAL_INFEASIBLE if far
-                       else Status.ILL_CONDITIONED))
-
-    conv = (res_p <= ctl.stop_abs_p and res_d <= ctl.stop_abs_d
-            and res_c <= ctl.stop_abs_c)
+    res_d = _max0(r_d_vec.abs())
+    res_p = _max0(r_p_vec.abs())
+    res_c = _comp_inf(qp, masks, new)
+    feas_now = res_p <= ctl.stop_abs_p
+    if ctl.mu_target > 0:
+        conv = feas_now & (res_d <= ctl.stop_abs_d) & _centred(qp, masks, new, ctl)
+    else:
+        conv = feas_now & (res_d <= ctl.stop_abs_d) & (res_c <= ctl.stop_abs_c)
     # --- failure guards ------------------------------------------------
     # Divergence: infeas_max consecutive iterations without the primal
     # infeasibility improving by reduce_infeas -> declare infeasible
     # (reference cqp.f90:163-168 control semantics).
     improved = res_p <= ctl.reduce_infeas * st.best_infeas
-    feas_now = res_p <= ctl.stop_abs_p
-    stall = 0 if (improved or feas_now) else st.stall + 1
+    stall = torch.where(improved | feas_now, 0, st.stall + 1)
     # Stalled step lengths: with stubbornly large primal infeasibility
     # this IS the infeasibility certificate; on a feasible problem it is
     # a plain TINY_STEP stall (-13).
-    tiny_step = max(a_p_h, a_d_h) < 1e-10 and not conv
-    infeasible = ((stall >= ctl.infeas_max) or (tiny_step and stall >= 2)) \
-        and not feas_now
-    tiny = tiny_step and not infeasible
-    if conv:
-        status = int(Status.OK)
-    elif infeasible:
-        status = int(Status.PRIMAL_INFEASIBLE)
-    elif tiny:
-        status = int(Status.TINY_STEP)
-    else:
-        status = st.status
+    tiny_step = (torch.maximum(a_p, a_d) < 1e-10) & ~conv
+    infeasible = ((stall >= ctl.infeas_max) | (tiny_step & (stall >= 2))) & ~feas_now
+    tiny = tiny_step & ~infeasible
+    status = torch.where(
+        conv, int(Status.OK),
+        torch.where(infeasible, int(Status.PRIMAL_INFEASIBLE),
+                    torch.where(tiny, int(Status.TINY_STEP), st.status)))
+    out = dataclasses.replace(
+        new, res_p=res_p, res_d=res_d, res_c=res_c, converged=conv,
+        halt=conv | infeasible | tiny, status=status,
+        best_infeas=torch.minimum(st.best_infeas, res_p), stall=stall)
+    # --- non-finite guard: NEVER return NaN with a confident status ----
+    # A non-finite step rolls the state back to the previous iterate and
+    # halts with ILL_CONDITIONED (-12); a blow-up while the primal
+    # infeasibility is still LARGE is the classic infeasibility
+    # certificate (diverging duals), diagnosed as -5.
+    bad = ~torch.isfinite(res_p + res_d + res_c + a_p + a_d
+                          + x.sum() + z_l.sum() + z_u.sum())
+    far = torch.isfinite(st.best_infeas) & (
+        st.best_infeas > max(1e3 * ctl.stop_abs_p, 1e-3))
+    bad_status = torch.where(far, int(Status.PRIMAL_INFEASIBLE),
+                             int(Status.ILL_CONDITIONED)).to(torch.int32)
     return dataclasses.replace(
-        new, res_p=res_p, res_d=res_d, res_c=res_c,
-        converged=conv, halt=bool(conv or infeasible or tiny), status=status,
-        best_infeas=min(st.best_infeas, res_p), stall=stall)
+        _select(bad, st, out), iter=out.iter, halt=bad | out.halt,
+        converged=torch.where(bad, st.converged, out.converged),
+        status=torch.where(bad, bad_status, out.status))
 
 
 def _sparse_ipm_step(qp, masks, st: IPMState, ctl: IPMControl) -> IPMState:
     """One Mehrotra predictor-corrector iteration: barrier diagonals ->
     KKT factorize -> predictor solve -> corrector solve(s) on the same
     factors -> step -> update (the body of CQP_solve_main, reference
-    cqp.f90:2967+)."""
+    cqp.f90:2967+).  Pure tensor code with no host read, so that the card
+    can capture it in a CUDA graph; a step on a halted state, or at
+    ``ctl.maxit``, returns every field with the bits it had (the condition
+    of the JAX package's ``_jitted_multi_step`` loop)."""
+    st = device_state(st)
     D_x, C_diag = _barrier_diagonals(qp, masks, st, ctl)
     kkt_solve = qp.build_kkt(D_x, C_diag, ctl)
     r_d, r_p = _residual_vectors(qp, masks, st)
@@ -516,7 +578,10 @@ def _sparse_ipm_step(qp, masks, st: IPMState, ctl: IPMControl) -> IPMState:
             dx, dy = kkt_solve(b1, b2)
             d = _sp_recover(qp, masks, st, mu_t, d, dx, dy, False, r_p)
     a_p, a_d = _step_lengths(masks, st, d, ctl.tau)
-    return _apply_direction(qp, masks, st, ctl, d, a_p, a_d)
+    new = _apply_direction(qp, masks, st, ctl, d, a_p, a_d)
+    new = _select(~st.halt & (st.iter < ctl.maxit), new, st)
+    _flat._tick("rest")
+    return new
 
 
 # ---------------------------------------------------------------------------
@@ -620,10 +685,43 @@ class IPMInform:
     c_stat: Any = None             # (m,) predicted constraint activity
 
 
+def _steps_per_fetch(ctl: IPMControl) -> int:
+    """Iterations between two host reads: ``steps_per_fetch``, but one
+    when every iteration prints its line or when ``GALAHAD_TPU_FUSED=0``
+    asks for the direct step (as the JAX package's host loop does)."""
+    if ctl.print_level >= 1 or not fused_enabled():
+        return 1
+    return max(1, ctl.steps_per_fetch)
+
+
+def _stepper(qp, masks, st: IPMState, ctl: IPMControl) -> Stepper:
+    """The runner of this solve's iterations: on the card the captured
+    step (unless ``GALAHAD_TPU_FUSED=0``), on the CPU the direct one."""
+    levels = ()
+    on_card = qp.g.device.type == "cuda"
+    if on_card:
+        from ..linalg.sbls import sparse_kkt_plan
+
+        plan = sparse_kkt_plan(qp.h_pat, qp.a_pat, qp.n)
+        levels = [lvp["sweep"] for lvp in _flat._device_plan(plan.sym, qp.g.device)["levels"]]
+    return Stepper(lambda s: _sparse_ipm_step(qp, masks, s, ctl), st, TENSOR_FIELDS,
+                   monitor, graph=on_card and fused_enabled(), sweep_levels=levels)
+
+
+def _finish_stats(stepper: Stepper, iters: int):
+    stats = stepper.stats
+    stats.halted_replays = stats.direct_steps + stats.replays - iters
+    return stats
+
+
 def ipm_solve(qp: SparseQP, ctl: IPMControl = IPMControl()):
     """Host-loop solver.  Runs on the device that holds ``qp`` (the
     constructors ``make_sparse_qp`` / ``read_sparse_qp`` place it: the
-    CUDA device unless the caller asked for the CPU).
+    CUDA device unless the caller asked for the CPU).  On the card the
+    iteration is captured once as a CUDA graph and replayed (qp/fused.py);
+    the host reads the monitor every ``steps_per_fetch`` iterations and
+    updates the checkpoints, the printed lines, the best iterate and the
+    clock limit at that granularity.
 
     Returns (x, y, z, state); ``state.inform`` (IPMInform) adds per-phase
     wall times, factorization/backsolve counts and residual-history
@@ -649,7 +747,8 @@ def ipm_solve(qp: SparseQP, ctl: IPMControl = IPMControl()):
     masks = classify_bounds(qp, ctl.infinity)
     st = ipm_init(qp, masks, ctl)
     if bad != 0:
-        st = dataclasses.replace(st, halt=True, status=bad)
+        st = dataclasses.replace(host_state(st, monitor(st).tolist()),
+                                 halt=True, status=bad)
     t_pre = time.perf_counter()
     t_analyse = 0.0
     if bad == 0:
@@ -660,32 +759,43 @@ def ipm_solve(qp: SparseQP, ctl: IPMControl = IPMControl()):
         t_analyse = time.perf_counter() - t0
     cp = checkpoint_init()
     timed_out = False
-    prev_st = None
-    best_st = None
+    prev_st = best_st = best_vals = vals = None
     best_kkt = float("inf")
     first = True
+    k = _steps_per_fetch(ctl)
     t_loop = time.perf_counter()
-    while bad == 0 and st.iter < ctl.maxit:
-        prev_st = st
-        st = _sparse_ipm_step(qp, masks, st, ctl)
-        kkt_now = max(st.res_p, st.res_d, st.res_c)
-        now = time.perf_counter() - t_start
-        cp = checkpoint_update(cp, kkt_now, st.iter, now)
-        if ctl.print_level >= 1:
-            if first:
-                print(" iter     p-feas     d-feas   com-slck"
-                      "         mu    time")
-            print(f"{st.iter:5d} {st.res_p:10.2e} {st.res_d:10.2e}"
-                  f" {st.res_c:10.2e} {float(st.mu):10.2e} {now:7.2f}")
-        first = False
-        if kkt_now < best_kkt:
-            best_kkt = kkt_now
-            best_st = st
-        if st.halt:
-            break
-        if ctl.clock_time_limit >= 0 and now > ctl.clock_time_limit:
-            timed_out = True
-            break
+    if bad == 0 and ctl.maxit > 0:
+        stepper = _stepper(qp, masks, st, ctl)
+        it_now = 0
+        while it_now < ctl.maxit:
+            if ctl.indicator_type == "tapia":   # the only reader of prev_st
+                prev_st = stepper.snapshot()
+            stepper.advance(min(k, ctl.maxit - it_now))
+            vals = stepper.fetch()
+            _flat._tick("fetch")
+            mon = dict(zip(MONITOR, vals))
+            it_now = int(mon["iter"])
+            kkt_now = max(mon["res_p"], mon["res_d"], mon["res_c"])
+            now = time.perf_counter() - t_start
+            cp = checkpoint_update(cp, kkt_now, it_now, now)
+            if ctl.print_level >= 1:
+                if first:
+                    print(" iter     p-feas     d-feas   com-slck"
+                          "         mu    time")
+                print(f"{it_now:5d} {mon['res_p']:10.2e} {mon['res_d']:10.2e}"
+                      f" {mon['res_c']:10.2e} {mon['mu']:10.2e} {now:7.2f}")
+            first = False
+            if kkt_now < best_kkt:
+                best_kkt, best_st, best_vals = kkt_now, stepper.snapshot(), vals
+            if mon["halt"]:
+                break
+            if ctl.clock_time_limit >= 0 and now > ctl.clock_time_limit:
+                timed_out = True
+                break
+        st = host_state(stepper.state, vals)
+        st.run = _finish_stats(stepper, st.iter)
+    elif bad == 0:
+        st = host_state(st, monitor(st).tolist())
     t_solve = time.perf_counter() - t_loop
     if timed_out and not st.converged:
         st = dataclasses.replace(st, halt=True,
@@ -696,8 +806,8 @@ def ipm_solve(qp: SparseQP, ctl: IPMControl = IPMControl()):
     if (best_st is not None and not st.converged
             and best_kkt < max(st.res_p, st.res_d, st.res_c)):
         st = dataclasses.replace(
-            best_st, iter=st.iter, halt=st.halt, status=st.status,
-            converged=st.converged)
+            host_state(best_st, best_vals), iter=st.iter, halt=st.halt,
+            status=st.status, converged=st.converged, run=st.run)
     x, y, z = extract_solution(qp, masks, st)
     b_stat, c_stat = ipm_indicators(qp, masks, st, ctl, prev=prev_st)
     iters = st.iter
@@ -720,4 +830,32 @@ def ipm_solve(qp: SparseQP, ctl: IPMControl = IPMControl()):
         b_stat=b_stat.cpu().numpy(),
         c_stat=c_stat.cpu().numpy(),
     )
+    return x, y, z, st
+
+
+def ipm_solve_compiled(qp: SparseQP, ctl: IPMControl = IPMControl()):
+    """The whole solve with no decision on the host: iterations until the
+    state halts or reaches ``ctl.maxit`` (counterpart of the JAX package's
+    ``ipm_solve_compiled``, a ``lax.while_loop``).  On the card it replays
+    the same captured step as :func:`ipm_solve`, one replay ahead of the
+    host's read of the halt flag.  Returns (x, y, z, state) without an
+    inform; the state's scalar fields are Python values.  Batches of
+    same-pattern problems (the JAX version's ``vmap`` use) are not ported."""
+    if getattr(qp, "h_kind", None) != "sparse":
+        raise NotImplementedError(
+            "ipm_solve_compiled: only SparseQP problems are ported")
+    _check_control(ctl)
+    if qp.g.device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    masks = classify_bounds(qp, ctl.infinity)
+    st = ipm_init(qp, masks, ctl)
+    if ctl.maxit > 0:
+        stepper = _stepper(qp, masks, st, ctl)
+        halt, it = MONITOR.index("halt"), MONITOR.index("iter")
+        vals = stepper.run_to_halt(lambda v: v[halt] != 0 or v[it] >= ctl.maxit)
+        st = host_state(stepper.state, vals)
+        st.run = _finish_stats(stepper, st.iter)
+    else:
+        st = host_state(st, monitor(st).tolist())
+    x, y, z = extract_solution(qp, masks, st)
     return x, y, z, st

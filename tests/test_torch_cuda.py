@@ -561,3 +561,146 @@ def test_flat_factorize_on_the_card_runs_only_the_extend_add_kernel(cuda):
     assert torch.equal(fac.store, plain.store)
     assert torch.equal(T.flat_factorize(plan, torch.as_tensor(vals, device=cuda)).store,
                        fac.store)
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs: each launcher captured alone, and the fused IPM iteration
+# ---------------------------------------------------------------------------
+
+
+def launcher_case(kernel, dtype, device):
+    """(inputs, fn, sweep levels): ``fn(buffers)`` runs one launcher on
+    copies of ``inputs``, in place."""
+    if kernel == "partial_ldlt":
+        batches, parts, off = [], [], 128
+        for Fpad, nb in ((8, 300), (128, 3), (16, 77), (64, 11), (32, 29), (96, 5)):
+            F, ncols = fronts(nb, Fpad, dtype, device, seed=Fpad)
+            batches.append((off, Fpad, ncols.cpu().numpy()))
+            parts.append((off, F))
+            off += F.numel() + 64
+        buf = torch.zeros(off, dtype=dtype, device=device)
+        for o, F in parts:
+            buf[o:o + F.numel()] = F.reshape(-1)
+        items = ldlt_kernels.build_ldlt_items(batches, device)
+        return (buf,), lambda b: ldlt_kernels.partial_ldlt_items(b[0], items), []
+    if kernel == "ldlt_wide":
+        store, lvl, _, _ = wide_level_store(WIDE_LEVELS["mixed"], dtype, device, seed=5)
+        return (store,), lambda b: ldlt_kernels.partial_ldlt_wide(b[0], lvl), []
+    if kernel == "extend_add":
+        store_np, batches, _ = ea_synthetic_level(EA_LEVELS["packed"], seed=6)
+        lvl = ea_kernels.build_ea_level(batches, device)
+        store = torch.as_tensor(store_np, dtype=dtype, device=device)
+        return (store,), lambda b: ea_kernels.extend_add(b[0], lvl), []
+    store, lvl, y = sweep_level(SWEEP_LEVELS["root_and_small"], dtype, device, seed=7)
+    work = torch.empty(lvl.work_size, dtype=dtype, device=device)
+
+    def sweeps(b):
+        sweep_kernels.sweep_fwd(b[0], b[1], lvl, work)
+        sweep_kernels.sweep_bwd(b[0], b[1], lvl, work)
+    return (store, y), sweeps, [lvl]
+
+
+def counted_launches():
+    from galahad_tpu_torch.qp.fused import launch_counts
+
+    return sum(launch_counts().values())
+
+
+def equal_bits(a, b):
+    return same_bits(a, b) if a.is_floating_point() else torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kernel", ["partial_ldlt", "ldlt_wide", "extend_add", "sweeps"])
+def test_a_captured_launcher_replays_the_direct_call_bitwise(cuda, kernel, dtype):
+    """Each launcher captured alone in a CUDA graph (the wide kernel's
+    cooperative launch and the sweeps' memset of their ticket and flags
+    included): a replay on the call's inputs gives the direct call's bits,
+    and a second replay the same bits again."""
+    inputs, fn, levels = launcher_case(kernel, dtype, cuda)
+    direct = [t.clone() for t in inputs]
+    fn(direct)
+    bufs = [t.clone() for t in inputs]
+    before = counted_launches()
+    graph = torch.cuda.CUDAGraph()
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        fn(bufs)
+    moved = counted_launches() - before
+    assert moved > 0                          # the wrappers count once, at capture
+    for _ in range(2):
+        for b, t in zip(bufs, inputs):
+            b.copy_(t)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(same_bits(b, d) for b, d in zip(bufs, direct))
+        sweep_kernels.sweep_check(levels)
+    assert counted_launches() - before == moved          # a replay runs no wrapper
+
+
+def test_a_replay_on_a_halted_state_changes_nothing(cuda):
+    from galahad_tpu_torch.core.problem import classify_bounds
+    from galahad_tpu_torch.qp import ipm as t_ipm
+
+    qp = grid_qp(12, cuda)
+    ctl = t_ipm.IPMControl()
+    masks = classify_bounds(qp)
+    stepper = t_ipm._stepper(qp, masks, t_ipm.ipm_init(qp, masks, ctl), ctl)
+    halt = t_ipm.MONITOR.index("halt")
+    while True:
+        stepper.advance(1)
+        if stepper.fetch()[halt]:
+            break
+    assert stepper.stats.path == "graph" and stepper.stats.replays > 0
+    done = stepper.snapshot()
+    stepper.advance(2)
+    stepper.fetch()
+    for name in t_ipm.TENSOR_FIELDS:
+        assert equal_bits(getattr(stepper.state, name), getattr(done, name)), name
+def test_the_graph_solve_equals_the_direct_one_bitwise(cuda, monkeypatch):
+    """grid k=20 through the captured iteration, with steps_per_fetch=4 and
+    through ipm_solve_compiled: the bits of GALAHAD_TPU_FUSED=0's direct
+    step, and a replay launches what a direct iteration launches."""
+    from galahad_tpu_torch.qp import ipm_solve_compiled
+    from galahad_tpu_torch.qp.fused import launch_counts
+    from galahad_tpu_torch.qp.ipm import IPMControl
+
+    qp = grid_qp(20, cuda)
+    monkeypatch.setenv("GALAHAD_TPU_FUSED", "0")
+    before = launch_counts()
+    xd, yd, zd, sd = ipm_solve(qp)
+    after = launch_counts()
+    per_iteration = {k: (after[k] - before[k]) / sd.iter for k in after}
+    assert sd.run.path == "direct" and sd.run.replays == 0
+    assert min(per_iteration[k] for k in ("partial_ldlt", "extend_add", "sweep_fwd",
+                                          "sweep_bwd")) > 0
+    monkeypatch.setenv("GALAHAD_TPU_FUSED", "1")
+    for solver, ctl in ((ipm_solve, IPMControl()), (ipm_solve, IPMControl(steps_per_fetch=4)),
+                        (ipm_solve_compiled, IPMControl())):
+        x, y, z, st = solver(qp, ctl)
+        assert st.run.path == "graph" and st.run.direct_steps == 1
+        assert (st.status, st.iter) == (sd.status, sd.iter) == (0, sd.iter)
+        assert st.run.replays - st.run.halted_replays == st.iter - 1
+        assert st.run.sweep_checks == st.run.fetches
+        assert st.run.launches_per_replay == per_iteration
+        for a, b in ((x, xd), (y, yd), (z, zd)):
+            assert same_bits(a, b)
+
+
+def test_the_phase_clock_refuses_a_capture(cuda, monkeypatch):
+    """A tick synchronises the card: under capture it raises; so does a
+    profiled solve on the graph path, and the direct path profiles."""
+    qp = grid_qp(8, cuda)
+    T.profile_start()
+    try:
+        graph = torch.cuda.CUDAGraph()
+        with pytest.raises(RuntimeError, match="phase clock"):
+            with torch.cuda.graph(graph):
+                T._tick("inside")
+        with pytest.raises(RuntimeError, match="phase clock"):
+            ipm_solve(qp)
+        monkeypatch.setenv("GALAHAD_TPU_FUSED", "0")
+        _, _, _, st = ipm_solve(qp)
+    finally:
+        split = T.profile_stop()
+    assert st.status == 0 and st.run.path == "direct" and split["factor"] > 0
