@@ -54,6 +54,21 @@ JSON line per phase:
                 entry has per tree level its device time, bound, tiles, warps,
                 pairs and longest chain of pairs, and the kernel's registers,
                 spill bytes (0 checked) and resident warps per SM, f32 and f64
+ 10. arcs       the flagship through ``ipm_solve`` on the graph path with the
+                series arcs taylor (order 4), puiseux (3) and zhao_sun (3):
+                status 0 and host KKT <= 1e-6 each, x, y, z bitwise equal to
+                the direct path's, every hand kernel launched in each replay
+                and no plain code; the replay's device time and the aten ops
+                of one direct step; at grid_qp_coo(100) the three arcs give
+                the JAX package's status and iterations (``JAX_ARC_ITERS``)
+ 11. dense      dense QPs through ``read_qp`` / ``make_qp`` -> ``ipm_solve``:
+                the 20 sweep fixtures against tests/dense_sweep_oracle.json
+                (status, iterations, objective within 1e-8 relative); a
+                random convex QP at n = 4096, m = 2048 (512 equality rows),
+                status 0, host KKT <= 1e-6, graph bitwise equal to direct;
+                a QP whose every first Cholesky try fails (a free variable
+                with a zero row of H and a zero column of A: escalations
+                counted, graph bitwise equal to direct)
 
 and, as its last line, ``{"ok": true, "device": {...}}``.  Any failed
 phase ends the run with a non-zero exit code and no such line.  Without
@@ -72,7 +87,7 @@ import time
 import numpy as np
 import torch
 
-from galahad_tpu_torch import make_sparse_qp
+from galahad_tpu_torch import make_qp, make_sparse_qp
 from galahad_tpu_torch.core.status import Status
 from galahad_tpu_torch.linalg import ea_kernels, ldlt_kernels, supernodal_flat, sweep_kernels
 from galahad_tpu_torch.linalg.sbls import sparse_kkt_factorize, sparse_kkt_plan
@@ -80,6 +95,13 @@ from galahad_tpu_torch.qp.fused import launch_counts
 from galahad_tpu_torch.qp.ipm import IPMControl, ipm_solve, ipm_solve_compiled
 
 K_FLAGSHIP = 316
+ARC_RUNS = (("taylor", 4), ("puiseux", 3), ("zhao_sun", 3))
+K_ARC_PARITY = 100
+# (status, iterations) of the JAX package's ipm_solve on flagship_qp(100) with
+# each arc, float64 on the CPU, as printed by
+# `JAX_PLATFORMS=cpu python tools/make_dense_oracle.py arcs 100`
+JAX_ARC_ITERS = {("taylor", 4): (0, 14), ("puiseux", 3): (0, 16), ("zhao_sun", 3): (0, 15)}
+DENSE_N, DENSE_M, DENSE_EQ = 4096, 2048, 512
 TOL = {torch.float32: 1e-4, torch.float64: 1e-11}   # x max|plain result|
 TPU_KERNEL = "galahad_tpu/linalg/pallas_kernels.py:129"
 SOURCE = "galahad_tpu_torch/csrc/partial_ldlt.cu"
@@ -1159,16 +1181,16 @@ def phase_fused(qp, flagship_solution):
          seconds=time.perf_counter() - t_phase)
 
 
-def replay_device_ms(qp, reps: int = 10) -> float:
-    """Device time of one replay of the flagship's captured iteration: the
-    solve is run to its halt, then ``reps`` more replays (steps on the halted
-    state: the same kernels on the same shapes, whose result is discarded)
-    are timed by an event pair; the host enqueues a replay in far less time
-    than the card runs it."""
+def replay_device_ms(qp, ctl=None, reps: int = 10) -> float:
+    """Device time of one replay of the captured iteration of ``qp`` under
+    ``ctl`` (default control): the solve is run to its halt, then ``reps``
+    more replays (steps on the halted state: the same kernels on the same
+    shapes, whose result is discarded) are timed by an event pair; the host
+    enqueues a replay in far less time than the card runs it."""
     from galahad_tpu_torch.core.problem import classify_bounds
     from galahad_tpu_torch.qp import ipm
 
-    ctl = IPMControl()
+    ctl = ctl or IPMControl()
     masks = classify_bounds(qp, ctl.infinity)
     with fused_path(True):
         stepper = ipm._stepper(qp, masks, ipm.ipm_init(qp, masks, ctl), ctl)
@@ -1563,6 +1585,252 @@ def phase_kernels(qp, plan, D_x, C_diag, b, main_path_launches):
     print(json.dumps(line), flush=True)
 
 
+def count_ops(fn) -> int:
+    """The aten operations that ``fn()`` dispatches (most launch a kernel on
+    the card, views launch none; the hand kernels' launches are counted by
+    their wrappers instead)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def roots_op_counts(qp, K: int) -> dict:
+    """The aten operations and the time of the arc's ROOTS pass over the
+    flagship's eight families and K truncation orders: the port's one
+    batched call (``ipm._arc_max_steps``) against one ``roots_quartic`` call
+    per family and order (the JAX package's ``_arc_max_step`` loop), on the
+    same inputs (``batched_device_ms``: queued behind a spin kernel, the
+    device's time alone)."""
+    from galahad_tpu_torch.core.roots import roots_quartic, smallest_positive_root
+    from galahad_tpu_torch.qp import ipm
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    fams = []
+    for size in (qp.n,) * 4 + (qp.m,) * 4:
+        v0 = torch.rand(size, dtype=torch.float64, device="cuda", generator=gen) + 0.1
+        ds = [torch.randn(size, dtype=torch.float64, device="cuda", generator=gen)
+              for _ in range(K)]
+        fams.append((v0, ds, v0 > 0.2))
+
+    def per_family():
+        out = []
+        for j in range(1, K + 1):
+            best = torch.ones((), dtype=torch.float64, device="cuda")
+            for v0, ds, mask in fams:
+                a = [torch.where(mask, 0.995 * v0, 1.0)]
+                a += [torch.where(mask, dk, 0.0) for dk in ds[:j]]
+                a += [torch.zeros_like(v0)] * (5 - len(a))
+                best = torch.minimum(best, smallest_positive_root(*roots_quartic(*a)).min())
+            out.append(best)
+        return torch.stack(out)
+
+    batched = ipm._arc_max_steps(fams, K, 0.995)
+    check(torch.equal(batched, per_family()),
+          "the batched ROOTS pass differs from the per-family one")
+    return dict(batched=count_ops(lambda: ipm._arc_max_steps(fams, K, 0.995)),
+                per_family=count_ops(per_family),
+                batched_ms=time_ms(lambda: ipm._arc_max_steps(fams, K, 0.995), reps=5),
+                batched_device_ms=queued_ms([lambda: ipm._arc_max_steps(fams, K, 0.995)]),
+                per_family_ms=time_ms(per_family, reps=3),
+                components=sum(int(v0.numel()) for v0, _, _ in fams), orders=K)
+
+
+def step_op_count(qp, ctl) -> int:
+    """The aten operations of one direct ``ipm_step`` from the starting point."""
+    from galahad_tpu_torch.core.problem import classify_bounds
+    from galahad_tpu_torch.qp import ipm
+
+    masks = classify_bounds(qp, ctl.infinity)
+    st = ipm.ipm_init(qp, masks, ctl)
+    ipm.ipm_step(qp, masks, st, ctl)          # plans and tables exist after this
+    return count_ops(lambda: ipm.ipm_step(qp, masks, st, ctl))
+
+
+def phase_arcs(qp):
+    """The series arcs on the flagship through ``ipm_solve``, graph path then
+    direct path, each with the kernels' counters set to 0 just before and read
+    just after; then the three arcs at grid_qp_coo(100) against the JAX
+    package's iteration counts."""
+    t_phase = time.perf_counter()
+    rows = []
+    mehrotra_ops = step_op_count(qp, IPMControl())
+    for arc, order in ARC_RUNS:
+        ctl = IPMControl(arc=arc, series_order=order)
+        what = f"arcs phase, {arc} order {order}"
+        with fused_path(True):
+            x, y, z, st, wall, peak, counts = counted_solve(qp, ctl)
+        run = st.run
+        kkt = host_kkt(qp, x, y, z)[0]
+        per = run.launches_per_replay
+        check(run.path == "graph", f"{what}: ran the {run.path} path")
+        check(st.status == int(Status.OK), f"{what}: status {st.status}")
+        check(kkt <= 1e-6, f"{what}: host KKT error {kkt:.3e} > 1e-6")
+        check(all(per[k] > 0 for k in KERNEL_COUNTS),
+              f"{what}: a hand kernel is missing from the captured iteration: {per}")
+        check(all(counts[k] == 0 for k in PLAIN_COUNTS),
+              f"{what}: plain code ran on the card: { {k: counts[k] for k in PLAIN_COUNTS} }")
+        check(run.direct_steps == 1 and run.replays - run.halted_replays == st.iter - 1,
+              f"{what}: {run.direct_steps} direct steps, {run.replays} replays "
+              f"({run.halted_replays} halted) for {st.iter} iterations")
+        with fused_path(False):
+            xd, yd, zd, sd, wall_d, peak_d, counts_d = counted_solve(qp, ctl)
+        check(sd.run.path == "direct" and (sd.status, sd.iter) == (st.status, st.iter)
+              and all(same_bits(a, b) for a, b in ((x, xd), (y, yd), (z, zd))),
+              f"{what}: the graph path's x, y, z differ from the direct path's")
+        rows.append(dict(
+            arc=arc, series_order=order, status=st.status, iterations=st.iter, host_kkt=kkt,
+            objective=st.inform.obj, wall_s=wall, s_per_iteration=wall / max(st.iter, 1),
+            capture_s=run.capture_s, instantiate_s=run.instantiate_s, replays=run.replays,
+            replay_s=run.replay_s, s_per_replay=run.replay_s / max(run.replays, 1),
+            halted_replays=run.halted_replays, fetches=run.fetches,
+            replay_device_ms=replay_device_ms(qp, ctl),
+            launches_per_replay={k: per[k] for k in KERNEL_COUNTS},
+            device_launches={k: counts[k] for k in KERNEL_COUNTS},
+            plain_counts={k: counts[k] for k in PLAIN_COUNTS},
+            peak_device_memory_bytes=peak, direct_wall_s=wall_d,
+            direct_peak_device_memory_bytes=peak_d,
+            aten_ops_per_direct_step=step_op_count(qp, ctl),
+            graph_bitwise_equal_direct=True))
+    parity = []
+    small = flagship_qp(K_ARC_PARITY, "cuda")
+    for arc, order in ARC_RUNS:
+        _, _, _, st = ipm_solve(small, IPMControl(arc=arc, series_order=order))
+        want = JAX_ARC_ITERS[(arc, order)]
+        check((st.status, st.iter) == want,
+              f"arcs phase, k={K_ARC_PARITY} {arc} order {order}: status {st.status}, "
+              f"{st.iter} iterations; the JAX package gives {want}")
+        parity.append(dict(arc=arc, series_order=order, status=st.status, iterations=st.iter,
+                           jax_status_iterations=list(want), path=st.run.path))
+    emit("arcs", runs=rows, mehrotra_aten_ops_per_direct_step=mehrotra_ops,
+         roots_aten_ops_per_step=roots_op_counts(qp, 4),
+         k100_against_jax=parity, seconds=time.perf_counter() - t_phase)
+
+
+def convex_qp_arrays(n, m, seed, equalities=0):
+    """The family of tests/test_ipm.py::random_convex_qp (the same random
+    stream): H = B B' + I/2, m random rows around a feasible point, the
+    first ``equalities`` of them equalities, 0 <= x <= 1."""
+    r = np.random.default_rng(seed)
+    B = r.normal(size=(n, n))
+    H = B @ B.T + 0.5 * np.eye(n)
+    A = r.normal(size=(m, n))
+    x_feas = r.uniform(0.2, 0.8, size=n)
+    c_at = A @ x_feas
+    c_l = np.where(np.arange(m) < equalities, c_at, c_at - r.uniform(0.5, 1.0, m))
+    c_u = np.where(np.arange(m) < equalities, c_at, c_at + r.uniform(0.5, 1.0, m))
+    return dict(H=H, g=r.normal(size=n), A=A, c_l=c_l, c_u=c_u,
+                x_l=np.zeros(n), x_u=np.ones(n))
+
+
+def dense_host_kkt(qp, x, y, z):
+    """KKT error of a dense QP in float64 on the host: the dual residual,
+    the bound and constraint violations, and the complementarity of each
+    finite bound with its multiplier (y, z > 0 at a lower bound)."""
+    big = 1e19
+    H, A, g = (np.asarray(t.cpu(), np.float64) for t in (qp.H_dense(), qp.A, qp.g))
+    xl, xu, cl, cu = (np.asarray(t.cpu(), np.float64) for t in (qp.x_l, qp.x_u, qp.c_l, qp.c_u))
+    xd, yd, zd = (np.asarray(v.cpu(), np.float64) for v in (x, y, z))
+    ax = A @ xd
+    r_d = float(np.max(np.abs(H @ xd + g - A.T @ yd - zd)))
+    viol = [np.where(xl > -big, xl - xd, 0.0), np.where(xu < big, xd - xu, 0.0),
+            np.where(cl > -big, cl - ax, 0.0), np.where(cu < big, ax - cu, 0.0)]
+    r_p = float(max(np.max(np.maximum(v, 0.0), initial=0.0) for v in viol))
+    eq = (cl > -big) & (cu < big) & (cu - cl <= 0)
+    comp = [np.where(xl > -big, (xd - xl) * np.maximum(zd, 0.0), 0.0),
+            np.where(xu < big, (xu - xd) * np.maximum(-zd, 0.0), 0.0),
+            np.where((cl > -big) & ~eq, (ax - cl) * np.maximum(yd, 0.0), 0.0),
+            np.where((cu < big) & ~eq, (cu - ax) * np.maximum(-yd, 0.0), 0.0)]
+    c = float(max(np.max(np.abs(v), initial=0.0) for v in comp))
+    return max(r_p, r_d, c), r_p, r_d, c
+
+
+def dense_graph_and_direct(qp, what: str):
+    """One dense solve on the graph path and one on the direct path: the same
+    status, iterations, escalations and bits.  Returns the graph run's row."""
+    with fused_path(True):
+        x, y, z, st, wall, peak, _ = counted_solve(qp, IPMControl())
+    with fused_path(False):
+        xd, yd, zd, sd, wall_d, _, _ = counted_solve(qp, IPMControl())
+    check(st.run.path == "graph" and sd.run.path == "direct",
+          f"{what}: ran the {st.run.path} / {sd.run.path} paths")
+    check((st.status, st.iter, st.run.escalations) == (sd.status, sd.iter, sd.run.escalations)
+          and all(same_bits(a, b) for a, b in ((x, xd), (y, yd), (z, zd))),
+          f"{what}: the graph path's result differs from the direct path's")
+    kkt = dense_host_kkt(qp, x, y, z)[0]
+    return dict(n=qp.n, m=qp.m, status=st.status, iterations=st.iter, host_kkt=kkt,
+                objective=st.inform.obj, wall_s=wall, s_per_iteration=wall / max(st.iter, 1),
+                capture_s=st.run.capture_s, replays=st.run.replays,
+                halted_replays=st.run.halted_replays, escalations=st.run.escalations,
+                fetches=st.run.fetches, peak_device_memory_bytes=peak, direct_wall_s=wall_d,
+                graph_bitwise_equal_direct=True), (x, y, z, st)
+
+
+def phase_dense():
+    """Dense QPs on the card through ``read_qp`` and ``make_qp``."""
+    from galahad_tpu_torch.io.qplib import read_qp
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "tests", "dense_sweep_oracle.json")) as fh:
+        oracle = json.load(fh)["fixtures"]
+    sweep_dir = os.path.join(root, "examples", "sweep")
+    names = sorted(f[:-6] for f in os.listdir(sweep_dir) if f.endswith(".qplib"))
+    check(sorted(oracle) == names and len(names) == 20,
+          "dense phase: the oracle does not cover the 20 sweep fixtures")
+    sweep = []
+    t0 = time.perf_counter()
+    for name in names:
+        qp = read_qp(os.path.join(sweep_dir, name + ".qplib"))
+        t1 = time.perf_counter()
+        x, _, _, st = ipm_solve(qp)
+        wall = time.perf_counter() - t1
+        ref = oracle[name]
+        check(st.run.path == "graph", f"dense phase, {name}: ran the {st.run.path} path")
+        check((st.status, st.iter) == (ref["status"], ref["iter"]),
+              f"dense phase, {name}: status {st.status}, {st.iter} iterations; the oracle "
+              f"gives {ref['status']}, {ref['iter']}")
+        if st.status == 0:
+            rel = abs(st.inform.obj - ref["obj"]) / max(1.0, abs(ref["obj"]))
+            check(rel <= 1e-8, f"dense phase, {name}: objective off by {rel:.3e} relative")
+        sweep.append(dict(name=name, n=qp.n, m=qp.m, status=st.status, iterations=st.iter,
+                          escalations=st.run.escalations, wall_s=wall))
+    sweep_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    qp = make_qp(**convex_qp_arrays(DENSE_N, DENSE_M, 0, equalities=DENSE_EQ))
+    torch.cuda.synchronize()
+    make_s = time.perf_counter() - t0
+    big, sol = dense_graph_and_direct(qp, "dense phase, n=4096")
+    check(big["status"] == int(Status.OK), f"dense phase, n=4096: status {big['status']}")
+    check(big["host_kkt"] <= 1e-6, f"dense phase, n=4096: host KKT {big['host_kkt']:.3e}")
+    check(bool(torch.isfinite(sol[0]).all()) and sol[0].shape == (DENSE_N,),
+          "dense phase, n=4096: x is not finite or has the wrong shape")
+    big.update(make_qp_s=make_s, replay_device_ms=replay_device_ms(qp),
+               h_bytes=qp.H.numel() * qp.H.element_size())
+    del qp, sol
+
+    a = convex_qp_arrays(512, 128, 0)
+    a["H"][0, :] = 0.0
+    a["H"][:, 0] = 0.0
+    a["A"][:, 0] = 0.0
+    a["x_l"][0], a["x_u"][0], a["g"][0] = -1e20, 1e20, 0.0
+    shifted, _ = dense_graph_and_direct(make_qp(**a), "dense phase, escalation")
+    check(shifted["status"] == int(Status.OK) and shifted["escalations"] >= 1,
+          f"dense phase, escalation: status {shifted['status']}, "
+          f"{shifted['escalations']} escalations")
+    emit("dense", sweep=sweep, sweep_s=sweep_s, n4096=big, escalation=shifted,
+         seconds=time.perf_counter() - t_phase)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1580,6 +1848,10 @@ def main() -> int:
         phase_fused(qp, solution)
         del solution
         phase_kernels(qp, plan, D_x, C_diag, b, launches)
+        del plan, D_x, C_diag, b
+        phase_arcs(qp)
+        del qp
+        phase_dense()
     except SmokeFailure as exc:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr)
         return 1

@@ -2,21 +2,22 @@
 
 The JAX package ``galahad_tpu`` is the reference and is not imported from
 here; this package imports ``torch`` and keeps its own copy of what it
-needs.  Ported so far: the sparse interior-point QP solve
-(``make_sparse_qp`` / ``io.qplib.read_sparse_qp`` -> ``qp.ipm_solve``)
-over the flat supernodal LDL^T, with the small-front partial LDL^T as a
-hand-written CUDA kernel.
+needs.  Ported so far: the interior-point QP solve (``qp.ipm_solve``,
+Mehrotra or a series arc) of a sparse problem (``make_sparse_qp`` /
+``io.qplib.read_sparse_qp``) over the flat supernodal LDL^T and its
+hand-written CUDA kernels, and of a dense one (``make_qp`` /
+``io.qplib.read_qp``) over SBLS's Schur-complement Cholesky pair.
 
 Entry points run on the CUDA device unless the caller asks for the CPU
 (``device="cpu"``); float64 is the default precision.
 """
 from .core.config import apply_specfile, read_specfile  # noqa: F401
-from .core.problem import INFINITY, BoundMasks, check_qp, classify_bounds  # noqa: F401
+from .core.problem import INFINITY, QP, BoundMasks, check_qp, classify_bounds, make_qp  # noqa: F401
 from .core.sparse import COOPattern, SparseQP, make_sparse_qp  # noqa: F401
 from .core.status import Status, status_message  # noqa: F401
 
 __all__ = [
-    "INFINITY", "BoundMasks", "COOPattern", "SparseQP", "Status",
-    "apply_specfile", "check_qp", "classify_bounds", "make_sparse_qp",
+    "INFINITY", "QP", "BoundMasks", "COOPattern", "SparseQP", "Status",
+    "apply_specfile", "check_qp", "classify_bounds", "make_qp", "make_sparse_qp",
     "read_specfile", "status_message",
 ]

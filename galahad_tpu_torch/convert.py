@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from ._device import resolve_device, resolve_dtype
+from .core.problem import QP, make_qp
 from .core.sparse import COOPattern, SparseQP
 from .linalg.supernodal_flat import FlatGroup, FlatPlan
 from .qp.ipm import IPMState, device_state
@@ -46,6 +47,19 @@ def sparse_qp_from_numpy(fields: dict, dtype=None, device=None) -> SparseQP:
         x=dev(fields.get("x")), y=dev(fields.get("y")), z=dev(fields.get("z")),
         h_pat=_pattern(fields["h_pat"]), a_pat=_pattern(fields["a_pat"]),
         name=str(fields.get("name", "")))
+
+
+def qp_from_numpy(fields: dict, dtype=None, device=None) -> QP:
+    """Build a dense QP from the JAX ``QP``'s fields as numpy arrays:
+    ``g``, ``A``, ``c_l``, ``c_u``, ``x_l``, ``x_u``, ``H`` (None for the
+    "zero" and "identity" kinds), ``h_kind``, ``f`` and optionally
+    ``x``/``y``/``z`` and ``name``."""
+    return make_qp(
+        g=fields["g"], A=fields.get("A"), c_l=fields["c_l"], c_u=fields["c_u"],
+        x_l=fields["x_l"], x_u=fields["x_u"], H=fields.get("H"),
+        h_kind=str(fields.get("h_kind", "dense")), f=float(fields.get("f", 0.0)),
+        x=fields.get("x"), y=fields.get("y"), z=fields.get("z"),
+        name=str(fields.get("name", "")), dtype=dtype, device=device)
 
 
 def flat_plan_from_numpy(fields: dict) -> FlatPlan:

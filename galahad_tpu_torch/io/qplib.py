@@ -1,10 +1,12 @@
-"""QPLIB file reader.
+"""QPLIB file reader / writer.
 
-Counterpart of galahad_tpu/io/qplib.py for the sparse path: the parser
-(``loads`` / ``load``), the raw ``QPLIBProblem`` record and the
-conversion to the port's ``SparseQP`` (``to_sparse_qp`` /
-``read_sparse_qp``).  The dense readers (``read_qp``, ``read_qcqp``) and
-the writers are not ported yet.
+Counterpart of galahad_tpu/io/qplib.py (GALAHAD's RPD package, reference
+src/rpd/rpd.f90: RPD_read_problem_data :352, RPD_write_qp_problem_data
+:1254): the parser (``loads`` / ``load``), the raw ``QPLIBProblem``
+record, its conversion to the port's dense ``QP`` (``to_qp`` /
+``read_qp``) and ``SparseQP`` (``to_sparse_qp`` / ``read_sparse_qp``),
+and the writer (``dumps`` / ``dump`` / ``from_qp`` / ``write_qp``).  The
+QCQP reader (``read_qcqp``) is not ported yet.
 
 Grammar: comments start with '!'; each record is one line (extra trailing
 commentary words ignored); sparse sections are "count; count lines of
@@ -54,11 +56,48 @@ class QPLIBProblem:
     x_names: dict
     c_names: dict
 
+    @property
+    def H(self) -> np.ndarray:
+        """Dense symmetric (n, n) view of the objective Hessian."""
+        H = np.zeros((self.n, self.n))
+        r, c, v = self.H_coo
+        np.add.at(H, (r, c), v)
+        off = r != c
+        np.add.at(H, (c[off], r[off]), v[off])
+        return H
+
+    @property
+    def A(self) -> np.ndarray:
+        A = np.zeros((self.m, self.n))
+        r, c, v = self.A_coo
+        np.add.at(A, (r, c), v)
+        return A
+
     def _clip_inf(self, v):
         v = np.asarray(v, dtype=np.float64).copy()
         v[v >= self.infinity] = INFINITY
         v[v <= -self.infinity] = -INFINITY
         return v
+
+    def to_qp(self, dtype=None, device=None):
+        """Convert to a dense ``QP`` on ``device`` (``None``: the CUDA
+        device); values beyond the file's infinity become ``INFINITY``, and
+        a Maximize problem is negated into a minimization."""
+        from ..core.problem import make_qp
+
+        if self.H_c:
+            raise ValueError(
+                "problem has quadratic constraints; the QCQP path is not "
+                "ported yet")
+        sgn = 1.0 if self.minimize else -1.0
+        quad = self.ptype[0].upper() in ("Q", "D", "C")
+        return make_qp(
+            H=sgn * self.H if quad else None, h_kind="dense" if quad else "zero",
+            g=sgn * self.g, f=sgn * float(self.f), A=self.A,
+            c_l=self._clip_inf(self.c_l), c_u=self._clip_inf(self.c_u),
+            x_l=self._clip_inf(self.x_l), x_u=self._clip_inf(self.x_u),
+            x=self.x0, y=self.y0, z=self.z0, name=self.name,
+            dtype=dtype, device=device)
 
     def to_sparse_qp(self, dtype=None, device=None):
         """Convert to a SparseQP (COO end-to-end, no densification) on
@@ -228,6 +267,134 @@ def load(path: str) -> QPLIBProblem:
         return loads(fh.read())
 
 
+def read_qp(path: str, dtype=None, device=None):
+    """Read a QPLIB file straight into a dense ``QP`` on ``device``
+    (``None``: the CUDA device; ``"cpu"`` for the host)."""
+    return load(path).to_qp(dtype, device)
+
+
 def read_sparse_qp(path: str, dtype=None, device=None):
     """Read a QPLIB file straight into a SparseQP (never densifies)."""
     return load(path).to_sparse_qp(dtype, device)
+
+
+# ---------------------------------------------------------------------------
+# Writer (RPD_write_qp_problem_data equivalent) for fixture round-tripping
+# ---------------------------------------------------------------------------
+
+
+def dumps(p: QPLIBProblem) -> str:
+    out: list[str] = [p.name, p.ptype, "Minimize" if p.minimize else "Maximize", str(p.n)]
+    obj_t, var_t, con_t = p.ptype
+    has_constraints = con_t in ("L", "Q")
+    if has_constraints:
+        out.append(str(p.m))
+
+    if obj_t in ("Q", "D", "C"):
+        hr, hc, hv = p.H_coo
+        nz = [k for k in range(len(hr)) if hv[k] != 0.0]
+        out.append(str(len(nz)))
+        out += [f"{hr[k] + 1} {hc[k] + 1} {float(hv[k])!r}" for k in nz]
+
+    def vec(v):
+        vals, counts = np.unique(np.asarray(v), return_counts=True)
+        default = float(vals[np.argmax(counts)]) if len(vals) else 0.0
+        exc = [i for i in range(len(v)) if v[i] != default]
+        out.append(repr(default))
+        out.append(str(len(exc)))
+        out.extend(f"{i + 1} {float(v[i])!r}" for i in exc)
+
+    vec(p.g)
+    out.append(repr(float(p.f)))
+    if con_t == "Q":
+        out.append(str(len(p.H_c)))
+        out += [f"{c + 1} {i + 1} {j + 1} {float(v)!r}" for c, i, j, v in p.H_c]
+    if has_constraints:
+        ar, ac, av = p.A_coo
+        nz = [k for k in range(len(ar)) if av[k] != 0.0]
+        out.append(str(len(nz)))
+        out += [f"{ar[k] + 1} {ac[k] + 1} {float(av[k])!r}" for k in nz]
+    out.append(repr(p.infinity))
+    if has_constraints:
+        vec(p.c_l)
+        vec(p.c_u)
+    if con_t != "N":
+        vec(p.x_l)
+        vec(p.x_u)
+    if var_t not in ("C", "B", "I"):
+        vec(p.var_types)
+    vec(p.x0)
+    if has_constraints:
+        vec(p.y0)
+    vec(p.z0)
+    for names in ([p.x_names, p.c_names] if has_constraints else [p.x_names]):
+        out.append(str(len(names)))
+        out += [f"{i + 1} {nm}" for i, nm in sorted(names.items())]
+    return "\n".join(out) + "\n"
+
+
+def dump(p: QPLIBProblem, path: str) -> None:
+    with open(path, "w") as fh:
+        fh.write(dumps(p))
+
+
+def _host(v) -> np.ndarray:
+    """A tensor or array as float64 numpy on the host."""
+    if hasattr(v, "detach"):
+        v = v.detach().cpu().numpy()
+    return np.asarray(v, np.float64)
+
+
+def from_qp(qp, name: str = "", infinity: float = 1e20) -> QPLIBProblem:
+    """A QPLIBProblem from a ``QP`` or ``SparseQP`` (the
+    RPD_write_qp_problem_data direction, reference src/rpd/rpd.f90:1254):
+    dump a problem for replay, fixtures or bug reports.  A SparseQP stays
+    O(nnz) end to end."""
+    n, m = qp.n, qp.m
+    if hasattr(qp, "h_pat"):          # SparseQP
+        hp = qp.h_pat
+        H_coo = (np.asarray(hp.rows, np.int64), np.asarray(hp.cols, np.int64),
+                 _host(qp.h_vals))
+        ap = qp.a_pat
+        A_coo = (np.asarray(ap.rows, np.int64), np.asarray(ap.cols, np.int64),
+                 _host(qp.a_vals))
+        has_h = len(H_coo[0]) > 0
+    else:
+        H = np.zeros((n, n)) if getattr(qp, "H", None) is None else _host(qp.H)
+        if getattr(qp, "h_kind", "dense") in ("diagonal", "identity", "scaled_identity"):
+            H = np.diag(_host(qp.H_diag()))
+        hr, hc = np.nonzero(np.tril(H))
+        H_coo = (hr, hc, H[hr, hc])
+        A = np.zeros((m, n)) if getattr(qp, "A", None) is None else _host(qp.A)
+        ar, ac = np.nonzero(A)
+        A_coo = (ar, ac, A[ar, ac])
+        has_h = len(H_coo[0]) > 0 and np.any(H_coo[2] != 0.0)
+    ptype = ("QCL" if has_h else "LCL") if m > 0 else ("QCB" if has_h else "LCB")
+
+    def clip(v, size, default):
+        if v is None:
+            return np.full(size, default)
+        v = _host(v).copy()
+        v[v >= INFINITY] = infinity
+        v[v <= -INFINITY] = -infinity
+        return v
+
+    return QPLIBProblem(
+        name=name or getattr(qp, "name", "") or "GALAHAD_TPU",
+        ptype=ptype, minimize=True, n=n, m=m,
+        H_coo=H_coo, g=_host(qp.g), f=float(qp.f), A_coo=A_coo,
+        c_l=clip(qp.c_l, m, -infinity), c_u=clip(qp.c_u, m, infinity),
+        x_l=clip(qp.x_l, n, -infinity), x_u=clip(qp.x_u, n, infinity),
+        x0=np.zeros(n) if qp.x is None else _host(qp.x),
+        y0=np.zeros(m) if qp.y is None else _host(qp.y),
+        z0=np.zeros(n) if qp.z is None else _host(qp.z),
+        infinity=infinity, var_types=np.zeros(n, np.int64), H_c=[],
+        x_names={}, c_names={},
+    )
+
+
+def write_qp(path: str, qp, name: str = "") -> None:
+    """Write a ``QP`` / ``SparseQP`` to a QPLIB file (the
+    generate_qplib_file role of the reference QP solvers,
+    src/cqp/cqp.f90:376-395)."""
+    dump(from_qp(qp, name=name), path)

@@ -1,0 +1,90 @@
+"""Dense Cholesky utilities.
+
+Counterpart of galahad_tpu/linalg/cholesky.py (the dense POTR path of SLS,
+reference src/sls/sls.f90:843-921, and the foundation of the
+Schur-complement KKT solver in sbls.py).  The factorization is
+``torch.linalg.cholesky_ex`` with ``check_errors=False`` (cuSOLVER's
+potrf on the card, LAPACK's on the host) and the solves are
+``torch.linalg.solve_triangular``: no call here reads the host, so they
+can be captured in a CUDA graph.
+
+Dynamic threshold pivoting is replaced, as in the JAX package, by a
+diagonal shift that grows until the factorization succeeds
+(:func:`chol_factor_shifted`, the strategy of TRS for indefiniteness,
+reference src/trs/trs.f90:2260-2337).  The JAX package escalates inside
+one ``lax.while_loop``; a replayed graph cannot branch on the result, so
+here the escalation is a host loop that only :func:`chol_factor_shifted`
+with ``max_tries > 0`` runs (the IPM's step takes the first try alone
+and reports whether it needs the shift, qp/ipm.py).
+"""
+from __future__ import annotations
+
+import torch
+
+
+def scalar_like(v, like: torch.Tensor) -> torch.Tensor:
+    """``v`` as a 0-d tensor of ``like``'s type and device, made by a fill
+    on that device (a host-to-card copy could not be captured in a CUDA
+    graph)."""
+    if torch.is_tensor(v):
+        return v.to(dtype=like.dtype, device=like.device)
+    return torch.full((), float(v), dtype=like.dtype, device=like.device)
+
+
+def chol_factor(M: torch.Tensor):
+    """Lower Cholesky factor of the symmetrized ``M`` (the JAX package's
+    ``symmetrize_input=True``) and cuSOLVER/LAPACK's ``info`` (0 on
+    success), as a 0-d (or batch-shaped) int32 tensor; no host read."""
+    L, info = torch.linalg.cholesky_ex((M + M.mT) / 2, check_errors=False)
+    return L, info
+
+
+def chol_ok(L: torch.Tensor, info=None) -> torch.Tensor:
+    """True where the factorization succeeded: ``info == 0`` and a finite,
+    positive diagonal.  The JAX version tests the diagonal alone, since
+    XLA's Cholesky fills NaN where it fails; LAPACK's and cuSOLVER's leave
+    the factor part-computed and report the failure in ``info``."""
+    d = torch.diagonal(L, dim1=-2, dim2=-1)
+    ok = (torch.isfinite(d) & (d > 0)).all(dim=-1)
+    return ok if info is None else ok & (info == 0)
+
+
+def chol_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve M x = b given L = chol(M).  ``b`` is (..., n) or (..., n, k)."""
+    vec = b.ndim == L.ndim - 1
+    if vec:
+        b = b[..., None]
+    y = torch.linalg.solve_triangular(L, b, upper=False, left=True)
+    x = torch.linalg.solve_triangular(L.mT, y, upper=True, left=True)
+    return x[..., 0] if vec else x
+
+
+def chol_factor_shifted(M: torch.Tensor, shift0=0.0, growth: float = 100.0,
+                        max_tries: int = 12):
+    """Factorize M + shift I, escalating the shift by ``growth`` on failure.
+
+    Returns (L, shift, ok) with ``shift`` and ``ok`` 0-d tensors.
+    ``shift0`` = 0 tries the unshifted matrix first; the first fallback
+    uses ``eps * max(max|M|, 1)``, then each try multiplies by ``growth``,
+    at most ``max_tries`` fallbacks (the JAX package's sequence).  With
+    ``max_tries=0`` only the first try is made and nothing is read on the
+    host; each fallback reads ``ok`` once."""
+    n = M.shape[-1]
+    eye = torch.eye(n, dtype=M.dtype, device=M.device)
+    shift = scalar_like(shift0, M)
+
+    def try_factor(s):
+        L, info = chol_factor(M + s * eye)
+        return L, chol_ok(L, info)
+
+    L, ok = try_factor(shift)
+    if max_tries <= 0:
+        return L, shift, ok
+    eps = torch.finfo(M.dtype).eps
+    base = eps * torch.clamp(M.abs().max(), min=1.0)
+    tries = 0
+    while not bool(ok) and tries < max_tries:
+        shift = torch.where(shift == 0, base, shift * growth)
+        L, ok = try_factor(shift)
+        tries += 1
+    return L, shift, ok

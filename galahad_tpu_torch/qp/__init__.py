@@ -1,4 +1,4 @@
-"""QP solvers of the port (the sparse interior-point method)."""
+"""QP solvers of the port (the interior-point method, sparse and dense)."""
 from .ipm import (  # noqa: F401
     IPMControl,
     IPMInform,
@@ -9,4 +9,5 @@ from .ipm import (  # noqa: F401
     ipm_init,
     ipm_solve,
     ipm_solve_compiled,
+    ipm_step,
 )

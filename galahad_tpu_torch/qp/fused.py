@@ -9,7 +9,7 @@ whole solve as one ``while_loop``; the step decides convergence, the
 failure guards and the rollback on the device.
 
 Here the iteration is a function from state to state made of tensor code
-with no host read (``ipm._sparse_ipm_step``).  On the card a
+with no host read (``ipm.ipm_step``).  On the card a
 :class:`Stepper` runs the first iteration directly: that builds the
 kernels, uploads the plan's tables and sets the kernels' attributes.  It
 then captures the step ONCE as a ``torch.cuda.CUDAGraph`` on static state
@@ -18,6 +18,15 @@ buffers and replays the graph once per iteration; the step's allocations
 one small monitor tensor per fetch.  On the CPU, and on the card with
 ``GALAHAD_TPU_FUSED=0``, every step runs directly.  A failed capture
 raises: nothing falls back to the direct step.
+
+A dense QP's step takes each Cholesky factorization at its first try
+only; where that fails the step changes nothing and sets a flag in the
+state (``needs_shift``).  At the fetch that reads the flag the stepper
+takes that iteration again directly, with the escalating shift (one host
+read per try), writes the result into the state (the graph's static
+buffers on the card) and goes on; every such step is counted in
+``RunStats.escalations``.  With a fetch every k iterations, the replays
+between the failed step and the fetch (at most k - 1) change nothing.
 
 The kernels' wrappers count launches where they run: in a direct step and
 once while the step is captured.  :class:`RunStats` keeps the counts of the
@@ -68,7 +77,9 @@ class RunStats:
     fetches: int = 0             # host reads of the monitor
     direct_steps: int = 0        # steps the host ran op by op
     replays: int = 0             # replays of the captured step
-    halted_replays: int = 0      # steps taken on a halted state (no-ops)
+    halted_replays: int = 0      # steps that changed nothing: on a halted state, or
+                                 # whose factorization needed a shift
+    escalations: int = 0         # steps taken again with the escalating shift
     capture_s: float = 0.0       # capture and instantiation of the graph
     instantiate_s: float = 0.0   # of which the instantiation (capture_end)
     replay_s: float = 0.0        # wall from the first replay's launch to the last fetch
@@ -83,15 +94,20 @@ class Stepper:
     outputs), ``monitor`` maps a state to its monitor tensor.  With
     ``graph=True`` (a state on the card) the first step runs directly and
     every later one is a replay of one capture.  ``sweep_levels``: the sweep
-    tables of the solve, whose wait status is checked at every fetch."""
+    tables of the solve, whose wait status is checked at every fetch.
+    ``escalate``: None, or (index of the needs-shift flag in the monitor,
+    the step that takes a flagged iteration again with the escalating
+    shift)."""
 
-    def __init__(self, step, st, fields, monitor, graph: bool, sweep_levels=()):
+    def __init__(self, step, st, fields, monitor, graph: bool, sweep_levels=(),
+                 escalate=None):
         self.step = step
         self.state = st
         self.fields = tuple(fields)
         self.monitor_of = monitor
         self.stats = RunStats(path="graph" if graph else "direct")
         self.sweep_levels = list(sweep_levels)
+        self.escalate = escalate
         self._graph = None
         self._monitor = None
         self._t_replays = None
@@ -169,10 +185,28 @@ class Stepper:
             sweep_kernels.sweep_check(self.sweep_levels, synchronize=False)
             self.stats.sweep_checks += 1
 
+    def _settle(self, values: list) -> list:
+        """``values`` of the current state's monitor, or, where they show
+        the needs-shift flag, those after the escalated step that takes the
+        flagged iteration again (run directly; on the graph path its result
+        is copied into the static buffers)."""
+        if self.escalate is None or not values[self.escalate[0]]:
+            return values
+        new = self.escalate[1](self.state)
+        self.stats.escalations += 1
+        if self._graph is None:
+            self.state = new
+        else:
+            for f in self.fields:
+                getattr(self.state, f).copy_(getattr(new, f))
+            self._monitor.copy_(self.monitor_of(new))
+        return self.monitor().tolist()
+
     def fetch(self) -> list:
         """The one host read of a fetch: the current state's monitor, as
-        Python numbers; then every sweep level's wait status is checked."""
-        values = self.monitor().tolist()
+        Python numbers (a second read after an escalated step); then every
+        sweep level's wait status is checked."""
+        values = self._settle(self.monitor().tolist())
         self._fetched()
         return values
 
@@ -186,7 +220,11 @@ class Stepper:
         return them.  On the graph path replay i + 1 is enqueued before the
         host waits for replay i's monitor in pinned memory, so the card does
         not idle while the host reads; the replay after the last is a step
-        on a halted state, which changes nothing."""
+        on a halted state, which changes nothing.  Where a replay's monitor
+        shows the needs-shift flag, the host waits for the replay after it
+        (a step on the same flagged state, which changes nothing), takes the
+        iteration again with the escalated step and starts the pipeline
+        anew."""
         self.advance(1)
         values = self.fetch()
         if stop(values) or self.stats.path == "direct":
@@ -209,7 +247,14 @@ class Stepper:
             enqueue(1 - slot)
             done[slot].synchronize()
             values = host[slot].tolist()
+            flagged = self.escalate is not None and values[self.escalate[0]]
+            if flagged:
+                done[1 - slot].synchronize()
+                values = self._settle(values)
             self._fetched()
             if stop(values):
                 return values
-            slot = 1 - slot
+            if flagged:
+                enqueue(slot)          # the replay after the escalated step
+            else:
+                slot = 1 - slot

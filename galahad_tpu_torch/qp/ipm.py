@@ -1,15 +1,18 @@
-"""Primal-dual interior-point method for convex QP / LP on sparse problems.
+"""Primal-dual interior-point method for convex QP / LP.
 
-Counterpart of galahad_tpu/qp/ipm.py for the sparse path (the CQP-class
-solve: reference src/cqp/cqp.f90, CQP_solve :1178, CQP_solve_main :2967).
-Same infeasible primal-dual framework: explicit slack variable c with
-two-sided bounds, z = z_l - z_u, y = y_l - y_u, Mehrotra
-predictor-corrector (the reference's Zhang arc at Taylor order 2), the
+Counterpart of galahad_tpu/qp/ipm.py (the CQP-class solve: reference
+src/cqp/cqp.f90, CQP_solve :1178, CQP_solve_main :2967).  Same infeasible
+primal-dual framework: explicit slack variable c with two-sided bounds,
+z = z_l - z_u, y = y_l - y_u, Mehrotra predictor-corrector (the
+reference's Zhang arc at Taylor order 2) or a series arc ("taylor",
+"puiseux", "zhao_sun": ROOTS step lengths along the truncated arcs), the
 per-iteration KKT system
 
     [[H + D_x, A'], [A, -D_c^-1]] [dx; -dy] = [b1; b2]
 
-solved by the supernodal LDL^T of linalg/supernodal_flat.py with iterative
+solved, for a ``SparseQP``, by the supernodal LDL^T of
+linalg/supernodal_flat.py and, for a dense ``QP``, by SBLS's
+Schur-complement Cholesky pair (linalg/sbls.py), each with iterative
 refinement instead of dynamic pivoting.
 
 What differs from the JAX module, and why:
@@ -18,7 +21,7 @@ What differs from the JAX module, and why:
     package carries every iterate as a double-word (hi, lo) pair and has
     a float64 "island" for float32 hardware; a card with native float64
     needs neither, so ``IPMState`` has no ``*_lo`` fields.
-  * One iteration (``_sparse_ipm_step``) is plain tensor code with the
+  * One iteration (``ipm_step``) is plain tensor code with the
     KKT factorize and solves in between, and makes no host read: the
     convergence test, the failure guards, the WCP centrality test and the
     non-finite rollback are decided on the device (JAX ``ipm_step``'s
@@ -30,9 +33,15 @@ What differs from the JAX module, and why:
     ``steps_per_fetch`` iterations.
   * ``clock_time_limit`` counts ALL wall time (the JAX host loop leaves its
     first, compile-dominated round out).
+  * A dense factorization that fails at its first try is not retried
+    inside the step (a replayed graph cannot branch on it): the step
+    changes nothing and sets ``needs_shift``, and the driver takes the
+    iteration again with the JAX package's escalating shift
+    (``ipm_step(..., escalate=True)``, qp/fused.py), counted in
+    ``RunStats.escalations``.
   * Not ported yet, and raising ``NotImplementedError`` when asked for:
-    the series arcs (``arc`` other than "mehrotra") and the dense and
-    banded KKT branches.  ``endgame_f64`` is accepted and ignored.
+    the banded KKT branch (``BandedQP``).  ``endgame_f64`` is accepted and
+    ignored.
 """
 from __future__ import annotations
 
@@ -45,13 +54,16 @@ import torch
 
 from ..core.checkpoint import checkpoint_init, checkpoint_update
 from ..core.config import control as control_dc
-from ..core.problem import INFINITY, BoundMasks, check_qp, classify_bounds
-from ..core.sparse import SparseQP, make_sparse_qp
+from ..core.problem import H_KINDS, INFINITY, BoundMasks, check_qp, classify_bounds, make_qp
+from ..core.sparse import make_sparse_qp
 from ..core.status import Status
 from ..linalg import supernodal_flat as _flat
 from .fused import Stepper, fused_enabled
 
 BIG = 1.0e20
+ARCS = ("mehrotra", "taylor", "puiseux", "zhao_sun")
+SERIES_ARCS = ARCS[1:]
+CHOL_MAX_TRIES = 12          # shift escalations of a dense factorization (the JAX default)
 
 
 @control_dc
@@ -75,7 +87,7 @@ class IPMControl:
     steps_per_fetch: int = 1    # iterations per host read of the monitor
     tau: float = 0.995          # fraction-to-boundary factor
     series_order: int = 2       # 1 = pure Newton, 2 = Mehrotra PC, 3+ extra correctors
-    arc: str = "mehrotra"       # only "mehrotra" is ported
+    arc: str = "mehrotra"       # | "taylor" | "puiseux" | "zhao_sun" (series arcs)
     print_level: int = 0        # >= 1: one line per iteration on stdout
     mu_min_factor: float = 1.0e-12
     mu_target: float = 0.0      # > 0: stop the barrier AT this value and
@@ -96,9 +108,9 @@ class IPMControl:
 
 
 def _check_control(ctl: IPMControl) -> None:
-    if ctl.arc != "mehrotra":
+    if ctl.arc not in ARCS:
         raise NotImplementedError(
-            f"IPMControl.arc={ctl.arc!r}: only the 'mehrotra' arc is ported")
+            f"IPMControl.arc={ctl.arc!r}: the arcs are {', '.join(ARCS)}")
     if ctl.series_order < 1:
         raise NotImplementedError("IPMControl.series_order must be >= 1")
 
@@ -129,6 +141,8 @@ class IPMState:
     res_c: Any = float("inf")
     best_infeas: Any = float("inf")     # best primal infeasibility so far
     stall: Any = 0             # consecutive non-improving iterations
+    needs_shift: Any = False   # the last step's dense factorization failed at
+                               # its first try: it changed nothing else
     inform: Any = None         # IPMInform, set by ipm_solve
     run: Any = None            # fused.RunStats: how the iterations ran
 
@@ -138,12 +152,12 @@ VECTOR_FIELDS = ("x", "c", "y", "z_l", "z_u", "y_l", "y_u",
 # the scalar fields and their tensor types (None: the iterate's)
 SCALAR_FIELDS = dict(iter=torch.int32, converged=torch.bool, halt=torch.bool,
                      status=torch.int32, res_p=None, res_d=None, res_c=None,
-                     best_infeas=None, stall=torch.int32)
+                     best_infeas=None, stall=torch.int32, needs_shift=torch.bool)
 TENSOR_FIELDS = VECTOR_FIELDS + tuple(SCALAR_FIELDS)
 # what the host reads of a state, in this order, as one tensor of the
 # iterate's type (small integers and flags are exact in float32 too)
 MONITOR = ("res_p", "res_d", "res_c", "mu", "halt", "iter", "status",
-           "converged", "stall", "best_infeas")
+           "converged", "stall", "best_infeas", "needs_shift")
 
 
 def device_state(st: IPMState) -> IPMState:
@@ -170,7 +184,7 @@ def host_state(st: IPMState, values) -> IPMState:
         st, iter=int(v["iter"]), converged=bool(v["converged"]),
         halt=bool(v["halt"]), status=int(v["status"]), res_p=v["res_p"],
         res_d=v["res_d"], res_c=v["res_c"], best_infeas=v["best_infeas"],
-        stall=int(v["stall"]))
+        stall=int(v["stall"]), needs_shift=bool(v["needs_shift"]))
 
 
 def _select(cond, a: IPMState, b: IPMState) -> IPMState:
@@ -191,7 +205,7 @@ def _max0(t):
     return t.max()
 
 
-def ipm_init(qp: SparseQP, masks: BoundMasks, ctl: IPMControl) -> IPMState:
+def ipm_init(qp, masks: BoundMasks, ctl: IPMControl) -> IPMState:
     """Strictly interior starting point (reference cqp.f90:242-250: move
     the user point at least prfeas/dufeas inside the bounds)."""
     dt, device = qp.g.dtype, qp.g.device
@@ -330,45 +344,54 @@ def _corr_terms(d_prev, affine):
     )
 
 
-def _sp_rhs(qp, masks, st, mu_t, d_prev, C_diag, affine, r_d, r_p):
-    """Right-hand side of the KKT system for target complementarity
-    ``mu_t`` with the second-order terms of ``d_prev``."""
+def _solve_direction(qp, masks, st, kkt_solve, C_diag, r_d, r_p, mu_t, corr,
+                     first=True, res_scale=1.0):
+    """Newton direction for target complementarity ``mu_t`` with the
+    second-order correction terms ``corr`` (the JAX ``ipm_step``'s
+    ``solve_direction``): the right-hand side, one KKT solve, and the
+    recovery of the full direction.
+
+    ``first=False`` computes a HIGHER-ORDER series coefficient: the linear
+    (primal/dual) residuals are already removed by the order-1 term, so
+    those blocks are zero and only the convolution ``corr`` drives the solve
+    (one extra backsolve on the same factors, reference cqp.f90:345-349).
+    ``res_scale`` scales the linear residuals and the SZ part of the
+    complementarity base (the Puiseux arc puts 2x the residual at order 1,
+    reference cqp.f90:5058-5095)."""
     ml_x, mu_x, ml_c, mu_c = _active_masks(masks)
     s_l, s_u, t_l, t_u = st.s_l, st.s_u, st.t_l, st.t_u
-    corr = _corr_terms(d_prev, affine)
-    r_cl = torch.where(ml_x, mu_t - st.z_l * s_l - corr["xl"], 0.0)
-    r_cu = torch.where(mu_x, mu_t - st.z_u * s_u - corr["xu"], 0.0)
-    b1 = -r_d + _safe_div(r_cl, s_l, ml_x) - _safe_div(r_cu, s_u, mu_x)
+    scaled = res_scale != 1.0
+
+    def base(v, dist):
+        if not first:
+            return mu_t
+        return mu_t - (res_scale * v if scaled else v) * dist
+
+    def linear(r):
+        if not first:
+            return torch.zeros_like(r)
+        return res_scale * r if scaled else r
+
+    r_cl = torch.where(ml_x, base(st.z_l, s_l) - corr["xl"], 0.0)
+    r_cu = torch.where(mu_x, base(st.z_u, s_u) - corr["xu"], 0.0)
+    b1 = -linear(r_d) + _safe_div(r_cl, s_l, ml_x) - _safe_div(r_cu, s_u, mu_x)
     b1 = torch.where(masks.x_fixed, 0.0, b1)
     if qp.m > 0:
-        r_tl = torch.where(ml_c, mu_t - st.y_l * t_l - corr["cl"], 0.0)
-        r_tu = torch.where(mu_c, mu_t - st.y_u * t_u - corr["cu"], 0.0)
+        rp_k = linear(r_p)
+        r_tl = torch.where(ml_c, base(st.y_l, t_l) - corr["cl"], 0.0)
+        r_tu = torch.where(mu_c, base(st.y_u, t_u) - corr["cu"], 0.0)
         w = _safe_div(r_tl, t_l, ml_c) - _safe_div(r_tu, t_u, mu_c)
         b2 = torch.where(
             masks.c_free, 0.0,
-            -r_p + torch.where(masks.c_equality, 0.0, w * C_diag))
-    else:
-        b2 = torch.zeros(0, dtype=qp.g.dtype, device=qp.g.device)
-    return b1, b2
-
-
-def _sp_recover(qp, masks, st, mu_t, d_prev, dx, dy, affine, r_p):
-    """Recover the full direction from the KKT solution (dx, dy)."""
-    ml_x, mu_x, ml_c, mu_c = _active_masks(masks)
-    s_l, s_u, t_l, t_u = st.s_l, st.s_u, st.t_l, st.t_u
-    corr = _corr_terms(d_prev, affine)
-    r_cl = torch.where(ml_x, mu_t - st.z_l * s_l - corr["xl"], 0.0)
-    r_cu = torch.where(mu_x, mu_t - st.z_u * s_u - corr["xu"], 0.0)
-    if qp.m > 0:
-        r_tl = torch.where(ml_c, mu_t - st.y_l * t_l - corr["cl"], 0.0)
-        r_tu = torch.where(mu_c, mu_t - st.y_u * t_u - corr["cu"], 0.0)
-        dc = qp.Ax(dx) + r_p
+            -rp_k + torch.where(masks.c_equality, 0.0, w * C_diag))
+        dx, dy = kkt_solve(b1, b2)
+        dc = qp.Ax(dx) + rp_k
         dy_l = _safe_div(r_tl - st.y_l * dc, t_l, ml_c)
         dy_u = _safe_div(r_tu + st.y_u * dc, t_u, mu_c)
     else:
         dc = torch.zeros(0, dtype=qp.g.dtype, device=qp.g.device)
-        dy = dc
-        dy_l = dy_u = dc
+        dx, _ = kkt_solve(b1, dc)
+        dy = dy_l = dy_u = dc
     dz_l = _safe_div(r_cl - st.z_l * dx, s_l, ml_x)
     dz_u = _safe_div(r_cu + st.z_u * dx, s_u, mu_x)
     dx = torch.where(masks.x_fixed, 0.0, dx)
@@ -417,8 +440,9 @@ def _step_lengths(masks, st, d, tau):
     return a_p, a_d
 
 
-def _sp_sigma(qp, masks, st, ctl, aff):
-    """Centering target sigma * mu from the affine predictor step."""
+def _centering(qp, masks, st, ctl, aff):
+    """Centering (sigma, mu) from the affine predictor step: the target is
+    sigma * mu."""
     s_l, s_u, t_l, t_u = st.s_l, st.s_u, st.t_l, st.t_u
     a_p, a_d = _step_lengths(masks, st, aff, ctl.tau)
     mu_now = _avg_complementarity(masks, s_l, s_u, t_l, t_u,
@@ -444,7 +468,7 @@ def _sp_sigma(qp, masks, st, ctl, aff):
         # (reference wcp.f90 drives pairs TO mu, not to zero)
         sigma = torch.clamp(torch.maximum(sigma, ctl.mu_target / mu_safe),
                             max=2.0)
-    return sigma * mu_now
+    return sigma, mu_now
 
 
 def _centred(qp, masks, st: IPMState, ctl):
@@ -554,32 +578,196 @@ def _apply_direction(qp, masks, st: IPMState, ctl, d, a_p, a_d) -> IPMState:
         status=torch.where(bad, bad_status, out.status))
 
 
-def _sparse_ipm_step(qp, masks, st: IPMState, ctl: IPMControl) -> IPMState:
-    """One Mehrotra predictor-corrector iteration: barrier diagonals ->
-    KKT factorize -> predictor solve -> corrector solve(s) on the same
-    factors -> step -> update (the body of CQP_solve_main, reference
-    cqp.f90:2967+).  Pure tensor code with no host read, so that the card
-    can capture it in a CUDA graph; a step on a halted state, or at
-    ``ctl.maxit``, returns every field with the bits it had (the condition
-    of the JAX package's ``_jitted_multi_step`` loop)."""
+def _arc_max_steps(fams, K: int, tau: float):
+    """(K,) largest alpha <= 1 with v(alpha) >= (1 - tau) v0 componentwise
+    along each truncated arc v(alpha) = v0 + sum_{k<=j} deltas[k-1] alpha^k,
+    j = 1..K (the JAX package's ``_arc_max_step`` per family and order).
+
+    Every family's components are concatenated and every order is a row,
+    so ONE ``roots_quartic`` call covers the whole (K, components) batch
+    (the JAX package makes one call per family and order); the minimum over
+    the concatenation is the minimum of the per-family minima exactly."""
+    from ..core.roots import roots_quartic, smallest_positive_root
+
+    a0 = torch.cat([torch.where(mask, tau * v0, 1.0) for v0, _, mask in fams])
+    order = torch.arange(1, K + 1, device=a0.device)[:, None]
+    coef = [a0.expand(K, -1)]
+    for k in range(K):
+        dk = torch.cat([torch.where(mask, ds[k], 0.0) for _, ds, mask in fams])
+        coef.append(torch.where(order > k, dk, 0.0))      # order j uses deltas[:j]
+    while len(coef) < 5:
+        coef.append(torch.zeros_like(coef[0]))
+    nr, rts = roots_quartic(*coef)
+    best = smallest_positive_root(nr, rts).amin(dim=-1)
+    return torch.clamp(best, max=1.0)
+
+
+def _series_arc(qp, masks, st: IPMState, ctl, solve, sigma, mu_now):
+    """The direction and step of a series arc of order K = min(series_order,
+    4) (the JAX ``ipm_step``'s arc block).  v(alpha) = v + sum_k alpha^k v^k
+    follows the chosen path:
+      "taylor"   (Zhang arc, cqp.f90:194-205): residual(alpha) =
+          (1-alpha) residual, comp(alpha) = (1-alpha) SZ + alpha sigma mu;
+      "puiseux"  (Zhang-Puiseux, cqp.f90:5058-5095, the theta^2 path in
+          Taylor coefficients): residual(alpha) = (1-alpha)^2 residual,
+          comp(alpha) = (1-alpha)^2 SZ + (1-(1-alpha)^2) sigma mu;
+      "zhao_sun" (ZS arc, cqp.f90:5088-5095): comp(alpha) = (1-alpha) SZ +
+          sigma (1-alpha) alpha (mu e - SZ).
+    The order-k complementarity right-hand side is the convolution of the
+    lower-order coefficients, one backsolve per order on the same factors
+    (cqp.f90:4237-4247, 5862-5935).  Every truncation order's step is the
+    smallest positive root of the per-component neighbourhood polynomials
+    (ROOTS, cqp.f90:8996); the order with the longest step wins, the
+    higher on ties (the every_order loop, cqp.f90:6512-6545).  Tensor code
+    with no host read: the chosen order and alpha are 0-d tensors.
+    Returns (d, alpha), the update being x + alpha d."""
+    from ..core.fit import polyval
+
+    dt, device = qp.g.dtype, qp.g.device
+    K = min(ctl.series_order, 4)
+    z0 = torch.zeros((), dtype=dt, device=device)
+    zero_corr = _corr_terms(None, True)
+
+    def conv_at(coefs, k):
+        conv = dict(xl=z0, xu=z0, cl=z0, cu=z0)
+        for j in range(1, k):
+            a, b_ = coefs[j - 1], coefs[k - j - 1]
+            conv = dict(xl=conv["xl"] + a["dx"] * b_["dz_l"],
+                        xu=conv["xu"] - a["dx"] * b_["dz_u"],
+                        cl=conv["cl"] + a["dc"] * b_["dy_l"],
+                        cu=conv["cu"] - a["dc"] * b_["dy_u"])
+        return conv
+
+    if ctl.arc == "puiseux":
+        coefs = [solve(2.0 * sigma * mu_now, zero_corr, res_scale=2.0)]
+        if K >= 2:
+            coefs.append(solve(sigma * mu_now, conv_at(coefs, 2)))
+        for k in range(3, K + 1):
+            coefs.append(solve(z0, conv_at(coefs, k), first=False))
+    elif ctl.arc == "zhao_sun":
+        # centre-pull term w = sigma (mu e - SZ), per family
+        w = dict(xl=sigma * (mu_now - st.z_l * st.s_l),
+                 xu=sigma * (mu_now - st.z_u * st.s_u),
+                 cl=sigma * (mu_now - st.y_l * st.t_l),
+                 cu=sigma * (mu_now - st.y_u * st.t_u))
+        coefs = [solve(z0, {k2: -w[k2] for k2 in w})]
+        if K >= 2:
+            conv = conv_at(coefs, 2)
+            coefs.append(solve(z0, {k2: w[k2] + conv[k2] for k2 in w}, first=False))
+        for k in range(3, K + 1):
+            coefs.append(solve(z0, conv_at(coefs, k), first=False))
+    else:  # "taylor"
+        coefs = [solve(sigma * mu_now, zero_corr)]
+        for k in range(2, K + 1):
+            coefs.append(solve(z0, conv_at(coefs, k), first=False))
+    ml_x, mu_x, ml_c, mu_c = _active_masks(masks)
+    fams = [(st.s_l, [c["dx"] for c in coefs], ml_x),
+            (st.s_u, [-c["dx"] for c in coefs], mu_x),
+            (st.z_l, [c["dz_l"] for c in coefs], ml_x),
+            (st.z_u, [c["dz_u"] for c in coefs], mu_x)]
+    if qp.m > 0:
+        fams += [(st.t_l, [c["dc"] for c in coefs], ml_c),
+                 (st.t_u, [-c["dc"] for c in coefs], mu_c),
+                 (st.y_l, [c["dy_l"] for c in coefs], ml_c),
+                 (st.y_u, [c["dy_u"] for c in coefs], mu_c)]
+    alphas = _arc_max_steps(fams, K, ctl.tau) * 0.9999
+    # prefer the higher order on (near-)ties
+    jbest = (K - 1) - torch.argmax(alphas.flip(0))
+    alpha = alphas.gather(0, jbest.reshape(1))[0]
+    # the chosen truncated arc at alpha (FIT's polynomial evaluation,
+    # fit.f90:318); the update x + alpha d then applies
+    # sum_{k<=jbest} alpha^k v^k
+    d = {key: polyval(torch.stack([torch.where(k <= jbest, 1.0, 0.0) * c[key]
+                                   for k, c in enumerate(coefs)], dim=-1), alpha)
+         for key in coefs[0]}
+    return d, alpha
+
+
+def _dense_kkt(qp, D_x, C_diag, ctl, escalate: bool):
+    """The KKT solve of a dense ``QP`` (the JAX ``ipm_step``'s dense
+    branch): SBLS's Schur complement when there are constraints, else a
+    Cholesky factorization of G (or a division by a diagonal G).  Returns
+    (kkt_solve, chol_ok): ``chol_ok`` is a 0-d flag, False when a Cholesky
+    factorization failed at its first try (None where there is none).
+    ``escalate`` runs the JAX package's shift escalation instead, with one
+    host read per try."""
+    from ..linalg.cholesky import chol_factor_shifted, chol_solve
+    from ..linalg.sbls import sbls_factorize, sbls_solve
+
+    tries = CHOL_MAX_TRIES if escalate else 0
+    diag_G = qp.h_kind != "dense"
+    if diag_G:
+        G = qp.H_diag() + D_x
+        apply_G = lambda v: G * v          # noqa: E731
+    else:
+        G = qp.H + torch.diag(D_x)
+        apply_G = lambda v: G @ v          # noqa: E731
+    if qp.m > 0:
+        f = sbls_factorize(G, qp.A, C_diag, g_is_diag=diag_G, rho=ctl.rho,
+                           delta=ctl.delta, max_tries=tries)
+
+        def kkt_solve(b1, b2):
+            dx, v = sbls_solve(f, b1, b2, apply_G=apply_G, refine=ctl.refine)
+            return dx, -v                  # the system is in terms of -dy
+
+        return kkt_solve, f.chol_ok
+    if diag_G:
+        return (lambda b1, b2: (b1 / G, b2)), None
+    L, _, ok = chol_factor_shifted(G, ctl.rho, max_tries=tries)
+    return (lambda b1, b2: (chol_solve(L, b1), b2)), ok
+
+
+def ipm_step(qp, masks, st: IPMState, ctl: IPMControl, escalate: bool = False) -> IPMState:
+    """One iteration on a ``SparseQP`` or a dense ``QP``: barrier diagonals
+    -> KKT factorize -> predictor solve -> corrector solve(s) or a series
+    arc on the same factors -> step -> update (the body of CQP_solve_main,
+    reference cqp.f90:2967+; the JAX package's ``ipm_step``).  The KKT
+    solve of a SparseQP comes from ``qp.build_kkt`` (the supernodal LDL^T),
+    that of a QP from :func:`_dense_kkt`.
+
+    Pure tensor code with no host read, so that the card can capture it in
+    a CUDA graph.  A step on a halted state, or at ``ctl.maxit``, returns
+    every field with the bits it had (the condition of the JAX package's
+    ``_jitted_multi_step`` loop).  So does a dense step whose Cholesky
+    factorization failed at its first try: it sets ``needs_shift``
+    instead, and the driver (qp/fused.py) takes that iteration again with
+    ``escalate=True``, the JAX package's escalating shift, which reads the
+    host once per try."""
     st = device_state(st)
     D_x, C_diag = _barrier_diagonals(qp, masks, st, ctl)
-    kkt_solve = qp.build_kkt(D_x, C_diag, ctl)
+    if qp.h_kind == "sparse":
+        kkt_solve, chol_ok = qp.build_kkt(D_x, C_diag, ctl), None
+    else:
+        kkt_solve, chol_ok = _dense_kkt(qp, D_x, C_diag, ctl, escalate)
     r_d, r_p = _residual_vectors(qp, masks, st)
     zero = torch.zeros((), dtype=qp.g.dtype, device=qp.g.device)
 
-    b1, b2 = _sp_rhs(qp, masks, st, zero, None, C_diag, True, r_d, r_p)
-    dx, dy = kkt_solve(b1, b2)
-    d = _sp_recover(qp, masks, st, zero, None, dx, dy, True, r_p)
+    def solve(mu_t, corr, first=True, res_scale=1.0):
+        return _solve_direction(qp, masks, st, kkt_solve, C_diag, r_d, r_p, mu_t, corr,
+                                first, res_scale)
+
+    d = solve(zero, _corr_terms(None, True))
     if ctl.series_order >= 2:
-        mu_t = _sp_sigma(qp, masks, st, ctl, d)
-        for _ in range(ctl.series_order - 1):
-            b1, b2 = _sp_rhs(qp, masks, st, mu_t, d, C_diag, False, r_d, r_p)
-            dx, dy = kkt_solve(b1, b2)
-            d = _sp_recover(qp, masks, st, mu_t, d, dx, dy, False, r_p)
-    a_p, a_d = _step_lengths(masks, st, d, ctl.tau)
+        sigma, mu_now = _centering(qp, masks, st, ctl, d)
+        if ctl.arc in SERIES_ARCS:
+            d, a_p = _series_arc(qp, masks, st, ctl, solve, sigma, mu_now)
+            a_d = a_p
+        else:
+            mu_t = sigma * mu_now
+            for _ in range(ctl.series_order - 1):
+                d = solve(mu_t, _corr_terms(d, False))
+            a_p, a_d = _step_lengths(masks, st, d, ctl.tau)
+    else:
+        a_p, a_d = _step_lengths(masks, st, d, ctl.tau)
     new = _apply_direction(qp, masks, st, ctl, d, a_p, a_d)
-    new = _select(~st.halt & (st.iter < ctl.maxit), new, st)
+    active = ~st.halt & (st.iter < ctl.maxit)
+    if chol_ok is None:
+        new = _select(active, new, st)
+    elif escalate:
+        new = dataclasses.replace(_select(active, new, st), needs_shift=torch.zeros_like(active))
+    else:
+        new = dataclasses.replace(_select(active & chol_ok, new, st),
+                                  needs_shift=active & ~chol_ok)
     _flat._tick("rest")
     return new
 
@@ -696,28 +884,54 @@ def _steps_per_fetch(ctl: IPMControl) -> int:
 
 def _stepper(qp, masks, st: IPMState, ctl: IPMControl) -> Stepper:
     """The runner of this solve's iterations: on the card the captured
-    step (unless ``GALAHAD_TPU_FUSED=0``), on the CPU the direct one."""
+    step (unless ``GALAHAD_TPU_FUSED=0``), on the CPU the direct one.  A
+    dense QP's steps are taken again with the escalating shift where they
+    set ``needs_shift``."""
     levels = ()
     on_card = qp.g.device.type == "cuda"
-    if on_card:
+    sparse = qp.h_kind == "sparse"
+    if on_card and sparse:
         from ..linalg.sbls import sparse_kkt_plan
 
         plan = sparse_kkt_plan(qp.h_pat, qp.a_pat, qp.n)
         levels = [lvp["sweep"] for lvp in _flat._device_plan(plan.sym, qp.g.device)["levels"]]
-    return Stepper(lambda s: _sparse_ipm_step(qp, masks, s, ctl), st, TENSOR_FIELDS,
-                   monitor, graph=on_card and fused_enabled(), sweep_levels=levels)
+    escalate = None if sparse else (
+        MONITOR.index("needs_shift"), lambda s: ipm_step(qp, masks, s, ctl, escalate=True))
+    return Stepper(lambda s: ipm_step(qp, masks, s, ctl), st, TENSOR_FIELDS,
+                   monitor, graph=on_card and fused_enabled(), sweep_levels=levels,
+                   escalate=escalate)
 
 
 def _finish_stats(stepper: Stepper, iters: int):
     stats = stepper.stats
-    stats.halted_replays = stats.direct_steps + stats.replays - iters
+    stats.halted_replays = stats.direct_steps + stats.replays + stats.escalations - iters
     return stats
 
 
-def ipm_solve(qp: SparseQP, ctl: IPMControl = IPMControl()):
-    """Host-loop solver.  Runs on the device that holds ``qp`` (the
-    constructors ``make_sparse_qp`` / ``read_sparse_qp`` place it: the
-    CUDA device unless the caller asked for the CPU).  On the card the
+def _scaffold(qp):
+    """A well-formed problem of the size and kind of ``qp``, on its device,
+    whose state the solve returns when ``qp`` fails its input checks (its
+    shapes may not even be consistent)."""
+    n, m = max(qp.n, 0), max(qp.m, 0)
+    if qp.h_kind == "sparse":
+        return make_sparse_qp(n, m, g=np.zeros(n), dtype=qp.g.dtype, device=qp.g.device)
+    return make_qp(g=np.zeros(n), A=np.zeros((m, n)), h_kind="zero",
+                   dtype=qp.g.dtype, device=qp.g.device)
+
+
+def _check_kind(qp, where: str) -> None:
+    kind = getattr(qp, "h_kind", None)
+    if kind != "sparse" and kind not in H_KINDS:
+        raise NotImplementedError(
+            f"{where}: only SparseQP and dense QP problems are ported (h_kind "
+            f"{kind!r}; the banded KKT branch is not)")
+
+
+def ipm_solve(qp, ctl: IPMControl = IPMControl()):
+    """Host-loop solver of a ``SparseQP`` or a dense ``QP``.  Runs on the
+    device that holds ``qp`` (the constructors ``make_sparse_qp`` /
+    ``make_qp`` / ``read_sparse_qp`` / ``read_qp`` place it: the CUDA
+    device unless the caller asked for the CPU).  On the card the
     iteration is captured once as a CUDA graph and replayed (qp/fused.py);
     the host reads the monitor every ``steps_per_fetch`` iterations and
     updates the checkpoints, the printed lines, the best iterate and the
@@ -726,10 +940,7 @@ def ipm_solve(qp: SparseQP, ctl: IPMControl = IPMControl()):
     Returns (x, y, z, state); ``state.inform`` (IPMInform) adds per-phase
     wall times, factorization/backsolve counts and residual-history
     checkpoints (the inform contract, reference cqp.f90:484-575)."""
-    if getattr(qp, "h_kind", None) != "sparse":
-        raise NotImplementedError(
-            "ipm_solve: only SparseQP problems are ported (the dense and "
-            "banded KKT branches are not)")
+    _check_kind(qp, "ipm_solve")
     _check_control(ctl)
     t_start = time.perf_counter()
     if qp.g.device.type == "cuda":
@@ -738,12 +949,7 @@ def ipm_solve(qp: SparseQP, ctl: IPMControl = IPMControl()):
     # input checks of the reference (src/cqp/cqp.f90)
     bad = check_qp(qp, ctl.infinity)
     if bad != 0:
-        # the offending problem may not even have consistent shapes;
-        # scaffold the returned state from a well-formed empty-pattern
-        # problem of the same size on the same device
-        qp = make_sparse_qp(
-            max(qp.n, 0), max(qp.m, 0),
-            g=np.zeros(max(qp.n, 0)), dtype=qp.g.dtype, device=qp.g.device)
+        qp = _scaffold(qp)
     masks = classify_bounds(qp, ctl.infinity)
     st = ipm_init(qp, masks, ctl)
     if bad != 0:
@@ -751,7 +957,7 @@ def ipm_solve(qp: SparseQP, ctl: IPMControl = IPMControl()):
                                  halt=True, status=bad)
     t_pre = time.perf_counter()
     t_analyse = 0.0
-    if bad == 0:
+    if bad == 0 and qp.h_kind == "sparse":
         from ..linalg.sbls import sparse_kkt_plan
 
         t0 = time.perf_counter()
@@ -833,7 +1039,7 @@ def ipm_solve(qp: SparseQP, ctl: IPMControl = IPMControl()):
     return x, y, z, st
 
 
-def ipm_solve_compiled(qp: SparseQP, ctl: IPMControl = IPMControl()):
+def ipm_solve_compiled(qp, ctl: IPMControl = IPMControl()):
     """The whole solve with no decision on the host: iterations until the
     state halts or reaches ``ctl.maxit`` (counterpart of the JAX package's
     ``ipm_solve_compiled``, a ``lax.while_loop``).  On the card it replays
@@ -841,9 +1047,7 @@ def ipm_solve_compiled(qp: SparseQP, ctl: IPMControl = IPMControl()):
     host's read of the halt flag.  Returns (x, y, z, state) without an
     inform; the state's scalar fields are Python values.  Batches of
     same-pattern problems (the JAX version's ``vmap`` use) are not ported."""
-    if getattr(qp, "h_kind", None) != "sparse":
-        raise NotImplementedError(
-            "ipm_solve_compiled: only SparseQP problems are ported")
+    _check_kind(qp, "ipm_solve_compiled")
     _check_control(ctl)
     if qp.g.device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False

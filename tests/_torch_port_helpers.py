@@ -3,6 +3,7 @@ numpy-seeded inputs handed to both the JAX package and the port."""
 import os
 
 import numpy as np
+import pytest
 import scipy.sparse as sp
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -237,3 +238,168 @@ def ea_synthetic_level(specs, seed, garbage=float("nan")):
         F = store[o["sbase"]:o["sbase"] + fps * fps].reshape(fps, fps)
         F[nc:nc + u, nc:nc + u] = rng.normal(size=(u, u))
     return store, [tuple(g) for g in groups], reached
+
+
+# ---------------------------------------------------------------------------
+# Dense QPs for both packages
+# ---------------------------------------------------------------------------
+
+
+def random_convex_qp_arrays(n, m, seed, equalities=0, lp=False):
+    """The arrays of tests/test_ipm.py::random_convex_qp (the same random
+    stream, so the same problem): a dict for ``make_qp`` of the port and
+    for the JAX ``QP``."""
+    r = np.random.default_rng(seed)
+    if lp:
+        H, kind = None, "zero"
+    else:
+        B = r.normal(size=(n, n))
+        H, kind = B @ B.T + 0.5 * np.eye(n), "dense"
+    A = r.normal(size=(m, n))
+    x_feas = r.uniform(0.2, 0.8, size=n)
+    c_at = A @ x_feas
+    c_l = np.where(np.arange(m) < equalities, c_at, c_at - r.uniform(0.5, 1.0, m))
+    c_u = np.where(np.arange(m) < equalities, c_at, c_at + r.uniform(0.5, 1.0, m))
+    return dict(H=H, h_kind=kind, g=r.normal(size=n), A=A, c_l=c_l, c_u=c_u,
+                x_l=np.zeros(n), x_u=np.ones(n))
+
+
+def dense_pair(arrays):
+    """(JAX QP, the port's QP on the CPU) from ``random_convex_qp_arrays``-style
+    arrays (``H`` may be None, ``A`` may have no rows)."""
+    import jax.numpy as jnp
+    from galahad_tpu.core.problem import QP as JQP
+
+    from galahad_tpu_torch import make_qp
+
+    a = dict(arrays)
+    kind = a.pop("h_kind")
+    j = JQP(H=None if a.get("H") is None else jnp.asarray(a["H"]), h_kind=kind,
+            **{k: jnp.asarray(v) for k, v in a.items() if k != "H"})
+    return j, make_qp(h_kind=kind, device="cpu", **a)
+
+
+def check_same_solve(jsolve, tsolve, x_tol=1e-6):
+    """Hold one port solve to the JAX package's: the same status and
+    iteration count, the objective within 1e-8 relative and x within
+    ``x_tol`` where the status is 0.  Each argument is an (x, y, z, state)
+    tuple; the port's state is returned."""
+    xj, _, _, sj = jsolve
+    xt, _, _, st = tsolve
+    assert (st.status, st.iter) == (int(sj.status), int(sj.iter))
+    if st.status == 0:
+        obj_j = float(sj.inform.obj)
+        assert abs(obj_j - st.inform.obj) <= 1e-8 * max(1.0, abs(obj_j))
+        assert np.abs(np.asarray(xj) - xt.numpy()).max() <= x_tol
+    return st
+
+
+ARC_CASES = [("taylor", 2), ("taylor", 3), ("taylor", 4), ("puiseux", 2),
+             ("puiseux", 3), ("zhao_sun", 2), ("zhao_sun", 3)]   # tests/test_ipm.py:268-271
+
+
+def arc_controls(arc, order, **kw):
+    """The same IPMControl in both packages: (JAX's, the port's)."""
+    from galahad_tpu.qp.ipm import IPMControl as JControl
+
+    from galahad_tpu_torch.qp.ipm import IPMControl
+
+    return (JControl(arc=arc, series_order=order, **kw),
+            IPMControl(arc=arc, series_order=order, **kw))
+
+
+def sparse_grid_pair(k):
+    """(JAX SparseQP, the port's on the CPU) of the grid QP of size k."""
+    from galahad_tpu.core.sparse import make_sparse_qp as j_make
+
+    from galahad_tpu_torch import make_sparse_qp
+
+    n, m, kw = grid_qp_arrays(k)
+    return j_make(n, m, **kw), make_sparse_qp(n, m, device="cpu", **kw)
+
+
+def state_to_port(js):
+    """The JAX package's IPMState as the port's (scalars as 0-d tensors)."""
+    import dataclasses
+
+    from galahad_tpu_torch.convert import ipm_state_from_numpy
+
+    return ipm_state_from_numpy({f.name: np.asarray(getattr(js, f.name))
+                                 for f in dataclasses.fields(js)}, device="cpu")
+
+
+FOLDED = dict(x="x_lo", c="c_lo", y="y_lo", z_l="zl_lo", z_u="zu_lo",
+              y_l="yl_lo", y_u="yu_lo", s_l=None, s_u=None, t_l=None, t_u=None)
+
+
+def check_steps_from_reference_states(jq, tq, jctl, ctl, tol=1e-10):
+    """Every iteration of the JAX package's solve (its jitted ``ipm_step``),
+    taken again by the port's ``ipm_step`` from the JAX state before it: the
+    same iteration, status, halt flag, convergence flag and stall count,
+    the residuals and every iterate (the JAX double-word pairs folded)
+    within ``tol`` relative.  Returns the JAX package's last state."""
+    from galahad_tpu.core.problem import classify_bounds as j_classify
+    from galahad_tpu.qp import ipm as j_ipm
+
+    from galahad_tpu_torch.core.problem import classify_bounds
+    from galahad_tpu_torch.qp import ipm as t_ipm
+
+    jm, tm = j_classify(jq), classify_bounds(tq)
+    js = j_ipm.ipm_init(jq, jm, jctl)
+    for _ in range(jctl.maxit):
+        nxt = j_ipm._jitted_step(jq, jm, js, jctl, jq.h_kind)
+        ts = t_ipm.ipm_step(tq, tm, state_to_port(js), ctl)
+        for name in ("iter", "status", "halt", "converged", "stall"):
+            assert int(getattr(ts, name)) == int(getattr(nxt, name)), name
+        for name in ("res_p", "res_d", "res_c"):
+            ref = float(getattr(nxt, name))
+            assert abs(float(getattr(ts, name)) - ref) <= tol * max(1.0, abs(ref)), name
+        for name, lo in FOLDED.items():
+            ref = np.asarray(getattr(nxt, name), np.float64)
+            if lo:
+                ref = ref + np.asarray(getattr(nxt, lo), np.float64)
+            got = getattr(ts, name).numpy()
+            if ref.size:
+                assert np.abs(got - ref).max() <= tol * max(1.0, np.abs(ref).max()), name
+        js = nxt
+        if bool(js.halt):
+            break
+    return js
+
+
+
+@pytest.fixture
+def one_torch_thread():
+    """Run a test with one torch thread (a module takes it with
+    ``pytestmark = pytest.mark.usefixtures("one_torch_thread")``): the suite
+    runs several workers on the host's cores at once, and the dense
+    LAPACK/BLAS calls of the port's CPU path slow down by an order of
+    magnitude when every worker also starts a thread per core."""
+    import torch
+
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(saved)
+
+
+_DENSE_FIXTURES = {}
+
+
+def check_dense_fixture_arc(name, arc, order):
+    """The sweep fixture ``name`` read by ``read_qp`` in both packages and
+    solved with the series arc (arc, order): ``check_same_solve``, status 0."""
+    from galahad_tpu.io import qplib as j_qplib
+    from galahad_tpu.qp.ipm import ipm_solve as j_solve
+
+    from galahad_tpu_torch.io import qplib as t_qplib
+    from galahad_tpu_torch.qp.ipm import ipm_solve
+
+    if name not in _DENSE_FIXTURES:
+        _DENSE_FIXTURES[name] = (j_qplib.read_qp(sweep_path(name)),
+                                 t_qplib.read_qp(sweep_path(name), device="cpu"))
+    jq, tq = _DENSE_FIXTURES[name]
+    jctl, ctl = arc_controls(arc, order)
+    assert check_same_solve(j_solve(jq, jctl), ipm_solve(tq, ctl)).status == 0

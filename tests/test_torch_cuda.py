@@ -7,6 +7,8 @@ one, run
 
 (``--noconftest``: this file needs nothing of the JAX set-up in
 tests/conftest.py and imports only torch and the port)."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -704,3 +706,109 @@ def test_the_phase_clock_refuses_a_capture(cuda, monkeypatch):
     finally:
         split = T.profile_stop()
     assert st.status == 0 and st.run.path == "direct" and split["factor"] > 0
+
+
+# ---------------------------------------------------------------------------
+# Series arcs and the dense QP on the card
+# ---------------------------------------------------------------------------
+
+
+def dense_qp(n, m, seed, device, equalities=0, shifted=False):
+    """tests/test_ipm.py::random_convex_qp at (n, m); ``shifted``: the first
+    row and column of H and the first column of A zeroed and the first
+    variable free, so that every first Cholesky try fails (the escalation
+    case of tests/test_torch_ipm_dense_steps.py)."""
+    from galahad_tpu_torch import make_qp
+
+    from _torch_port_helpers import random_convex_qp_arrays
+
+    a = random_convex_qp_arrays(n, m, seed, equalities=equalities)
+    if shifted:
+        a["H"][0, :] = 0.0
+        a["H"][:, 0] = 0.0
+        a["A"][:, 0] = 0.0
+        a["x_l"][0], a["x_u"][0], a["g"][0] = -1e20, 1e20, 0.0
+    return make_qp(device=device, **a)
+
+
+def graph_equals_direct(qp, ctl, monkeypatch):
+    """Solve on the direct path, then on the graph path with a fetch every
+    iteration, every 4 and through ipm_solve_compiled: every graph run gives
+    the direct run's status, iterations, escalations and bits.  Returns the
+    direct run's state."""
+    from galahad_tpu_torch.qp import ipm_solve_compiled
+
+    monkeypatch.setenv("GALAHAD_TPU_FUSED", "0")
+    xd, yd, zd, sd = ipm_solve(qp, ctl)
+    assert sd.run.path == "direct"
+    monkeypatch.setenv("GALAHAD_TPU_FUSED", "1")
+    for solver, c in ((ipm_solve, ctl), (ipm_solve, dataclasses.replace(ctl, steps_per_fetch=4)),
+                      (ipm_solve_compiled, ctl)):
+        x, y, z, st = solver(qp, c)
+        assert st.run.path == "graph" and st.run.direct_steps == 1
+        assert (st.status, st.iter) == (sd.status, sd.iter)
+        assert st.run.escalations == sd.run.escalations
+        for a, b in ((x, xd), (y, yd), (z, zd)):
+            assert same_bits(a, b)
+    return sd
+
+
+def test_an_arc_on_the_graph_equals_the_direct_path(cuda, monkeypatch):
+    from galahad_tpu_torch.qp.ipm import IPMControl
+
+    sd = graph_equals_direct(grid_qp(20, cuda), IPMControl(arc="taylor", series_order=4),
+                             monkeypatch)
+    assert sd.status == 0
+
+
+def test_a_dense_qp_on_the_graph_equals_the_direct_path(cuda, monkeypatch):
+    from galahad_tpu_torch.qp.ipm import IPMControl
+
+    sd = graph_equals_direct(dense_qp(300, 120, 0, cuda, equalities=30), IPMControl(),
+                             monkeypatch)
+    assert sd.status == 0 and sd.run.escalations == 0
+
+
+def test_the_escalation_on_the_card(cuda, monkeypatch):
+    """Every first Cholesky try fails: each iteration is taken again with the
+    escalating shift and counted, on the graph as on the direct path."""
+    from galahad_tpu_torch.qp.ipm import IPMControl
+
+    for m in (0, 40):
+        sd = graph_equals_direct(dense_qp(100, m, 0, cuda, shifted=True), IPMControl(),
+                                 monkeypatch)
+        assert sd.status == 0 and sd.run.escalations == sd.iter >= 1
+
+
+@pytest.mark.parametrize("n", [64, 1000])
+def test_cholesky_and_triangular_solves_replay_the_direct_bits(cuda, n):
+    """``cholesky_ex`` (cuSOLVER potrf) and ``solve_triangular`` (cuBLAS trsm)
+    captured in a CUDA graph, with no synchronisation, replay the direct
+    call's bits twice; a failed factorization reports ``ok`` False inside
+    the graph."""
+    from galahad_tpu_torch.linalg.cholesky import chol_factor_shifted, chol_solve
+
+    rng = np.random.default_rng(n)
+    B = rng.normal(size=(n, n))
+    M = torch.as_tensor(B @ B.T + n * np.eye(n), device=cuda)
+    bad = M.clone()
+    bad[3, 3] = -1.0
+    b = torch.as_tensor(rng.normal(size=(n, 3)), device=cuda)
+
+    def work(M_, bad_, b_):
+        L, _, ok = chol_factor_shifted(M_, 0.0, max_tries=0)
+        _, _, ok_bad = chol_factor_shifted(bad_, 0.0, max_tries=0)
+        return chol_solve(L, b_), ok, ok_bad
+
+    x_d, ok_d, bad_d = work(M, bad, b)
+    sM, sbad, sb = M.clone(), bad.clone(), b.clone()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = work(sM, sbad, sb)
+    for _ in range(2):
+        out[0].zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert same_bits(out[0], x_d)
+        assert bool(out[1]) and bool(ok_d) and not bool(out[2]) and not bool(bad_d)

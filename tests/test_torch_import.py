@@ -12,8 +12,11 @@ _PROBE = r"""
 import sys
 import galahad_tpu_torch
 import galahad_tpu_torch.convert
+import galahad_tpu_torch.core.fit
 import galahad_tpu_torch.core.residuals
+import galahad_tpu_torch.core.roots
 import galahad_tpu_torch.io.qplib
+import galahad_tpu_torch.linalg.cholesky
 import galahad_tpu_torch.linalg.ldlt_kernels
 import galahad_tpu_torch.linalg.sbls
 import galahad_tpu_torch.linalg.supernodal_flat
@@ -59,16 +62,17 @@ def test_no_import_statements_of_jax_in_port_sources():
 
 
 @pytest.mark.parametrize("entry", ["make_sparse_qp", "read_sparse_qp",
-                                   "sparse_qp_from_numpy"])
+                                   "sparse_qp_from_numpy", "make_qp", "read_qp",
+                                   "qp_from_numpy"])
 def test_default_device_is_the_card(entry):
     """Without device='cpu' an entry point asks for the CUDA device and
     raises where there is none; it does not run on the CPU."""
     import numpy as np
     import torch
 
-    from galahad_tpu_torch import make_sparse_qp
-    from galahad_tpu_torch.convert import sparse_qp_from_numpy
-    from galahad_tpu_torch.io.qplib import read_sparse_qp
+    from galahad_tpu_torch import make_qp, make_sparse_qp
+    from galahad_tpu_torch.convert import qp_from_numpy, sparse_qp_from_numpy
+    from galahad_tpu_torch.io.qplib import read_qp, read_sparse_qp
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device exists")
@@ -77,6 +81,11 @@ def test_default_device_is_the_card(entry):
         "make_sparse_qp": lambda: make_sparse_qp(2, 0, g=np.zeros(2)),
         "read_sparse_qp": lambda: read_sparse_qp(path),
         "sparse_qp_from_numpy": lambda: sparse_qp_from_numpy({}),
+        "make_qp": lambda: make_qp(g=np.zeros(2)),
+        "read_qp": lambda: read_qp(path),
+        "qp_from_numpy": lambda: qp_from_numpy(dict(g=np.zeros(2), c_l=np.zeros(0),
+                                                    c_u=np.zeros(0), x_l=np.zeros(2),
+                                                    x_u=np.ones(2))),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()

@@ -121,7 +121,7 @@ def test_first_step_matches_reference_from_the_same_state():
     for f in ("x", "c", "y", "z_l", "z_u", "y_l", "y_u", "s_l", "s_u", "t_l", "t_u"):
         np.testing.assert_array_equal(getattr(ts0, f).numpy(), getattr(ti, f).numpy())
     js1 = j_step(jq, jm, js0, JControl())
-    ts1 = t_ipm._sparse_ipm_step(tq, tm, ts0, IPMControl())
+    ts1 = t_ipm.ipm_step(tq, tm, ts0, IPMControl())
     assert ts1.iter == int(js1.iter) == 1
     for name in ("res_p", "res_d", "res_c"):
         ref = float(getattr(js1, name))
@@ -154,9 +154,12 @@ def test_bad_bounds(which):
 
 
 @pytest.mark.parametrize("ctl", [
-    IPMControl(arc="taylor"), IPMControl(arc="puiseux"),
-    IPMControl(arc="zhao_sun")])
+    IPMControl(arc="zhang"), IPMControl(series_order=0),
+    IPMControl(arc="taylor", series_order=0)])
 def test_unported_control_values_raise(ctl):
+    """An arc that is none of mehrotra, taylor, puiseux and zhao_sun, and
+    a series order below 1, raise (the series arcs themselves are held to
+    the JAX package in tests/test_torch_ipm_arcs.py)."""
     _, tq = grid_case(4)
     with pytest.raises(NotImplementedError):
         ipm_solve(tq, ctl)

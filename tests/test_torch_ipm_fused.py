@@ -1,7 +1,7 @@
 """The fused IPM iteration of the port (qp/ipm.py, qp/fused.py) on the CPU,
 against the JAX package on the same numpy-seeded problems.
 
-The step (``_sparse_ipm_step``) is the function that the card captures as
+The step (``ipm_step``) is the function that the card captures as
 a CUDA graph; here it runs directly.  What is held: the step makes no host
 read and a solve reads the monitor once per fetch; step by step from the
 same state, the JAX package's ``ipm_step`` and the port give the same
@@ -104,7 +104,7 @@ def test_the_step_makes_no_host_read(monkeypatch, case):
     _, tq = grid_case(4) if case == "grid4" else fixture_case(case)
     masks = classify_bounds(tq)
     ctl = IPMControl()
-    st = t_ipm._sparse_ipm_step(tq, masks, t_ipm.ipm_init(tq, masks, ctl), ctl)
+    st = t_ipm.ipm_step(tq, masks, t_ipm.ipm_init(tq, masks, ctl), ctl)
 
     def refuse(self, *args, **kwargs):
         raise AssertionError("a host read inside the step")
@@ -113,8 +113,8 @@ def test_the_step_makes_no_host_read(monkeypatch, case):
         for name in HOST_READS:
             mp.setattr(torch.Tensor, name, refuse)
         for _ in range(3):
-            st = t_ipm._sparse_ipm_step(tq, masks, st, ctl)
-        halted = t_ipm._sparse_ipm_step(
+            st = t_ipm.ipm_step(tq, masks, st, ctl)
+        halted = t_ipm.ipm_step(
             tq, masks, dataclasses.replace(st, halt=torch.tensor(True)), ctl)
     assert int(st.iter) == 4 and int(halted.iter) == 4
 
@@ -159,7 +159,7 @@ def test_each_step_matches_reference_from_the_same_state(case):
     js = j_ipm.ipm_init(jq, jm, jctl)
     for _ in range(jctl.maxit):
         nxt = j_ipm._jitted_step(jq, jm, js, jctl, jq.h_kind)
-        ts = t_ipm._sparse_ipm_step(tq, tm, to_port(js), ctl)
+        ts = t_ipm.ipm_step(tq, tm, to_port(js), ctl)
         for name in ("iter", "status", "halt", "converged", "stall"):
             assert int(getattr(ts, name)) == int(getattr(nxt, name)), name
         for name in ("best_infeas", "res_p", "res_d", "res_c"):
@@ -249,10 +249,10 @@ def test_a_step_on_a_halted_state_is_a_no_op(why):
     ctl = IPMControl(maxit=2 if why == "at_maxit" else 200)
     st = t_ipm.ipm_init(tq, masks, ctl)
     for _ in range(2):
-        st = t_ipm._sparse_ipm_step(tq, masks, st, ctl)
+        st = t_ipm.ipm_step(tq, masks, st, ctl)
     if why == "halted":
         st = dataclasses.replace(st, halt=torch.tensor(True))
-    again = t_ipm._sparse_ipm_step(tq, masks, st, ctl)
+    again = t_ipm.ipm_step(tq, masks, st, ctl)
     for name in t_ipm.TENSOR_FIELDS:
         assert torch.equal(bits(getattr(again, name)), bits(getattr(st, name))), name
 

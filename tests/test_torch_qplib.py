@@ -1,5 +1,7 @@
-"""The port's QPLIB reader against the JAX package's: the 20 sweep
-fixtures read into identical arrays, patterns and bound masks."""
+"""The port's QPLIB reader and writer against the JAX package's: the 20
+sweep fixtures read into identical arrays, patterns and bound masks, as a
+SparseQP and as a dense QP, and ``dumps`` (of the parsed file and of each
+package's QP through ``from_qp``) gives the JAX package's text."""
 import jax.numpy as jnp  # noqa: F401  (both packages live in this process)
 import numpy as np
 import pytest
@@ -62,3 +64,44 @@ def test_parser_errors_and_records():
         t_qplib.loads("NAME\nQCL\nminimize\n3\n")
     with pytest.raises(ValueError):
         t_qplib.loads("NAME\nXX\n")
+
+
+@pytest.mark.parametrize("name", SWEEP)
+def test_read_qp_matches_reference(name):
+    """The dense reader: every array of the port's QP equal to the JAX
+    package's ``read_qp`` (the sign flip of a Maximize file included)."""
+    jq = j_qplib.read_qp(sweep_path(name))
+    tq = t_qplib.read_qp(sweep_path(name), device="cpu")
+    assert (tq.n, tq.m, tq.name, tq.h_kind) == (jq.n, jq.m, jq.name, jq.h_kind)
+    for f in ("H", "g", "A", "c_l", "c_u", "x_l", "x_u", "x", "y", "z"):
+        a, b = getattr(jq, f), getattr(tq, f)
+        assert (a is None) == (b is None), f
+        if a is not None:
+            np.testing.assert_array_equal(np.asarray(a), b.numpy(), err_msg=f)
+    assert float(jq.f) == float(tq.f)
+    assert check_qp(tq) == 0
+
+
+@pytest.mark.parametrize("name", SWEEP)
+def test_dumps_matches_reference(name):
+    """The writer: ``dumps`` of the parsed fixture, and of the problem
+    built back from each package's dense and sparse QP (``from_qp``), give
+    the JAX package's text."""
+    text = open(sweep_path(name)).read()
+    assert t_qplib.dumps(t_qplib.loads(text)) == j_qplib.dumps(j_qplib.loads(text))
+    jd, td = j_qplib.read_qp(sweep_path(name)), t_qplib.read_qp(sweep_path(name), device="cpu")
+    assert t_qplib.dumps(t_qplib.from_qp(td)) == j_qplib.dumps(j_qplib.from_qp(jd))
+    js = j_qplib.read_sparse_qp(sweep_path(name))
+    ts = t_qplib.read_sparse_qp(sweep_path(name), device="cpu")
+    assert t_qplib.dumps(t_qplib.from_qp(ts)) == j_qplib.dumps(j_qplib.from_qp(js))
+
+
+def test_write_qp_round_trip(tmp_path):
+    """``write_qp`` then ``read_qp`` gives back the same dense QP."""
+    tq = t_qplib.read_qp(sweep_path("QPMAX"), device="cpu")
+    path = str(tmp_path / "round.qplib")
+    t_qplib.write_qp(path, tq, name="ROUND")
+    back = t_qplib.read_qp(path, device="cpu")
+    assert back.name == "ROUND" and back.h_kind == tq.h_kind
+    for f in ("H", "g", "A", "c_l", "c_u", "x_l", "x_u"):
+        np.testing.assert_array_equal(getattr(back, f).numpy(), getattr(tq, f).numpy(), err_msg=f)
