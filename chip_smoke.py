@@ -6,12 +6,12 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 It needs one CUDA device, ``nvcc`` and ``g++``; it builds the native
-symbolic library and the four CUDA sources from this checkout (into
-``galahad_tpu_torch/_build/``, all five at once), then runs, printing one
+symbolic library and the five CUDA sources from this checkout (into
+``galahad_tpu_torch/_build/``, all six at once), then runs, printing one
 JSON line per phase:
 
   1. device     card name and power limit, torch and CUDA versions
-  2. build      build seconds of the five libraries
+  2. build      build seconds of the six libraries
   3. kernel     every kernel against its plain PyTorch version on the
                 card, with time and bound per shape: the small-front
                 partial LDL^T at Fpad in {8..128} x nb in {1, 37, 4096} x
@@ -28,7 +28,12 @@ JSON line per phase:
                 in {8, 32, 128, 512, 4096} x {float32, float64} with 1, 2, 4
                 and 16 children, a level of fronts of 64 with 33 and 40
                 children each, and one of odd counts of fronts of 8, 16 and
-                64, bitwise equal to its plain version
+                64, bitwise equal to its plain version; the block-tridiagonal
+                factor and solve kernels at b in {1, 2, 4, 8, 16, 32} x k in
+                {1, 2, 37, 2500} x {float32, float64}, one and three
+                right-hand sides, a third block that is not positive
+                definite (ok False, the identity in both versions), two runs
+                bitwise equal, and b = 33 refused
   4. kkt        factorize + solve of the flagship KKT system
                 (grid QP, k=316: n=99,856, m=49,928) with D_x = C = 1; a
                 solve makes at most 3 forward and 2 backward sweep kernel
@@ -47,7 +52,7 @@ JSON line per phase:
                 one factorization's levels with and without its padded
                 entries (routed to one spare slot), and held bitwise to
                 the kernel
-  9. kernels    one line about every hand-written kernel on that path; the
+  9. kernels    (printed after phase 12) one entry per hand-written kernel; the
                 ``ldlt_wide`` entry also times the parent's 519 ``baddbmm_``
                 trailing products on the same shapes (``update_library_ms``),
                 as the yardstick of the in-kernel update; the ``extend_add``
@@ -69,7 +74,21 @@ JSON line per phase:
                 a QP whose every first Cholesky try fails (a free variable
                 with a zero row of H and a zero column of A: escalations
                 counted, graph bitwise equal to direct)
+ 12. banded     ``ipm_solve_banded`` in float64 on the four banded problems of
+                ``BANDED_CASES`` (the banded LP of bench.py:269 at n = 20,000
+                and 1,000,000, the banded Schur complement; a tridiagonal H
+                with the same A, PCG on S; the same H with m = 0, the block
+                Cholesky of G), each on the graph path and directly: the JAX
+                package's status and iterations, the objective within 1e-8
+                relative of its value, host KKT <= 1e-6 (scipy, from the DIA
+                data), x, y, z of graph and direct bitwise equal, both banded
+                kernels in each replay as many times as the KKT mode calls
+                them, and no plain banded code
 
+then the ``kernels`` line (seven entries: the five of the flagship's path,
+measured after the ``fused`` phase, and the two banded kernels, on the
+Schur-complement blocks of the banded LP at n = 20,000, with the library's
+dense Cholesky and triangular solves of the same matrix as their yardstick)
 and, as its last line, ``{"ok": true, "device": {...}}``.  Any failed
 phase ends the run with a non-zero exit code and no such line.  Without
 a CUDA device it exits non-zero at once; nothing here runs the port on
@@ -89,7 +108,8 @@ import torch
 
 from galahad_tpu_torch import make_qp, make_sparse_qp
 from galahad_tpu_torch.core.status import Status
-from galahad_tpu_torch.linalg import ea_kernels, ldlt_kernels, supernodal_flat, sweep_kernels
+from galahad_tpu_torch.linalg import (banded_kernels, ea_kernels, ldlt_kernels, supernodal_flat,
+                                     sweep_kernels)
 from galahad_tpu_torch.linalg.sbls import sparse_kkt_factorize, sparse_kkt_plan
 from galahad_tpu_torch.qp.fused import launch_counts
 from galahad_tpu_torch.qp.ipm import IPMControl, ipm_solve, ipm_solve_compiled
@@ -122,7 +142,24 @@ PANEL_W = ldlt_kernels.PANEL
 # the counters of the kernels of the main path (qp/fused.py::launch_counts)
 KERNEL_COUNTS = ("partial_ldlt", "ldlt_wide", "extend_add", "extend_add_kernels", "sweep_fwd",
                  "sweep_bwd", "sweep_fwd_kernels", "sweep_bwd_kernels")
-PLAIN_COUNTS = ("ldlt_wide_plain", "extend_add_plain", "sweep_plain")
+PLAIN_COUNTS = ("ldlt_wide_plain", "extend_add_plain", "sweep_plain", "banded_factor_plain",
+                "banded_solve_plain")
+BANDED_SOURCE = "galahad_tpu_torch/csrc/banded.cu"
+TPU_BANDED_FACTOR = ("galahad_tpu/linalg/banded.py:68 block_tridiag_cholesky (lax.scan :89 / "
+                     ":103; XLA, no Pallas)")
+TPU_BANDED_SOLVE = ("galahad_tpu/linalg/banded.py:112 block_tridiag_solve (lax.scan :125 / "
+                    ":142; XLA, no Pallas)")
+BANDED_CTL = dict(maxit=60, stop_abs_p=1e-6, stop_abs_d=1e-6, stop_abs_c=1e-6)
+# (n, h, m): the banded problems; h "tri" is the tridiagonal H (2, -1); m None
+# is n - 2 rows (offsets 0 and 2, U(0.8, 1.2) from default_rng(0)); the JAX
+# package's ipm_solve_banded on the same data, float64 on the CPU, with
+# IPMControl(**BANDED_CTL), gave (iterations, objective), each at status 0
+BANDED_CASES = {
+    "lp_n20000": ((20_000, None, None), (6, -23999.998820259632)),
+    "pcg_n20000": ((20_000, "tri", None), (10, -23997.14324817419)),
+    "m0_n20000": ((20_000, "tri", 0), (6, -23997.141558930114)),
+    "lp_n1000000": ((1_000_000, None, None), (6, -1199999.9432418859)),
+}
 
 
 class SmokeFailure(RuntimeError):
@@ -269,7 +306,7 @@ def phase_device():
 
 
 def phase_build():
-    """Build the four libraries at once (one compiler process each)."""
+    """Build the six libraries at once (one compiler process each)."""
     import threading
 
     from galahad_tpu_torch.linalg import _cuda_build
@@ -290,7 +327,8 @@ def phase_build():
             ("partial_ldlt_s", ldlt_kernels._library),
             ("ldlt_wide_s", ldlt_kernels._wide_library),
             ("sweep_s", sweep_kernels._library),
-            ("extend_add_s", ea_kernels._library)]
+            ("extend_add_s", ea_kernels._library),
+            ("banded_s", banded_kernels._library)]
     t0 = time.perf_counter()
     threads = [threading.Thread(target=timed, args=j) for j in jobs]
     for th in threads:
@@ -299,7 +337,7 @@ def phase_build():
         th.join()
     check(not errors, "build failed: " + " | ".join(errors))
     ptxas = {}
-    for src in ("partial_ldlt.cu", "ldlt_wide.cu", "sweep.cu", "extend_add.cu"):
+    for src in ("partial_ldlt.cu", "ldlt_wide.cu", "sweep.cu", "extend_add.cu", "banded.cu"):
         log = _cuda_build.build_info.get(src, {}).get("log", "")
         ptxas[src] = [ln.split("ptxas info    : ")[-1] for ln in log.splitlines()
                       if "registers" in ln or "error" in ln.lower()
@@ -359,6 +397,7 @@ def phase_kernel():
     wide_rows = kernel_wide_cases()
     sweep_rows = kernel_sweep_cases()
     ea_rows = kernel_ea_cases()
+    banded_rows = kernel_banded_cases()
     emit("kernel", tolerance="max|kernel-plain| <= 1e-4*scale (float32), "
          "1e-11*scale (float64), scale = max|plain| >= 1; partial_ldlt: on the "
          "lower triangle of eliminated columns and the whole trailing square; "
@@ -366,9 +405,10 @@ def phase_kernel():
          "trailing square of each front's real rows, and bitwise on every entry "
          "it may not touch (NaN); sweeps: on "
          "every entry of y after the forward and after the backward sweep; "
-         "extend_add: bitwise equal on every entry of the store, NaN included",
+         "extend_add: bitwise equal on every entry of the store, NaN included; "
+         "banded factor and solve: on every entry of Ld, Lo and x",
          shapes=rows, items=items_rows, wide_shapes=wide_rows,
-         sweep_shapes=sweep_rows, ea_shapes=ea_rows)
+         sweep_shapes=sweep_rows, ea_shapes=ea_rows, banded_shapes=banded_rows)
 
 
 def kernel_items_cases(gen):
@@ -1039,6 +1079,7 @@ def counted_solve(qp, ctl, solver=ipm_solve):
     ldlt_kernels.reset_launch_count()
     sweep_kernels.reset_sweep_counts()
     ea_kernels.reset_ea_counts()
+    banded_kernels.reset_banded_counts()
     t0 = time.perf_counter()
     x, y, z, st = solver(qp, ctl)
     torch.cuda.synchronize()
@@ -1181,12 +1222,15 @@ def phase_fused(qp, flagship_solution):
          seconds=time.perf_counter() - t_phase)
 
 
-def replay_device_ms(qp, ctl=None, reps: int = 10) -> float:
+def replay_device_ms(qp, ctl=None, reps: int = 10, halted: bool = True) -> float:
     """Device time of one replay of the captured iteration of ``qp`` under
     ``ctl`` (default control): the solve is run to its halt, then ``reps``
     more replays (steps on the halted state: the same kernels on the same
     shapes, whose result is discarded) are timed by an event pair; the host
-    enqueues a replay in far less time than the card runs it."""
+    enqueues a replay in far less time than the card runs it.  With
+    ``halted=False`` the ``reps`` replays follow the capture at once (steps
+    3, 4, ... of the solve, which the state has not finished): for a problem
+    whose replay takes seconds."""
     from galahad_tpu_torch.core.problem import classify_bounds
     from galahad_tpu_torch.qp import ipm
 
@@ -1195,8 +1239,13 @@ def replay_device_ms(qp, ctl=None, reps: int = 10) -> float:
     with fused_path(True):
         stepper = ipm._stepper(qp, masks, ipm.ipm_init(qp, masks, ctl), ctl)
     halt = ipm.MONITOR.index("halt")
-    stepper.run_to_halt(lambda v: v[halt] != 0)
-    check(stepper.stats.path == "graph", "replay timing: no graph was captured")
+    if halted:
+        stepper.run_to_halt(lambda v: v[halt] != 0)
+    else:
+        stepper.advance(2)                      # the direct step, then the capture
+        torch.cuda.synchronize()
+    check(stepper.stats.path == "graph" and stepper.stats.replays > 0,
+          "replay timing: no graph was captured")
     ms = event_ms(lambda: stepper.advance(reps)) / reps
     del stepper
     return ms
@@ -1514,7 +1563,8 @@ def phase_kernels(qp, plan, D_x, C_diag, b, main_path_launches):
     kernel for all its calls in one solve (:func:`sweep_kernel_entries`).  ``ms`` is taken by an
     event pair around the calls as the host makes them (so it holds the
     host's launch cost where that is the larger); ``device_ms`` is the same
-    calls queued behind a spin kernel, i.e. the device's time alone."""
+    calls queued behind a spin kernel, i.e. the device's time alone.
+    Returns the line; ``main`` adds the banded kernels and prints it."""
     # the kernels' inputs in one factorization of the flagship KKT (captured
     # here, after the flagship solve, so that the solve runs without them)
     ctl = IPMControl()
@@ -1582,7 +1632,7 @@ def phase_kernels(qp, plan, D_x, C_diag, b, main_path_launches):
     line["kernels"] += sweep_kernel_entries(qp, plan, D_x, C_diag, b,
                                             main_path_launches)
     emit("kernels_seconds", seconds=time.perf_counter() - t0)
-    print(json.dumps(line), flush=True)
+    return line
 
 
 def count_ops(fn) -> int:
@@ -1732,11 +1782,19 @@ def convex_qp_arrays(n, m, seed, equalities=0):
 
 
 def dense_host_kkt(qp, x, y, z):
-    """KKT error of a dense QP in float64 on the host: the dual residual,
-    the bound and constraint violations, and the complementarity of each
-    finite bound with its multiplier (y, z > 0 at a lower bound)."""
+    """KKT error of a dense QP in float64 on the host."""
+    return host_kkt_error(np.asarray(qp.H_dense().cpu(), np.float64),
+                          np.asarray(qp.A.cpu(), np.float64), qp, x, y, z)
+
+
+def host_kkt_error(H, A, qp, x, y, z):
+    """KKT error in float64 on the host of the QP with Hessian ``H`` and
+    constraint matrix ``A`` (numpy or scipy.sparse) and ``qp``'s g and
+    bounds: the dual residual, the bound and constraint violations, and the
+    complementarity of each finite bound with its multiplier (y, z > 0 at a
+    lower bound)."""
     big = 1e19
-    H, A, g = (np.asarray(t.cpu(), np.float64) for t in (qp.H_dense(), qp.A, qp.g))
+    g = np.asarray(qp.g.cpu(), np.float64)
     xl, xu, cl, cu = (np.asarray(t.cpu(), np.float64) for t in (qp.x_l, qp.x_u, qp.c_l, qp.c_u))
     xd, yd, zd = (np.asarray(v.cpu(), np.float64) for v in (x, y, z))
     ax = A @ xd
@@ -1831,6 +1889,366 @@ def phase_dense():
          seconds=time.perf_counter() - t_phase)
 
 
+# ---------------------------------------------------------------------------
+# The banded path
+# ---------------------------------------------------------------------------
+
+
+def banded_blocks(k, b, dtype, seed, bad_block=None):
+    """(D, L) on the card of a block-tridiagonal SPD matrix (block diagonally
+    dominant); ``bad_block``: that diagonal block negated (not positive
+    definite)."""
+    rng = np.random.default_rng(seed)
+    L = rng.uniform(-1.0, 1.0, (k - 1, b, b))
+    G = rng.uniform(-1.0, 1.0, (k, b, b))
+    D = G @ G.transpose(0, 2, 1) + 3.0 * b * np.eye(b)
+    if bad_block is not None:
+        D[bad_block] = -D[bad_block]
+    return (torch.as_tensor(D, device="cuda").to(dtype).contiguous(),
+            torch.as_tensor(L, device="cuda").to(dtype).contiguous())
+
+
+def banded_errors(D, L, rhs_list):
+    """Factor and solve kernels against their plain versions on the same
+    inputs (the solve on the kernel's factors): (Ld, Lo, ok, ok of the plain
+    version, max abs error, worst error over tolerance, solutions).  Each
+    compared tensor (Ld, Lo, each solution) is held to ``TOL`` times its own
+    largest |plain value|.  Each kernel runs twice and the two runs must
+    agree bitwise."""
+    from galahad_tpu_torch.linalg.banded import (BlockTridiagFactors, block_tridiag_cholesky_plain,
+                                                 block_tridiag_solve_plain)
+
+    Ld, Lo, ok = banded_kernels.block_tridiag_factor(D, L)
+    Ld2, Lo2, ok2 = banded_kernels.block_tridiag_factor(D, L)
+    check(same_bits(Ld, Ld2) and same_bits(Lo, Lo2) and bool(ok) == bool(ok2),
+          f"banded factor kernel: two runs differ (k={D.shape[0]}, b={D.shape[1]})")
+    fp = block_tridiag_cholesky_plain(D, L)
+    pairs = [(Ld, fp.Ld), (Lo, fp.Lo)]
+    xs = []
+    for rhs in rhs_list:
+        x = banded_kernels.block_tridiag_solve(Ld, Lo, rhs)
+        check(same_bits(x, banded_kernels.block_tridiag_solve(Ld, Lo, rhs)),
+              f"banded solve kernel: two runs differ (shape {tuple(rhs.shape)})")
+        pairs.append((x, block_tridiag_solve_plain(BlockTridiagFactors(Ld, Lo, ok), rhs)))
+        xs.append(x)
+    torch.cuda.synchronize()
+    err, ratio = 0.0, 0.0
+    for got, want in pairs:
+        if want.numel():
+            check(bool(torch.isfinite(got).all()), "banded kernel produced non-finite values")
+            e = float((got - want).abs().max())
+            err = max(err, e)
+            ratio = max(ratio, e / (TOL[D.dtype] * (float(want.abs().max()) or 1.0)))
+    return Ld, Lo, bool(ok), bool(fp.ok), err, ratio, xs
+
+
+def kernel_banded_cases():
+    """The block-tridiagonal factor and solve kernels against their plain
+    versions, with time and bound per shape; a third block that is not
+    positive definite; b = 33 refused."""
+    rows = []
+    for dtype in (torch.float32, torch.float64):
+        for b in (1, 2, 4, 8, 16, 32):
+            for k in (1, 2, 37, 2500):
+                D, L = banded_blocks(k, b, dtype, seed=1000 * b + k)
+                gen = torch.Generator(device="cuda")
+                gen.manual_seed(k)
+                rhs = [torch.randn(k, b, dtype=dtype, device="cuda", generator=gen),
+                       torch.randn(k, b, 3, dtype=dtype, device="cuda", generator=gen)]
+                Ld, Lo, ok, ok_plain, err, ratio, _ = banded_errors(D, L, rhs)
+                check(ok and ok_plain and ratio <= 1.0,
+                      f"banded kernels disagree with their plain versions: b={b} k={k} "
+                      f"{dtype}: ok {ok}/{ok_plain}, err {err:.3e} is {ratio:.3g} x the "
+                      f"tolerance")
+                fac_ms = time_ms(lambda: banded_kernels.block_tridiag_factor(D, L), reps=3)
+                sol_ms = time_ms(lambda: banded_kernels.block_tridiag_solve(Ld, Lo, rhs[0]),
+                                 reps=3)
+                rows.append(dict(dtype=str(dtype).split(".")[1], b=b, k=k, max_abs_err=err,
+                                 err_over_tol=ratio, factor_ms=fac_ms, solve_ms=sol_ms,
+                                 factor_bound_ms=banded_kernels.bound_ms(
+                                     banded_kernels.factor_bound_terms(k, b, dtype))[0],
+                                 solve_bound_ms=banded_kernels.bound_ms(
+                                     banded_kernels.solve_bound_terms(k, b, 1, dtype))[0]))
+                del D, L, Ld, Lo, rhs
+        for b in (1, 4, 8, 32):
+            D, L = banded_blocks(37, b, dtype, seed=b, bad_block=2)
+            rhs = [torch.ones(37, b, dtype=dtype, device="cuda")]
+            Ld, _, ok, ok_plain, err, ratio, _ = banded_errors(D, L, rhs)
+            eye = torch.eye(b, dtype=dtype, device="cuda")
+            check(not ok and not ok_plain and torch.equal(Ld[2], eye),
+                  f"banded factor, b={b} {dtype}: a failed block must clear ok and give "
+                  f"the identity (ok {ok}/{ok_plain})")
+            check(ratio <= 1.0,
+                  f"banded kernels, failed block, b={b} {dtype}: err {err:.3e} is "
+                  f"{ratio:.3g} x the tolerance")
+            rows.append(dict(dtype=str(dtype).split(".")[1], b=b, k=37, third_block_not_pd=True,
+                             ok=ok, ok_plain=ok_plain, max_abs_err=err, err_over_tol=ratio))
+    D, L = banded_blocks(3, 33, torch.float64, seed=0)
+    try:
+        banded_kernels.block_tridiag_factor(D, L)
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, "the banded factor kernel must refuse b = 33")
+    return rows
+
+
+def banded_problem(n, h, m, device="cuda"):
+    """The banded QP family of bench.py:269-293 (``bench_banded_lp``) at size
+    n: g = -0.2 - 0.2 (i mod 5), x in [0, 2]; A with rows i -> variables
+    {i, i+2}, values U(0.8, 1.2) from default_rng(0), c_l = 1 (m = n - 2
+    unless given); H the tridiagonal (2, -1) where ``h`` is "tri", else 0;
+    block 8."""
+    from galahad_tpu_torch.qp.ipm_banded import make_banded_qp
+
+    m = n - 2 if m is None else m
+    r = np.random.default_rng(0)
+    a = np.stack([r.uniform(0.8, 1.2, m), r.uniform(0.8, 1.2, m)]) if m else None
+    hd = (np.stack([np.full(n, 2.0), np.concatenate([-np.ones(n - 1), [0.0]])])
+          if h == "tri" else None)
+    return make_banded_qp(g=-0.2 - 0.2 * (np.arange(n) % 5), a_val=a, a_offsets=(0, 2),
+                          c_l=np.ones(m), c_u=np.full(m, 1e20), x_l=np.zeros(n),
+                          x_u=np.full(n, 2.0), h_diags=hd, block=8, device=device)
+
+
+def banded_host_kkt(qp, x, y, z):
+    """KKT error of a BandedQP in float64 on the host, with H and A as scipy
+    sparse matrices built from the DIA data."""
+    import scipy.sparse as sp
+
+    n, m = qp.n, qp.m
+    if qp.h_kind == "zero":
+        H = sp.csr_matrix((n, n))
+    else:
+        d = np.asarray(qp.h_diags.cpu(), np.float64)
+        rows, cols, vals = [np.arange(n)], [np.arange(n)], [d[0]]
+        for s in range(1, d.shape[0]):
+            i = np.arange(n - s)
+            rows += [i + s, i]
+            cols += [i, i + s]
+            vals += [d[s, :n - s]] * 2
+        H = sp.csr_matrix((np.concatenate(vals), (np.concatenate(rows), np.concatenate(cols))),
+                          shape=(n, n))
+    rows, cols, vals = [], [], []
+    if m:
+        val = np.asarray(qp.A_band.val.cpu(), np.float64)
+        for p, off in enumerate(qp.A_band.offsets):
+            i = np.arange(max(0, -off), min(m, n - off))
+            rows.append(i)
+            cols.append(i + off)
+            vals.append(val[p, i])
+    A = (sp.csr_matrix((np.concatenate(vals), (np.concatenate(rows), np.concatenate(cols))),
+                       shape=(m, n)) if m else sp.csr_matrix((0, n)))
+    return host_kkt_error(H, A, qp, x, y, z)
+
+
+def banded_expected_per_replay(qp, ctl):
+    """(factor, solve) kernel launches of one banded Mehrotra iteration:
+    2 KKT solves (predictor, corrector) of 1 + refine block solves each; a
+    block solve is one S solve between two G solves; with m = 0 a KKT solve
+    is one G solve, unrefined.  The PCG mode's S solve is 2 preconditioner
+    solves and one operator product before the loop and one of each per CG
+    iteration, each product holding one G solve."""
+    r = 1 + ctl.refine
+    if qp.m == 0:
+        return (0, 0) if qp.h_kind in ("zero", "diagonal") else (1, 2)
+    if qp.h_kind in ("zero", "diagonal"):
+        return 1, 2 * r
+    s_solve = 3 + 2 * qp.cg_maxit
+    return 2, 2 * r * (2 + s_solve)
+
+
+def phase_banded():
+    """The banded IPM on the card: ``ipm_solve_banded`` on each problem of
+    ``BANDED_CASES`` on the graph path (the main path of this phase: the
+    counts are set to 0 before each solve and read after it) and then
+    directly.  Returns the device launches of the banded kernels over the
+    graph runs, and per replay."""
+    from galahad_tpu_torch.qp.ipm_banded import ipm_solve_banded
+
+    t_phase = time.perf_counter()
+    ctl = IPMControl(**BANDED_CTL)
+    rows = []
+    total = dict(banded_factor=0, banded_solve=0, per_replay={})
+    for name, ((n, h, m), (iters, obj)) in BANDED_CASES.items():
+        what = f"banded phase, {name}"
+        t0 = time.perf_counter()
+        qp = banded_problem(n, h, m)
+        torch.cuda.synchronize()
+        make_s = time.perf_counter() - t0
+        base = torch.cuda.memory_allocated()       # the problem and what earlier phases keep
+        with fused_path(True):
+            x, y, z, st, wall, peak, counts = counted_solve(qp, ctl, ipm_solve_banded)
+        with fused_path(False):
+            xd, yd, zd, sd, wall_d, peak_d, counts_d = counted_solve(qp, ctl, ipm_solve_banded)
+        check(st.run.path == "graph" and sd.run.path == "direct",
+              f"{what}: ran the {st.run.path} / {sd.run.path} paths")
+        check(st.status == int(Status.OK) and st.iter == iters,
+              f"{what}: status {st.status}, {st.iter} iterations; the JAX package gives 0, {iters}")
+        rel = abs(st.inform.obj - obj) / max(1.0, abs(obj))
+        check(rel <= 1e-8, f"{what}: objective {st.inform.obj!r} off by {rel:.3e} relative")
+        kkt = banded_host_kkt(qp, x, y, z)
+        check(kkt[0] <= 1e-6, f"{what}: host KKT {kkt[0]:.3e}")
+        check(bool(torch.isfinite(x).all()) and x.shape == (n,) and y.shape == (qp.m,),
+              f"{what}: x is not finite or has the wrong shape")
+        check((sd.status, sd.iter) == (st.status, st.iter)
+              and all(same_bits(a, b) for a, b in ((x, xd), (y, yd), (z, zd))),
+              f"{what}: the graph path's result differs from the direct path's")
+        per = st.run.launches_per_replay
+        want = banded_expected_per_replay(qp, ctl)
+        check((per["banded_factor"], per["banded_solve"]) == want,
+              f"{what}: {per['banded_factor']} factor and {per['banded_solve']} solve launches "
+              f"per replay, expected {want}")
+        check(all(counts[k] == 0 for k in PLAIN_COUNTS)
+              and all(counts_d[k] == 0 for k in PLAIN_COUNTS),
+              f"{what}: plain code ran on the card")
+        check(st.run.direct_steps == 1 and st.run.replays - st.run.halted_replays == st.iter - 1,
+              f"{what}: {st.run.direct_steps} direct steps, {st.run.replays} replays "
+              f"({st.run.halted_replays} halted) for {st.iter} iterations")
+        for k in ("banded_factor", "banded_solve"):
+            total[k] += counts[k]
+        total["per_replay"][name] = dict(factor=per["banded_factor"], solve=per["banded_solve"])
+        rows.append(dict(
+            name=name, n=n, m=qp.m, h_kind=qp.h_kind, status=st.status, iterations=st.iter,
+            jax_iterations=iters, objective=st.inform.obj, jax_objective=obj,
+            objective_rel_err=rel, host_kkt=kkt[0], host_kkt_p_d_c=kkt[1:],
+            wall_s=wall, s_per_iteration=wall / max(st.iter, 1), capture_s=st.run.capture_s,
+            instantiate_s=st.run.instantiate_s, replays=st.run.replays,
+            halted_replays=st.run.halted_replays, replay_s=st.run.replay_s,
+            replay_device_ms=replay_device_ms(qp, ctl, reps=1, halted=False),
+            peak_device_memory_bytes=peak, peak_over_start_bytes=peak - base,
+            direct_wall_s=wall_d, direct_peak_over_start_bytes=peak_d - base,
+            launches_per_replay=dict(factor=per["banded_factor"], solve=per["banded_solve"]),
+            device_launches=dict(factor=counts["banded_factor"], solve=counts["banded_solve"]),
+            plain_counts={k: counts[k] + counts_d[k] for k in PLAIN_COUNTS},
+            make_qp_s=make_s, graph_bitwise_equal_direct=True))
+        del qp, x, y, z, xd, yd, zd
+    emit("banded", problems=rows, control=BANDED_CTL, seconds=time.perf_counter() - t_phase)
+    return total
+
+
+def dense_blocks(D, L):
+    """The dense (k b) x (k b) matrix of the blocks (D, L)."""
+    k, b, _ = D.shape
+    A = torch.zeros((k * b, k * b), dtype=D.dtype, device=D.device)
+    A4 = A.view(k, b, k, b)
+    i = torch.arange(k, device=D.device)
+    A4[i, :, i, :] = D
+    if k > 1:
+        A4[i[1:], :, i[:-1], :] = L
+        A4[i[:-1], :, i[1:], :] = L.mT
+    return A
+
+
+def banded_path_blocks(name):
+    """The (D, L) blocks that ``BandedQP.build_kkt`` of the problem
+    ``BANDED_CASES[name]`` factors at the starting point, in its order
+    (the G blocks, then the Schur complement's), recorded from one direct
+    call."""
+    from galahad_tpu_torch.core.problem import classify_bounds
+    from galahad_tpu_torch.qp import ipm, ipm_banded
+
+    ctl = IPMControl(**BANDED_CTL)
+    (n, h, m), _ = BANDED_CASES[name]
+    qp = banded_problem(n, h, m)
+    masks = classify_bounds(qp, ctl.infinity)
+    D_x, C_diag = ipm._barrier_diagonals(qp, masks, ipm.ipm_init(qp, masks, ctl), ctl)
+    seen = []
+    factor = ipm_banded.block_tridiag_cholesky
+
+    def record(D, L):
+        seen.append((D, L))
+        return factor(D, L)
+
+    ipm_banded.block_tridiag_cholesky = record
+    try:
+        qp.build_kkt(D_x, C_diag, ctl)
+    finally:
+        ipm_banded.block_tridiag_cholesky = factor
+    return seen
+
+
+def phase_banded_path_kernels():
+    """Both banded kernels against their plain versions (f64, ``TOL``) on
+    every block set that the banded phase's problems factor, at the
+    starting point: the shapes the main path gives the kernels, k = 2,500
+    and k = 125,000 block rows of b = 8; the solve with one right-hand
+    side.  Returns the Schur-complement blocks of the LP at n = 20,000,
+    which the ``kernels`` line times."""
+    t0 = time.perf_counter()
+    rows, timed = [], None
+    for name in BANDED_CASES:
+        for i, (D, L) in enumerate(banded_path_blocks(name)):
+            k, b = D.shape[0], D.shape[1]
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(i)
+            rhs = torch.randn(k, b, dtype=D.dtype, device="cuda", generator=gen)
+            t1 = time.perf_counter()
+            Ld, Lo, ok, ok_plain, err, ratio, (x,) = banded_errors(D, L, [rhs])
+            check(ok and ok_plain and ratio <= 1.0,
+                  f"banded kernels on {name}'s blocks {i} (k={k}, b={b}): ok {ok}/{ok_plain}, "
+                  f"err {err:.3e} is {ratio:.3g} x the tolerance")
+            rows.append(dict(problem=name, blocks=i, k=k, b=b, dtype=str(D.dtype).split(".")[1],
+                             max_abs_err=err, err_over_tol=ratio,
+                             seconds=time.perf_counter() - t1))
+            if name == "lp_n20000":
+                timed = (D, L, rhs, Ld, Lo, ok, err, x)
+            del Ld, Lo, x
+    emit("banded_path_kernels", cases=rows, seconds=time.perf_counter() - t0)
+    return timed
+
+
+def banded_kernel_entries(launches, timed):
+    """The ``kernels`` entries of the two banded kernels, on the blocks that
+    the main path gives them: the banded Schur complement of the LP at
+    n = 20,000 (k = 2,500, b = 8, f64) at the starting point, as
+    ``phase_banded_path_kernels`` checked them; the solve with one
+    right-hand side.  ``library_ms``: ``torch.linalg.cholesky`` of the same
+    matrix assembled dense, and two ``solve_triangular`` on its factor."""
+    from galahad_tpu_torch.linalg.banded import (BlockTridiagFactors, block_tridiag_cholesky_plain,
+                                                 block_tridiag_solve_plain)
+
+    D, L, rhs, Ld, Lo, ok, err, x = timed
+    k, b = D.shape[0], D.shape[1]
+    reps = 10
+    factor = lambda: banded_kernels.block_tridiag_factor(D, L)              # noqa: E731
+    solve = lambda: banded_kernels.block_tridiag_solve(Ld, Lo, rhs)         # noqa: E731
+    f_ms, s_ms = time_ms(factor, reps), time_ms(solve, reps)
+    f_dev, s_dev = queued_ms([factor] * reps) / reps, queued_ms([solve] * reps) / reps
+    f_plain = event_ms(lambda: block_tridiag_cholesky_plain(D, L))
+    s_plain = event_ms(lambda: block_tridiag_solve_plain(BlockTridiagFactors(Ld, Lo, ok), rhs))
+    A = dense_blocks(D, L)
+    torch.linalg.cholesky(A[:64, :64])                           # the library's warm-up
+    lib_f = event_ms(lambda: torch.linalg.cholesky(A))
+    C = torch.linalg.cholesky(A)
+    v = rhs.reshape(-1, 1)
+    lib_s = event_ms(lambda: torch.linalg.solve_triangular(
+        C.mT, torch.linalg.solve_triangular(C, v, upper=False), upper=True))
+    lib_err = float((torch.linalg.solve_triangular(
+        C.mT, torch.linalg.solve_triangular(C, v, upper=False), upper=True).reshape(k, b)
+        - x).abs().max())
+    del A, C
+    f_bound, f_by = banded_kernels.bound_ms(banded_kernels.factor_bound_terms(k, b, D.dtype))
+    s_bound, s_by = banded_kernels.bound_ms(banded_kernels.solve_bound_terms(k, b, 1, D.dtype))
+    for key in ("banded_factor", "banded_solve"):
+        check(launches[key] > 0, f"the banded phase launched no {key} kernel")
+    common = dict(route="cuda", source=BANDED_SOURCE, k=k, b=b, dtype="float64",
+                  launches_per_replay=launches["per_replay"],
+                  per="one call at the main path's shape: the Schur-complement blocks of the "
+                      "banded LP at n = 20,000 (launches: the banded phase's graph runs)")
+    return [
+        dict(name="banded_factor", replaces=TPU_BANDED_FACTOR, launches=launches["banded_factor"],
+             max_abs_err=err, ms=f_ms, device_ms=f_dev, plain_ms=f_plain, bound_ms=f_bound,
+             bound_by=f_by, library_ms=lib_f,
+             library="torch.linalg.cholesky of the dense (k b)^2 matrix",
+             device_us_per_step=f_dev / k * 1e3, **common),
+        dict(name="banded_solve", replaces=TPU_BANDED_SOLVE, launches=launches["banded_solve"],
+             max_abs_err=err, ms=s_ms, device_ms=s_dev, plain_ms=s_plain, bound_ms=s_bound,
+             bound_by=s_by, library_ms=lib_s,
+             library="two torch.linalg.solve_triangular on the dense Cholesky factor",
+             library_max_abs_diff=lib_err, device_us_per_step=s_dev / (2 * k) * 1e3, **common)]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1847,11 +2265,16 @@ def main() -> int:
         launches, solution = phase_flagship(qp, per_factorization)
         phase_fused(qp, solution)
         del solution
-        phase_kernels(qp, plan, D_x, C_diag, b, launches)
+        line = phase_kernels(qp, plan, D_x, C_diag, b, launches)
         del plan, D_x, C_diag, b
         phase_arcs(qp)
         del qp
         phase_dense()
+        banded_launches = phase_banded()
+        timed = phase_banded_path_kernels()
+        line["kernels"] += banded_kernel_entries(banded_launches, timed)
+        del timed
+        print(json.dumps(line), flush=True)
     except SmokeFailure as exc:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr)
         return 1

@@ -13,8 +13,10 @@ import torch
 from ._device import resolve_device, resolve_dtype
 from .core.problem import QP, make_qp
 from .core.sparse import COOPattern, SparseQP
+from .linalg.band_ops import BandMatrix
 from .linalg.supernodal_flat import FlatGroup, FlatPlan
 from .qp.ipm import IPMState, device_state
+from .qp.ipm_banded import BandedQP, make_banded_qp
 
 
 def _pattern(p) -> COOPattern:
@@ -60,6 +62,36 @@ def qp_from_numpy(fields: dict, dtype=None, device=None) -> QP:
         h_kind=str(fields.get("h_kind", "dense")), f=float(fields.get("f", 0.0)),
         x=fields.get("x"), y=fields.get("y"), z=fields.get("z"),
         name=str(fields.get("name", "")), dtype=dtype, device=device)
+
+
+def band_matrix_from_numpy(fields, dtype=None, device=None) -> BandMatrix:
+    """Build a BandMatrix from the JAX ``BandMatrix``'s fields (a dict, or an
+    object with them): ``val`` (ndiag, m) as a numpy array, ``offsets``,
+    ``m`` and ``n``."""
+    get = fields.get if isinstance(fields, dict) else lambda k: getattr(fields, k)
+    device = resolve_device(device)
+    val = torch.as_tensor(np.array(get("val"), dtype=np.float64, order="C"),
+                          device=device).to(resolve_dtype(dtype))
+    return BandMatrix(val=val, offsets=tuple(int(o) for o in get("offsets")),
+                      m=int(get("m")), n=int(get("n")))
+
+
+def banded_qp_from_numpy(fields: dict, dtype=None, device=None) -> BandedQP:
+    """Build a BandedQP from the JAX ``BandedQP``'s fields as numpy arrays:
+    ``g``, ``c_l``, ``c_u``, ``x_l``, ``x_u``, ``h_diags`` (None for
+    h_kind "zero"), ``A_band`` (None, or the fields of a ``BandMatrix``, see
+    :func:`band_matrix_from_numpy`), ``h_kind``, ``block``, ``cg_maxit``,
+    ``f`` and optionally ``x``/``y``/``z`` and ``name``."""
+    a = fields.get("A_band")
+    get = (a.get if isinstance(a, dict) else lambda k: getattr(a, k)) if a is not None else None
+    return make_banded_qp(
+        g=fields["g"], a_val=None if a is None else get("val"),
+        a_offsets=() if a is None else tuple(int(o) for o in get("offsets")),
+        c_l=fields["c_l"], c_u=fields["c_u"], x_l=fields["x_l"], x_u=fields["x_u"],
+        h_diags=fields.get("h_diags"), h_kind=str(fields.get("h_kind", "banded")),
+        block=int(fields.get("block", 8)), cg_maxit=int(fields.get("cg_maxit", 64)),
+        f=float(fields.get("f", 0.0)), x=fields.get("x"), y=fields.get("y"),
+        z=fields.get("z"), name=str(fields.get("name", "")), dtype=dtype, device=device)
 
 
 def flat_plan_from_numpy(fields: dict) -> FlatPlan:

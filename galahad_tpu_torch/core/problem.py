@@ -199,7 +199,7 @@ def classify_bounds(qp, infinity: float = INFINITY) -> BoundMasks:
 
 
 def check_qp(qp, infinity: float = INFINITY) -> int:
-    """Validate a QP or SparseQP (host-side); returns a Status code
+    """Validate a QP, SparseQP or BandedQP (host-side); returns a Status code
     (restrictions -3, inconsistent bounds -4)."""
     if qp.n < 1:
         return int(Status.RESTRICTIONS)
@@ -211,6 +211,12 @@ def check_qp(qp, infinity: float = INFINITY) -> int:
         return int(Status.RESTRICTIONS)
     h_pat = getattr(qp, "h_pat", None)
     if h_pat is not None and h_pat.n != qp.n:
+        return int(Status.RESTRICTIONS)
+    A_band = getattr(qp, "A_band", None)        # BandedQP
+    if A_band is not None and (A_band.n != qp.n or A_band.val.shape[-1] != A_band.m):
+        return int(Status.RESTRICTIONS)
+    h_diags = getattr(qp, "h_diags", None)
+    if h_diags is not None and h_diags.shape[-1] != qp.n:
         return int(Status.RESTRICTIONS)
     if qp.x_l.shape[-1] != qp.n or qp.x_u.shape[-1] != qp.n:
         return int(Status.RESTRICTIONS)

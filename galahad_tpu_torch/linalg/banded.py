@@ -1,0 +1,159 @@
+"""Block-tridiagonal symmetric factorization and solves.
+
+Counterpart of galahad_tpu/linalg/banded.py (the TPU replacement of the
+banded paths of GALAHAD's SLS 'pbtr' backend, reference
+src/sls/sls.f90:843-921).  A symmetric banded matrix with semibandwidth
+<= b is held as block tridiagonal with (b, b) dense blocks:
+
+    [D_0  L_0'          ]
+    [L_0  D_1  L_1'     ]
+    [     L_1  D_2  ... ]
+
+The Cholesky factorization is one dependent step per block row; the solves
+are a forward and a backward sweep over the block rows.  The JAX package
+runs these as ``lax.scan``s.  Here each has a plain PyTorch version
+(``*_plain``: a Python loop of small torch calls, used on the CPU and as the
+reference of the kernels) and, for tensors on the card, a hand-written CUDA
+kernel that walks the whole chain in one launch (linalg/banded_kernels.py,
+csrc/banded.cu).  :func:`block_tridiag_cholesky` and
+:func:`block_tridiag_solve` take the plain version only for tensors on the
+CPU; on CUDA tensors they launch the kernel or raise.
+
+A block whose Cholesky factorization fails (a diagonal entry of its factor
+not finite or not positive) is replaced by the identity and clears ``ok``,
+as in the JAX package (``chol_ok``); the recurrence goes on with it.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .._device import resolve_device, resolve_dtype
+from . import banded_kernels
+from .cholesky import chol_factor, chol_ok
+
+
+@dataclasses.dataclass
+class BlockTridiagFactors:
+    Ld: torch.Tensor     # (k, b, b) lower-triangular diagonal blocks of L
+    Lo: torch.Tensor     # (k-1, b, b) subdiagonal blocks (Lo[i] couples i -> i+1)
+    ok: torch.Tensor     # 0-d bool: every block factorized (all pivots positive)
+
+
+def band_to_blocks(band_lower, n: int, b: int, dtype=None, device=None):
+    """Pack a symmetric banded matrix in LAPACK-style lower band storage
+    (``band_lower[d, j] = A[j+d, j]``, d = 0..semibandwidth) into (D, L)
+    block-tridiagonal form with block size ``b``, padding n up to a multiple
+    of b with the identity.  Host-side helper (numpy), as in the JAX package;
+    the blocks are returned as tensors on ``device`` (``None``: the card)."""
+    band = np.asarray(band_lower, np.float64)
+    semibw = band.shape[0] - 1
+    if semibw > b:
+        raise ValueError("semibandwidth must be <= block size")
+    k = -(-n // b)
+    npad = k * b
+    A = np.zeros((npad, npad))
+    for d in range(semibw + 1):
+        j = np.arange(n - d)
+        A[j + d, j] = band[d, :n - d]
+        A[j, j + d] = band[d, :n - d]
+    A[np.arange(n, npad), np.arange(n, npad)] = 1.0
+    D = np.stack([A[i * b:(i + 1) * b, i * b:(i + 1) * b] for i in range(k)])
+    L = (np.stack([A[(i + 1) * b:(i + 2) * b, i * b:(i + 1) * b] for i in range(k - 1)])
+         if k > 1 else np.zeros((0, b, b)))
+    device, dt = resolve_device(device), resolve_dtype(dtype)
+    return (torch.as_tensor(D, device=device).to(dt),
+            torch.as_tensor(L, device=device).to(dt))
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+
+def block_tridiag_cholesky_plain(D, L) -> BlockTridiagFactors:
+    """Cholesky A = L~ L~' of the block-tridiagonal SPD matrix with diagonal
+    blocks ``D`` (k, b, b) and subdiagonal blocks ``L`` (k-1, b, b), one
+    step per block row:
+
+        Ld_0 = chol(D_0)
+        Lo_i = L_i Ld_i^-T,   Ld_{i+1} = chol(D_{i+1} - Lo_i Lo_i')
+
+    each ``chol`` of the symmetrized block, the identity where it fails."""
+    banded_kernels.count_plain("factor")
+    k, b, _ = D.shape
+    eye = torch.eye(b, dtype=D.dtype, device=D.device)
+
+    def factor(S):
+        C, info = chol_factor(S)
+        good = chol_ok(C, info)
+        return torch.where(good, C, eye), good
+
+    Ld, ok = factor(D[0])
+    Lds, Los = [Ld], []
+    for i in range(1, k):
+        # Lo = L Ld^-T: solve Ld Lo' = L'
+        Lo = torch.linalg.solve_triangular(Ld, L[i - 1].mT, upper=False).mT
+        Ld, good = factor(D[i] - Lo @ Lo.mT)
+        ok = ok & good
+        Lds.append(Ld)
+        Los.append(Lo)
+    Lo_all = torch.stack(Los) if Los else torch.zeros((0, b, b), dtype=D.dtype, device=D.device)
+    return BlockTridiagFactors(Ld=torch.stack(Lds), Lo=Lo_all, ok=ok)
+
+
+def block_tridiag_solve_plain(f: BlockTridiagFactors, rhs):
+    """Solve A x = rhs with the block Cholesky factors ``f``: the forward
+    sweep L~ y = rhs, then the backward sweep L~' x = y.  ``rhs`` is (k, b)
+    or (k, b, r)."""
+    banded_kernels.count_plain("solve")
+    Ld, Lo = f.Ld, f.Lo
+    k = Ld.shape[0]
+    vec = rhs.ndim == 2
+    if vec:
+        rhs = rhs[..., None]
+    y = [torch.linalg.solve_triangular(Ld[0], rhs[0], upper=False)]
+    for i in range(1, k):
+        y.append(torch.linalg.solve_triangular(Ld[i], rhs[i] - Lo[i - 1] @ y[-1], upper=False))
+    x = [torch.linalg.solve_triangular(Ld[k - 1].mT, y[k - 1], upper=True)]
+    for i in range(k - 2, -1, -1):
+        x.append(torch.linalg.solve_triangular(Ld[i].mT, y[i] - Lo[i].mT @ x[-1], upper=True))
+    out = torch.stack(x[::-1])
+    return out[..., 0] if vec else out
+
+
+# ---------------------------------------------------------------------------
+# Entry points
+# ---------------------------------------------------------------------------
+
+
+def block_tridiag_cholesky(D, L) -> BlockTridiagFactors:
+    """Block Cholesky factors of (D, L) (see :func:`block_tridiag_cholesky_plain`).
+    On CUDA tensors: one launch of the factor kernel, or an error."""
+    if D.device.type == "cpu":
+        return block_tridiag_cholesky_plain(D, L)
+    Ld, Lo, ok = banded_kernels.block_tridiag_factor(D, L)
+    return BlockTridiagFactors(Ld=Ld, Lo=Lo, ok=ok)
+
+
+def block_tridiag_solve(f: BlockTridiagFactors, rhs):
+    """Solve A x = rhs given the block Cholesky factors; ``rhs`` is (k, b)
+    blocks or (k, b, r) for r right-hand sides.  On CUDA tensors: one launch
+    of the solve kernel (both sweeps), or an error."""
+    if rhs.device.type == "cpu":
+        return block_tridiag_solve_plain(f, rhs)
+    return banded_kernels.block_tridiag_solve(f.Ld, f.Lo, rhs)
+
+
+def block_tridiag_matvec(D, L, x):
+    """A x for the block-tridiagonal A of (D, L); ``x`` is (k, b) or (k, b, r)."""
+    k = D.shape[0]
+    vec = x.ndim == 2
+    xb = x[..., None] if vec else x
+    out = D @ xb
+    if k > 1:
+        out[1:] += L @ xb[:-1]
+        out[:-1] += L.mT @ xb[1:]
+    return out[..., 0] if vec else out

@@ -1,4 +1,4 @@
-"""QP solvers of the port (the interior-point method, sparse and dense)."""
+"""QP solvers of the port (the interior-point method: sparse, banded and dense)."""
 from .ipm import (  # noqa: F401
     IPMControl,
     IPMInform,
@@ -11,3 +11,10 @@ from .ipm import (  # noqa: F401
     ipm_solve_compiled,
     ipm_step,
 )
+from .ipm_banded import (  # noqa: F401
+    BandedQP,
+    ipm_solve_banded,
+    ipm_solve_banded_compiled,
+    make_banded_qp,
+)
+from .wrappers import bqpb_solve, lpb_solve  # noqa: F401

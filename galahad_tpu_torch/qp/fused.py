@@ -43,7 +43,7 @@ import time
 
 import torch
 
-from ..linalg import ea_kernels, ldlt_kernels, sweep_kernels
+from ..linalg import banded_kernels, ea_kernels, ldlt_kernels, sweep_kernels
 
 
 def fused_enabled() -> bool:
@@ -58,6 +58,7 @@ def launch_counts() -> dict:
     the kernel launches of calls that make several, and plain calls."""
     sw = sweep_kernels.sweep_counts()
     ea = ea_kernels.ea_counts()
+    bd = banded_kernels.banded_counts()
     return dict(
         partial_ldlt=ldlt_kernels.launch_count(),
         ldlt_wide=ldlt_kernels.wide_launch_count(),
@@ -66,7 +67,9 @@ def launch_counts() -> dict:
         extend_add_plain=ea["plain"],
         sweep_fwd=sw["fwd"], sweep_bwd=sw["bwd"],
         sweep_fwd_kernels=sw["fwd_kernels"], sweep_bwd_kernels=sw["bwd_kernels"],
-        sweep_plain=sw["plain"])
+        sweep_plain=sw["plain"],
+        banded_factor=bd["factor"], banded_solve=bd["solve"],
+        banded_factor_plain=bd["factor_plain"], banded_solve_plain=bd["solve_plain"])
 
 
 @dataclasses.dataclass

@@ -11,8 +11,9 @@ per-iteration KKT system
     [[H + D_x, A'], [A, -D_c^-1]] [dx; -dy] = [b1; b2]
 
 solved, for a ``SparseQP``, by the supernodal LDL^T of
-linalg/supernodal_flat.py and, for a dense ``QP``, by SBLS's
-Schur-complement Cholesky pair (linalg/sbls.py), each with iterative
+linalg/supernodal_flat.py, for a ``BandedQP`` (qp/ipm_banded.py) by the
+block-tridiagonal Cholesky of linalg/banded.py and, for a dense ``QP``, by
+SBLS's Schur-complement Cholesky pair (linalg/sbls.py), each with iterative
 refinement instead of dynamic pivoting.
 
 What differs from the JAX module, and why:
@@ -39,9 +40,7 @@ What differs from the JAX module, and why:
     iteration again with the JAX package's escalating shift
     (``ipm_step(..., escalate=True)``, qp/fused.py), counted in
     ``RunStats.escalations``.
-  * Not ported yet, and raising ``NotImplementedError`` when asked for:
-    the banded KKT branch (``BandedQP``).  ``endgame_f64`` is accepted and
-    ignored.
+  * ``endgame_f64`` is accepted and ignored.
 """
 from __future__ import annotations
 
@@ -718,12 +717,14 @@ def _dense_kkt(qp, D_x, C_diag, ctl, escalate: bool):
 
 
 def ipm_step(qp, masks, st: IPMState, ctl: IPMControl, escalate: bool = False) -> IPMState:
-    """One iteration on a ``SparseQP`` or a dense ``QP``: barrier diagonals
-    -> KKT factorize -> predictor solve -> corrector solve(s) or a series
-    arc on the same factors -> step -> update (the body of CQP_solve_main,
-    reference cqp.f90:2967+; the JAX package's ``ipm_step``).  The KKT
-    solve of a SparseQP comes from ``qp.build_kkt`` (the supernodal LDL^T),
-    that of a QP from :func:`_dense_kkt`.
+    """One iteration on a ``SparseQP``, a ``BandedQP`` or a dense ``QP``:
+    barrier diagonals -> KKT factorize -> predictor solve -> corrector
+    solve(s) or a series arc on the same factors -> step -> update (the body
+    of CQP_solve_main, reference cqp.f90:2967+; the JAX package's
+    ``ipm_step``).  A structured problem supplies its KKT solve through
+    ``qp.build_kkt`` (the supernodal LDL^T of a SparseQP, the
+    block-tridiagonal Cholesky of a BandedQP), as in the JAX package; that of
+    a QP comes from :func:`_dense_kkt`.
 
     Pure tensor code with no host read, so that the card can capture it in
     a CUDA graph.  A step on a halted state, or at ``ctl.maxit``, returns
@@ -735,7 +736,7 @@ def ipm_step(qp, masks, st: IPMState, ctl: IPMControl, escalate: bool = False) -
     host once per try."""
     st = device_state(st)
     D_x, C_diag = _barrier_diagonals(qp, masks, st, ctl)
-    if qp.h_kind == "sparse":
+    if hasattr(qp, "build_kkt"):
         kkt_solve, chol_ok = qp.build_kkt(D_x, C_diag, ctl), None
     else:
         kkt_solve, chol_ok = _dense_kkt(qp, D_x, C_diag, ctl, escalate)
@@ -886,16 +887,15 @@ def _stepper(qp, masks, st: IPMState, ctl: IPMControl) -> Stepper:
     """The runner of this solve's iterations: on the card the captured
     step (unless ``GALAHAD_TPU_FUSED=0``), on the CPU the direct one.  A
     dense QP's steps are taken again with the escalating shift where they
-    set ``needs_shift``."""
+    set ``needs_shift``; a structured problem's steps never set it."""
     levels = ()
     on_card = qp.g.device.type == "cuda"
-    sparse = qp.h_kind == "sparse"
-    if on_card and sparse:
+    if on_card and qp.h_kind == "sparse":
         from ..linalg.sbls import sparse_kkt_plan
 
         plan = sparse_kkt_plan(qp.h_pat, qp.a_pat, qp.n)
         levels = [lvp["sweep"] for lvp in _flat._device_plan(plan.sym, qp.g.device)["levels"]]
-    escalate = None if sparse else (
+    escalate = None if hasattr(qp, "build_kkt") else (
         MONITOR.index("needs_shift"), lambda s: ipm_step(qp, masks, s, ctl, escalate=True))
     return Stepper(lambda s: ipm_step(qp, masks, s, ctl), st, TENSOR_FIELDS,
                    monitor, graph=on_card and fused_enabled(), sweep_levels=levels,
@@ -915,23 +915,27 @@ def _scaffold(qp):
     n, m = max(qp.n, 0), max(qp.m, 0)
     if qp.h_kind == "sparse":
         return make_sparse_qp(n, m, g=np.zeros(n), dtype=qp.g.dtype, device=qp.g.device)
+    if hasattr(qp, "scaffold"):
+        return qp.scaffold()
     return make_qp(g=np.zeros(n), A=np.zeros((m, n)), h_kind="zero",
                    dtype=qp.g.dtype, device=qp.g.device)
 
 
 def _check_kind(qp, where: str) -> None:
     kind = getattr(qp, "h_kind", None)
-    if kind != "sparse" and kind not in H_KINDS:
-        raise NotImplementedError(
-            f"{where}: only SparseQP and dense QP problems are ported (h_kind "
-            f"{kind!r}; the banded KKT branch is not)")
+    if hasattr(qp, "build_kkt") or kind in H_KINDS:
+        return
+    raise NotImplementedError(
+        f"{where}: takes a SparseQP, a BandedQP (also through ipm_solve_banded) or a "
+        f"dense QP (h_kind {kind!r})")
 
 
 def ipm_solve(qp, ctl: IPMControl = IPMControl()):
-    """Host-loop solver of a ``SparseQP`` or a dense ``QP``.  Runs on the
-    device that holds ``qp`` (the constructors ``make_sparse_qp`` /
-    ``make_qp`` / ``read_sparse_qp`` / ``read_qp`` place it: the CUDA
-    device unless the caller asked for the CPU).  On the card the
+    """Host-loop solver of a ``SparseQP``, a ``BandedQP`` or a dense ``QP``.
+    Runs on the device that holds ``qp`` (the constructors
+    ``make_sparse_qp`` / ``make_banded_qp`` / ``make_qp`` /
+    ``read_sparse_qp`` / ``read_qp`` place it: the CUDA device unless the
+    caller asked for the CPU).  On the card the
     iteration is captured once as a CUDA graph and replayed (qp/fused.py);
     the host reads the monitor every ``steps_per_fetch`` iterations and
     updates the checkpoints, the printed lines, the best iterate and the

@@ -403,3 +403,66 @@ def check_dense_fixture_arc(name, arc, order):
     jq, tq = _DENSE_FIXTURES[name]
     jctl, ctl = arc_controls(arc, order)
     assert check_same_solve(j_solve(jq, jctl), ipm_solve(tq, ctl)).status == 0
+
+
+# ---------------------------------------------------------------------------
+# Banded QPs for both packages
+# ---------------------------------------------------------------------------
+
+
+def banded_problem_fields(n, lp=False, seed=0, block=4, h_tridiagonal=None, m=None):
+    """tests/test_ipm_banded.py::make_banded_problem as numpy fields (the
+    same random stream, so the same problem): tridiagonal H (2, -1) unless
+    ``lp``, A with rows i -> variables {i, i+2} (values U(0.8, 1.2)),
+    x in [0, 2], c_l = 1, g = -0.2 - 0.2 (i mod 5).  ``m=0``: no A."""
+    r = np.random.default_rng(seed)
+    m = n - 2 if m is None else m
+    tri = not lp if h_tridiagonal is None else h_tridiagonal
+    h_diags = (np.stack([np.full(n, 2.0), np.concatenate([-np.ones(n - 1), [0.0]])])
+               if tri else None)
+    fields = dict(g=-0.2 - 0.2 * (np.arange(n) % 5), x_l=np.zeros(n), x_u=np.full(n, 2.0),
+                  c_l=np.ones(m), c_u=np.full(m, 1e20), h_diags=h_diags,
+                  h_kind="banded" if tri else "zero", block=block, A_band=None)
+    if m:
+        a0 = r.uniform(0.8, 1.2, m)
+        a2 = r.uniform(0.8, 1.2, m)
+        fields["A_band"] = dict(val=np.stack([a0, a2]), offsets=(0, 2), m=m, n=n)
+    return fields
+
+
+def banded_pair(fields, dtype="float64"):
+    """(JAX BandedQP, the port's BandedQP on the CPU) from
+    ``banded_problem_fields``-style numpy fields."""
+    import jax.numpy as jnp
+    from galahad_tpu.linalg.band_ops import BandMatrix
+    from galahad_tpu.qp.ipm_banded import BandedQP
+
+    from galahad_tpu_torch.convert import banded_qp_from_numpy
+
+    jdt = jnp.float64 if dtype == "float64" else jnp.float32
+    arr = lambda a: None if a is None else jnp.asarray(a, jdt)          # noqa: E731
+    a = fields["A_band"]
+    jq = BandedQP(
+        g=arr(fields["g"]), c_l=arr(fields["c_l"]), c_u=arr(fields["c_u"]),
+        x_l=arr(fields["x_l"]), x_u=arr(fields["x_u"]), h_diags=arr(fields["h_diags"]),
+        h_kind=fields["h_kind"], block=fields["block"],
+        A_band=None if a is None else BandMatrix(val=arr(a["val"]), offsets=tuple(a["offsets"]),
+                                                 m=a["m"], n=a["n"]))
+    return jq, banded_qp_from_numpy(fields, dtype=dtype, device="cpu")
+
+
+def check_same_banded_solve(jsolve, jq, tsolve, tol=1e-7):
+    """Hold a port banded solve to the JAX package's: the same status and
+    iteration count, and x, y, z and the objective within ``tol`` absolute.
+    Each solve is an (x, y, z, state) tuple; the port's state is returned."""
+    xj, yj, zj, sj = jsolve
+    xt, yt, zt, st = tsolve
+    assert (st.status, st.iter) == (int(sj.status), int(sj.iter))
+    for a, b in ((xj, xt), (yj, yt), (zj, zt)):
+        assert np.asarray(a).shape == tuple(b.shape)
+        if b.numel():
+            assert np.abs(np.asarray(a, np.float64) - b.double().numpy()).max() <= tol
+    obj_j = float(jq.objective(xj))
+    if st.inform is not None:
+        assert abs(st.inform.obj - obj_j) <= tol
+    return st

@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from galahad_tpu_torch import make_sparse_qp
-from galahad_tpu_torch.linalg import ea_kernels, ldlt_kernels
+from galahad_tpu_torch.linalg import banded_kernels, ea_kernels, ldlt_kernels
 from galahad_tpu_torch.linalg import supernodal_flat as T
 from galahad_tpu_torch.linalg import sweep_kernels
 from galahad_tpu_torch.qp.ipm import ipm_solve
@@ -593,6 +593,18 @@ def launcher_case(kernel, dtype, device):
         lvl = ea_kernels.build_ea_level(batches, device)
         store = torch.as_tensor(store_np, dtype=dtype, device=device)
         return (store,), lambda b: ea_kernels.extend_add(b[0], lvl), []
+    if kernel == "banded":
+        D, L = banded_blocks(37, 8, dtype, device, seed=8)
+        rhs = torch.as_tensor(np.random.default_rng(8).normal(size=(37, 8, 3)), dtype=dtype,
+                              device=device)
+
+        def banded(b):
+            Ld, Lo, ok = banded_kernels.block_tridiag_factor(b[0], b[1])
+            b[3].copy_(banded_kernels.block_tridiag_solve(Ld, Lo, b[2]))
+            b[4].copy_(Ld)
+            b[5].copy_(ok)
+        return (D, L, rhs, torch.zeros_like(rhs), torch.zeros_like(D),
+                torch.zeros((), dtype=dtype, device=device)), banded, []
     store, lvl, y = sweep_level(SWEEP_LEVELS["root_and_small"], dtype, device, seed=7)
     work = torch.empty(lvl.work_size, dtype=dtype, device=device)
 
@@ -613,7 +625,8 @@ def equal_bits(a, b):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("kernel", ["partial_ldlt", "ldlt_wide", "extend_add", "sweeps"])
+@pytest.mark.parametrize("kernel", ["partial_ldlt", "ldlt_wide", "extend_add", "sweeps",
+                                    "banded"])
 def test_a_captured_launcher_replays_the_direct_call_bitwise(cuda, kernel, dtype):
     """Each launcher captured alone in a CUDA graph (the wide kernel's
     cooperative launch and the sweeps' memset of their ticket and flags
@@ -812,3 +825,122 @@ def test_cholesky_and_triangular_solves_replay_the_direct_bits(cuda, n):
         torch.cuda.synchronize()
         assert same_bits(out[0], x_d)
         assert bool(out[1]) and bool(ok_d) and not bool(out[2]) and not bool(bad_d)
+
+
+# ---------------------------------------------------------------------------
+# The block-tridiagonal kernels and the banded IPM on the card
+# ---------------------------------------------------------------------------
+
+
+def banded_blocks(k, b, dtype, device, seed=0, bad_block=None):
+    """(D, L) of a block-tridiagonal SPD matrix; ``bad_block``: make that
+    diagonal block negative definite."""
+    rng = np.random.default_rng(seed)
+    L = rng.uniform(-1.0, 1.0, (k - 1, b, b))
+    G = rng.uniform(-1.0, 1.0, (k, b, b))
+    D = G @ G.transpose(0, 2, 1) + 3.0 * b * np.eye(b)
+    if bad_block is not None:
+        D[bad_block] = -D[bad_block]
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device).contiguous()   # noqa: E731
+    return t(D), t(L)
+
+
+def banded_plain(D, L, rhs):
+    from galahad_tpu_torch.linalg.banded import (block_tridiag_cholesky_plain,
+                                                 block_tridiag_solve_plain)
+
+    f = block_tridiag_cholesky_plain(D, L)
+    return f, block_tridiag_solve_plain(f, rhs)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 1e-11)])
+@pytest.mark.parametrize("b", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("k", [1, 2, 37])
+def test_banded_kernels_match_plain(cuda, dtype, tol, b, k):
+    """Factor and solve (one right-hand side and three) against the plain
+    versions on the same inputs, and a second run bitwise equal."""
+    D, L = banded_blocks(k, b, dtype, cuda, seed=b * 100 + k)
+    before = banded_kernels.banded_counts()
+    Ld, Lo, ok = banded_kernels.block_tridiag_factor(D, L)
+    assert bool(ok)
+    rng = np.random.default_rng(k)
+    for shape in ((k, b), (k, b, 3)):
+        rhs = torch.as_tensor(rng.normal(size=shape), dtype=dtype, device=cuda)
+        x = banded_kernels.block_tridiag_solve(Ld, Lo, rhs)
+        f, ref = banded_plain(D, L, rhs)
+        for got, want in ((Ld, f.Ld), (Lo, f.Lo), (x, ref)):
+            if want.numel():
+                err = float((got - want).abs().max())
+                assert err <= tol * max(1.0, float(want.abs().max()))
+        assert same_bits(banded_kernels.block_tridiag_solve(Ld, Lo, rhs), x)
+    Ld2, Lo2, _ = banded_kernels.block_tridiag_factor(D, L)
+    assert same_bits(Ld2, Ld) and same_bits(Lo2, Lo)
+    after = banded_kernels.banded_counts()
+    assert after["factor"] - before["factor"] == 2 and after["solve"] - before["solve"] == 4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("b", [1, 4, 8, 32])
+def test_the_banded_factor_kernel_gives_the_identity_for_a_failed_block(cuda, dtype, b):
+    D, L = banded_blocks(9, b, dtype, cuda, seed=b, bad_block=2)
+    Ld, Lo, ok = banded_kernels.block_tridiag_factor(D, L)
+    f, _ = banded_plain(D, L, torch.zeros(9, b, dtype=dtype, device=cuda))
+    assert not bool(ok) and not bool(f.ok)
+    eye = torch.eye(b, dtype=dtype, device=cuda)
+    assert torch.equal(Ld[2], eye) and torch.equal(f.Ld[2], eye)
+    tol = 1e-4 if dtype == torch.float32 else 1e-11
+    assert float((Ld - f.Ld).abs().max()) <= tol * max(1.0, float(f.Ld.abs().max()))
+
+
+def test_the_banded_kernels_refuse_what_they_do_not_take(cuda):
+    D, L = banded_blocks(4, 33, torch.float64, cuda)
+    with pytest.raises(ValueError, match="1..32"):
+        banded_kernels.block_tridiag_factor(D, L)
+    D, L = banded_blocks(4, 8, torch.float64, cuda)
+    with pytest.raises(ValueError, match="CUDA"):
+        banded_kernels.block_tridiag_factor(D.cpu(), L.cpu())
+    with pytest.raises(ValueError, match="shape"):
+        banded_kernels.block_tridiag_factor(D, L[:2])
+    with pytest.raises(TypeError, match="float32/float64"):
+        banded_kernels.block_tridiag_factor(D.half(), L.half())
+    Ld, Lo, _ = banded_kernels.block_tridiag_factor(D, L)
+    with pytest.raises(ValueError, match="contiguous"):
+        banded_kernels.block_tridiag_solve(Ld, Lo, torch.zeros(8, 4, dtype=D.dtype,
+                                                               device=cuda).T)
+    with pytest.raises(ValueError, match="float"):
+        banded_kernels.block_tridiag_solve(Ld, Lo, torch.zeros(4, 8, dtype=torch.float32,
+                                                               device=cuda))
+
+
+def banded_qp(n, mode, device):
+    """The QPBAND family on the card: "lp" (Schur), "pcg" (banded H, m > 0),
+    "m0" (banded H, no constraints)."""
+    from galahad_tpu_torch.qp.ipm_banded import make_banded_qp
+
+    r = np.random.default_rng(0)
+    m = 0 if mode == "m0" else n - 2
+    h = (np.stack([np.full(n, 2.0), np.concatenate([-np.ones(n - 1), [0.0]])])
+         if mode != "lp" else None)
+    a = np.stack([r.uniform(0.8, 1.2, m), r.uniform(0.8, 1.2, m)]) if m else None
+    return make_banded_qp(g=-0.2 - 0.2 * (np.arange(n) % 5), a_val=a, a_offsets=(0, 2),
+                          c_l=np.ones(m), c_u=np.full(m, 1e20), x_l=np.zeros(n),
+                          x_u=np.full(n, 2.0), h_diags=h, block=8, device=device)
+
+
+@pytest.mark.parametrize("mode", ["lp", "pcg", "m0"])
+def test_the_banded_step_on_the_graph_equals_the_direct_path(cuda, monkeypatch, mode):
+    """Each KKT mode captured: the graph path gives the direct path's status,
+    iterations and bits (a fetch every iteration, every 4, compiled), and the
+    CPU path's status and iterations; the captured step launches both banded
+    kernels and no plain banded code."""
+    from galahad_tpu_torch.qp.ipm import IPMControl, ipm_solve
+
+    qp = banded_qp(200, mode, cuda)
+    sd = graph_equals_direct(qp, IPMControl(), monkeypatch)
+    assert sd.status == 0
+    _, _, _, st = ipm_solve(qp, IPMControl())
+    per = st.run.launches_per_replay
+    assert per["banded_factor"] >= 1 and per["banded_solve"] >= 1
+    assert per["banded_factor_plain"] == per["banded_solve_plain"] == 0
+    _, _, _, sc = ipm_solve(banded_qp(200, mode, "cpu"), IPMControl())
+    assert (sc.status, sc.iter) == (st.status, st.iter)

@@ -16,12 +16,17 @@ import galahad_tpu_torch.core.fit
 import galahad_tpu_torch.core.residuals
 import galahad_tpu_torch.core.roots
 import galahad_tpu_torch.io.qplib
+import galahad_tpu_torch.linalg.band_ops
+import galahad_tpu_torch.linalg.banded
+import galahad_tpu_torch.linalg.banded_kernels
 import galahad_tpu_torch.linalg.cholesky
 import galahad_tpu_torch.linalg.ldlt_kernels
 import galahad_tpu_torch.linalg.sbls
 import galahad_tpu_torch.linalg.supernodal_flat
 import galahad_tpu_torch.native
 import galahad_tpu_torch.qp.ipm
+import galahad_tpu_torch.qp.ipm_banded
+import galahad_tpu_torch.qp.wrappers
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
@@ -63,7 +68,7 @@ def test_no_import_statements_of_jax_in_port_sources():
 
 @pytest.mark.parametrize("entry", ["make_sparse_qp", "read_sparse_qp",
                                    "sparse_qp_from_numpy", "make_qp", "read_qp",
-                                   "qp_from_numpy"])
+                                   "qp_from_numpy", "make_banded_qp", "banded_qp_from_numpy"])
 def test_default_device_is_the_card(entry):
     """Without device='cpu' an entry point asks for the CUDA device and
     raises where there is none; it does not run on the CPU."""
@@ -71,8 +76,10 @@ def test_default_device_is_the_card(entry):
     import torch
 
     from galahad_tpu_torch import make_qp, make_sparse_qp
-    from galahad_tpu_torch.convert import qp_from_numpy, sparse_qp_from_numpy
+    from galahad_tpu_torch.convert import (banded_qp_from_numpy, qp_from_numpy,
+                                           sparse_qp_from_numpy)
     from galahad_tpu_torch.io.qplib import read_qp, read_sparse_qp
+    from galahad_tpu_torch.qp.ipm_banded import make_banded_qp
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device exists")
@@ -86,6 +93,10 @@ def test_default_device_is_the_card(entry):
         "qp_from_numpy": lambda: qp_from_numpy(dict(g=np.zeros(2), c_l=np.zeros(0),
                                                     c_u=np.zeros(0), x_l=np.zeros(2),
                                                     x_u=np.ones(2))),
+        "make_banded_qp": lambda: make_banded_qp(g=np.zeros(2)),
+        "banded_qp_from_numpy": lambda: banded_qp_from_numpy(
+            dict(g=np.zeros(2), c_l=np.zeros(0), c_u=np.zeros(0), x_l=np.zeros(2),
+                 x_u=np.ones(2), h_kind="zero")),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()
@@ -102,6 +113,27 @@ def test_smoke_script_fails_without_a_card():
                          timeout=300)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+def test_banded_wrappers_do_not_fall_back(monkeypatch):
+    """A block-tridiagonal factorization or solve on a tensor that claims a
+    CUDA device reaches the kernel's wrapper, never the plain version."""
+    import torch
+
+    from galahad_tpu_torch.linalg import banded
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    called = []
+    monkeypatch.setattr(banded, "block_tridiag_cholesky_plain", lambda *a: called.append(1))
+    monkeypatch.setattr(banded, "block_tridiag_solve_plain", lambda *a: called.append(1))
+    D = torch.zeros(2, 4, 4, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        banded.block_tridiag_cholesky(D, torch.zeros(1, 4, 4, device="meta"))
+    f = banded.BlockTridiagFactors(Ld=D, Lo=torch.zeros(1, 4, 4, device="meta"), ok=None)
+    with pytest.raises(ValueError, match="CUDA"):
+        banded.block_tridiag_solve(f, torch.zeros(2, 4, device="meta"))
+    assert called == []
 
 
 def test_cuda_wrapper_does_not_fall_back(monkeypatch):

@@ -12,10 +12,13 @@ listing is kept beside it.  Printed per kernel: the ptxas lines, counts of
 global loads (``LDG``), floating adds (``FADD``/``DADD``), global stores, and
 the instruction stream as runs of those classes, e.g. ``LDG*16 DADD*16``: a
 batch of loads issued together shows as one run of LDG before its adds.
+Last, the most frequent opcodes (``ops``): where a kernel's instruction
+stream goes (integer address arithmetic against floating-point work).
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import os
 import re
 import subprocess
@@ -85,6 +88,8 @@ def main() -> int:
               f"ADD {seq.count('ADD')}, STG {seq.count('STG')}, "
               f"local {seq.count('LDL') + seq.count('STL')}")
         print("  " + " ".join(runs(seq)))
+        top = collections.Counter(op.split(".")[0] for op in ops).most_common(12)
+        print("  ops " + " ".join(f"{op} {n}" for op, n in top))
     return 0
 
 
