@@ -31,9 +31,11 @@ JSON line per phase:
                 64, bitwise equal to its plain version; the block-tridiagonal
                 factor and solve kernels at b in {1, 2, 4, 8, 16, 32} x k in
                 {1, 2, 37, 2500} x {float32, float64}, one and three
-                right-hand sides, a third block that is not positive
-                definite (ok False, the identity in both versions), two runs
-                bitwise equal, and b = 33 refused
+                right-hand sides, the solve at its chunk boundaries (one
+                chunk and a row over and under, a ragged last chunk, chunks
+                of one row; b in {1, 3, 8}, b = 3 padded), a third block that
+                is not positive definite (ok False, the identity in both
+                versions), two runs bitwise equal, and b = 33 refused
   4. kkt        factorize + solve of the flagship KKT system
                 (grid QP, k=316: n=99,856, m=49,928) with D_x = C = 1; a
                 solve makes at most 3 forward and 2 backward sweep kernel
@@ -85,10 +87,14 @@ JSON line per phase:
                 kernels in each replay as many times as the KKT mode calls
                 them, and no plain banded code
 
-then the ``kernels`` line (seven entries: the five of the flagship's path,
-measured after the ``fused`` phase, and the two banded kernels, on the
-Schur-complement blocks of the banded LP at n = 20,000, with the library's
-dense Cholesky and triangular solves of the same matrix as their yardstick)
+then ``banded_path_kernels`` (both banded kernels on every block set the
+banded problems factor at their starting point, against the plain versions,
+and at their last iteration, by relative residual against the sequential
+solve's), then the ``kernels`` line (seven entries: the five of the
+flagship's path, measured after the ``fused`` phase, and the two banded
+kernels, on the Schur-complement blocks of the banded LP at n = 20,000, with
+the library's dense Cholesky and triangular solves of the same matrix as
+their yardstick, and their critical-path steps)
 and, as its last line, ``{"ok": true, "device": {...}}``.  Any failed
 phase ends the run with a non-zero exit code and no such line.  Without
 a CUDA device it exits non-zero at once; nothing here runs the port on
@@ -145,10 +151,10 @@ KERNEL_COUNTS = ("partial_ldlt", "ldlt_wide", "extend_add", "extend_add_kernels"
 PLAIN_COUNTS = ("ldlt_wide_plain", "extend_add_plain", "sweep_plain", "banded_factor_plain",
                 "banded_solve_plain")
 BANDED_SOURCE = "galahad_tpu_torch/csrc/banded.cu"
-TPU_BANDED_FACTOR = ("galahad_tpu/linalg/banded.py:68 block_tridiag_cholesky (lax.scan :89 / "
-                     ":103; XLA, no Pallas)")
-TPU_BANDED_SOLVE = ("galahad_tpu/linalg/banded.py:112 block_tridiag_solve (lax.scan :125 / "
-                    ":142; XLA, no Pallas)")
+TPU_BANDED_FACTOR = ("galahad_tpu/linalg/banded.py:68 block_tridiag_cholesky (lax.scan :103; "
+                     "XLA, no Pallas)")
+TPU_BANDED_SOLVE = ("galahad_tpu/linalg/banded.py:112 block_tridiag_solve (lax.scan :133 / "
+                    ":151; XLA, no Pallas)")
 BANDED_CTL = dict(maxit=60, stop_abs_p=1e-6, stop_abs_d=1e-6, stop_abs_c=1e-6)
 # (n, h, m): the banded problems; h "tri" is the tridiagonal H (2, -1); m None
 # is n - 2 rows (offsets 0 and 2, U(0.8, 1.2) from default_rng(0)); the JAX
@@ -1908,13 +1914,14 @@ def banded_blocks(k, b, dtype, seed, bad_block=None):
             torch.as_tensor(L, device="cuda").to(dtype).contiguous())
 
 
-def banded_errors(D, L, rhs_list):
+def banded_errors(D, L, rhs_list, chunk=None):
     """Factor and solve kernels against their plain versions on the same
-    inputs (the solve on the kernel's factors): (Ld, Lo, ok, ok of the plain
-    version, max abs error, worst error over tolerance, solutions).  Each
-    compared tensor (Ld, Lo, each solution) is held to ``TOL`` times its own
-    largest |plain value|.  Each kernel runs twice and the two runs must
-    agree bitwise."""
+    inputs (the solve on the kernel's factors, its rows in chunks of
+    ``chunk``, default the wrapper's): (Ld, Lo, ok, ok of the plain version,
+    max abs error, worst error over tolerance, solutions).  Each compared
+    tensor (Ld, Lo, each solution) is held to ``TOL`` times its own largest
+    |plain value|.  Each kernel runs twice and the two runs must agree
+    bitwise."""
     from galahad_tpu_torch.linalg.banded import (BlockTridiagFactors, block_tridiag_cholesky_plain,
                                                  block_tridiag_solve_plain)
 
@@ -1926,9 +1933,9 @@ def banded_errors(D, L, rhs_list):
     pairs = [(Ld, fp.Ld), (Lo, fp.Lo)]
     xs = []
     for rhs in rhs_list:
-        x = banded_kernels.block_tridiag_solve(Ld, Lo, rhs)
-        check(same_bits(x, banded_kernels.block_tridiag_solve(Ld, Lo, rhs)),
-              f"banded solve kernel: two runs differ (shape {tuple(rhs.shape)})")
+        x = banded_kernels.block_tridiag_solve(Ld, Lo, rhs, chunk=chunk)
+        check(same_bits(x, banded_kernels.block_tridiag_solve(Ld, Lo, rhs, chunk=chunk)),
+              f"banded solve kernel: two runs differ (shape {tuple(rhs.shape)}, chunk {chunk})")
         pairs.append((x, block_tridiag_solve_plain(BlockTridiagFactors(Ld, Lo, ok), rhs)))
         xs.append(x)
     torch.cuda.synchronize()
@@ -1942,10 +1949,18 @@ def banded_errors(D, L, rhs_list):
     return Ld, Lo, bool(ok), bool(fp.ok), err, ratio, xs
 
 
+# (k, chunk) of the solve kernel at its chunk boundaries: one chunk, one
+# row over and under, a ragged last chunk, chunks of one row, whole chunks
+# and one row over (chunk None: the wrapper's default)
+BANDED_CHUNK_CASES = ((64, 64), (65, 64), (63, 64), (100, 7), (37, 1), (247, 62), (249, 62),
+                      (2500, None))
+
+
 def kernel_banded_cases():
     """The block-tridiagonal factor and solve kernels against their plain
-    versions, with time and bound per shape; a third block that is not
-    positive definite; b = 33 refused."""
+    versions, with time and bound per shape; the solve at its chunk
+    boundaries (b in {1, 3, 8}: b = 3 runs padded in the kernels of 4); a
+    third block that is not positive definite; b = 33 refused."""
     rows = []
     for dtype in (torch.float32, torch.float64):
         for b in (1, 2, 4, 8, 16, 32):
@@ -1963,13 +1978,30 @@ def kernel_banded_cases():
                 fac_ms = time_ms(lambda: banded_kernels.block_tridiag_factor(D, L), reps=3)
                 sol_ms = time_ms(lambda: banded_kernels.block_tridiag_solve(Ld, Lo, rhs[0]),
                                  reps=3)
+                sched = banded_kernels.solve_schedule(k, banded_kernels.default_chunk(k))
                 rows.append(dict(dtype=str(dtype).split(".")[1], b=b, k=k, max_abs_err=err,
                                  err_over_tol=ratio, factor_ms=fac_ms, solve_ms=sol_ms,
+                                 solve_chunk=sched["chunk"],
+                                 solve_critical_path_steps=sched["critical_path_steps"],
                                  factor_bound_ms=banded_kernels.bound_ms(
                                      banded_kernels.factor_bound_terms(k, b, dtype))[0],
                                  solve_bound_ms=banded_kernels.bound_ms(
                                      banded_kernels.solve_bound_terms(k, b, 1, dtype))[0]))
                 del D, L, Ld, Lo, rhs
+        for b in (1, 3, 8):
+            for k, chunk in BANDED_CHUNK_CASES:
+                D, L = banded_blocks(k, b, dtype, seed=7 * k + b)
+                gen = torch.Generator(device="cuda")
+                gen.manual_seed(k + b)
+                rhs = [torch.randn(k, b, dtype=dtype, device="cuda", generator=gen),
+                       torch.randn(k, b, 3, dtype=dtype, device="cuda", generator=gen)]
+                _, _, ok, ok_plain, err, ratio, _ = banded_errors(D, L, rhs, chunk=chunk)
+                check(ok and ok_plain and ratio <= 1.0,
+                      f"banded solve at chunk boundaries: b={b} k={k} chunk={chunk} {dtype}: "
+                      f"ok {ok}/{ok_plain}, err {err:.3e} is {ratio:.3g} x the tolerance")
+                m = banded_kernels.default_chunk(k) if chunk is None else chunk
+                rows.append(dict(dtype=str(dtype).split(".")[1], b=b, k=k, chunk=m,
+                                 chunks=-(-k // m), max_abs_err=err, err_over_tol=ratio))
         for b in (1, 4, 8, 32):
             D, L = banded_blocks(37, b, dtype, seed=b, bad_block=2)
             rhs = [torch.ones(37, b, dtype=dtype, device="cuda")]
@@ -1990,6 +2022,7 @@ def kernel_banded_cases():
     except ValueError:
         refused = True
     check(refused, "the banded factor kernel must refuse b = 33")
+    banded_kernels.banded_check()
     return rows
 
 
@@ -2081,6 +2114,7 @@ def phase_banded():
             x, y, z, st, wall, peak, counts = counted_solve(qp, ctl, ipm_solve_banded)
         with fused_path(False):
             xd, yd, zd, sd, wall_d, peak_d, counts_d = counted_solve(qp, ctl, ipm_solve_banded)
+        banded_kernels.banded_check()         # no solve gave up waiting for a chunk
         check(st.run.path == "graph" and sd.run.path == "direct",
               f"{what}: ran the {st.run.path} / {sd.run.path} paths")
         check(st.status == int(Status.OK) and st.iter == iters,
@@ -2168,13 +2202,66 @@ def banded_path_blocks(name):
     return seen
 
 
+def banded_last_iteration_blocks(name):
+    """The (D, L) block sets that ``BandedQP.build_kkt`` factors at the last
+    iteration of ``ipm_solve_banded`` on ``BANDED_CASES[name]`` (direct
+    path), in their order: as many as one iteration factors (the PCG mode
+    two, G and the preconditioner; the other modes one)."""
+    from galahad_tpu_torch.qp import ipm_banded
+    from galahad_tpu_torch.qp.ipm_banded import ipm_solve_banded
+
+    ctl = IPMControl(**BANDED_CTL)
+    (n, h, m), (iters, _) = BANDED_CASES[name]
+    qp = banded_problem(n, h, m)
+    per_iteration = banded_expected_per_replay(qp, ctl)[0]
+    seen = []
+    factor = ipm_banded.block_tridiag_cholesky
+
+    def record(D, L):
+        seen.append((D, L))
+        del seen[:-per_iteration]
+        return factor(D, L)
+
+    ipm_banded.block_tridiag_cholesky = record
+    try:
+        with fused_path(False):
+            _, _, _, st = ipm_solve_banded(qp, ctl)
+    finally:
+        ipm_banded.block_tridiag_cholesky = factor
+    check(st.status == 0 and st.iter == iters,
+          f"banded last-iteration blocks of {name}: status {st.status}, {st.iter} iterations")
+    return seen
+
+
+def banded_rel_residual(D, L, x, rhs) -> float:
+    """||A x - rhs|| / (||A|| ||x||) in max norms, for the block-tridiagonal
+    A of (D, L)."""
+    from galahad_tpu_torch.linalg.banded import block_tridiag_matvec
+
+    rows = D.abs().sum(-1)
+    if D.shape[0] > 1:
+        rows[1:] += L.abs().sum(-1)
+        rows[:-1] += L.abs().sum(-2)
+    r = (block_tridiag_matvec(D, L, x) - rhs).abs().max()
+    return float(r) / (float(rows.max()) * float(x.abs().max()))
+
+
 def phase_banded_path_kernels():
     """Both banded kernels against their plain versions (f64, ``TOL``) on
-    every block set that the banded phase's problems factor, at the
-    starting point: the shapes the main path gives the kernels, k = 2,500
-    and k = 125,000 block rows of b = 8; the solve with one right-hand
-    side.  Returns the Schur-complement blocks of the LP at n = 20,000,
-    which the ``kernels`` line times."""
+    every block set that the banded phase's problems factor at the starting
+    point: the shapes the main path gives the kernels, k = 2,500 and
+    k = 125,000 block rows of b = 8; the solve with one right-hand side.
+    Then the sets of each problem's last iteration, held by relative
+    residual: the kernels' solve (its rows in chunks) within 10 x the
+    sequential solve's + 1e-15 on the same factors (the plain solve at
+    k = 2,500; at k = 125,000 the kernel with one chunk, the sequential
+    order, where the plain loop would take ~15 s), two runs bitwise equal.
+    Returns the Schur-complement blocks of the LP at n = 20,000 at the
+    starting point, which the ``kernels`` line times."""
+    from galahad_tpu_torch.linalg.banded import (BlockTridiagFactors,
+                                                 block_tridiag_cholesky_plain,
+                                                 block_tridiag_solve_plain)
+
     t0 = time.perf_counter()
     rows, timed = [], None
     for name in BANDED_CASES:
@@ -2188,12 +2275,46 @@ def phase_banded_path_kernels():
             check(ok and ok_plain and ratio <= 1.0,
                   f"banded kernels on {name}'s blocks {i} (k={k}, b={b}): ok {ok}/{ok_plain}, "
                   f"err {err:.3e} is {ratio:.3g} x the tolerance")
-            rows.append(dict(problem=name, blocks=i, k=k, b=b, dtype=str(D.dtype).split(".")[1],
-                             max_abs_err=err, err_over_tol=ratio,
-                             seconds=time.perf_counter() - t1))
+            rows.append(dict(problem=name, iteration="start", blocks=i, k=k, b=b,
+                             dtype=str(D.dtype).split(".")[1], max_abs_err=err,
+                             err_over_tol=ratio, seconds=time.perf_counter() - t1))
             if name == "lp_n20000":
                 timed = (D, L, rhs, Ld, Lo, ok, err, x)
             del Ld, Lo, x
+    for name in BANDED_CASES:
+        for i, (D, L) in enumerate(banded_last_iteration_blocks(name)):
+            k, b = D.shape[0], D.shape[1]
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(100 + i)
+            rhs = torch.randn(k, b, dtype=D.dtype, device="cuda", generator=gen)
+            t1 = time.perf_counter()
+            Ld, Lo, ok = banded_kernels.block_tridiag_factor(D, L)
+            x = banded_kernels.block_tridiag_solve(Ld, Lo, rhs)
+            check(same_bits(x, banded_kernels.block_tridiag_solve(Ld, Lo, rhs)),
+                  f"banded solve on {name}'s last blocks {i}: two runs differ")
+            fac = BlockTridiagFactors(Ld, Lo, ok)
+            extra = {}
+            if k <= 2500:
+                x_seq, seq = block_tridiag_solve_plain(fac, rhs), "plain"
+                fp = block_tridiag_cholesky_plain(D, L)
+                extra = dict(factor_err_over_tol=max(
+                    float((got - want).abs().max()) / (TOL[D.dtype] * float(want.abs().max()))
+                    for got, want in ((Ld, fp.Ld), (Lo, fp.Lo))))
+            else:
+                x_seq, seq = banded_kernels.block_tridiag_solve(Ld, Lo, rhs, chunk=k), "one chunk"
+            res, res_seq = banded_rel_residual(D, L, x, rhs), banded_rel_residual(D, L, x_seq, rhs)
+            bound = 10.0 * res_seq + 1e-15
+            check(bool(ok) and bool(torch.isfinite(x).all()) and res <= bound,
+                  f"banded kernels on {name}'s last-iteration blocks {i} (k={k}): ok {bool(ok)}, "
+                  f"relative residual {res:.3e} against the sequential solve's {res_seq:.3e}")
+            diag = torch.diagonal(D, dim1=-2, dim2=-1)
+            rows.append(dict(problem=name, iteration="last", blocks=i, k=k, b=b,
+                             dtype=str(D.dtype).split(".")[1], rel_residual=res,
+                             sequential_rel_residual=res_seq, sequential=seq, bound=bound,
+                             diag_range=[float(diag.min()), float(diag.max())],
+                             seconds=time.perf_counter() - t1, **extra))
+            del Ld, Lo, x, x_seq
+    banded_kernels.banded_check()
     emit("banded_path_kernels", cases=rows, seconds=time.perf_counter() - t0)
     return timed
 
@@ -2230,6 +2351,7 @@ def banded_kernel_entries(launches, timed):
     del A, C
     f_bound, f_by = banded_kernels.bound_ms(banded_kernels.factor_bound_terms(k, b, D.dtype))
     s_bound, s_by = banded_kernels.bound_ms(banded_kernels.solve_bound_terms(k, b, 1, D.dtype))
+    sched = banded_kernels.solve_schedule(k, banded_kernels.default_chunk(k))
     for key in ("banded_factor", "banded_solve"):
         check(launches[key] > 0, f"the banded phase launched no {key} kernel")
     common = dict(route="cuda", source=BANDED_SOURCE, k=k, b=b, dtype="float64",
@@ -2241,12 +2363,15 @@ def banded_kernel_entries(launches, timed):
              max_abs_err=err, ms=f_ms, device_ms=f_dev, plain_ms=f_plain, bound_ms=f_bound,
              bound_by=f_by, library_ms=lib_f,
              library="torch.linalg.cholesky of the dense (k b)^2 matrix",
-             device_us_per_step=f_dev / k * 1e3, **common),
+             critical_path_steps=k, device_us_per_step=f_dev / k * 1e3, **common),
         dict(name="banded_solve", replaces=TPU_BANDED_SOLVE, launches=launches["banded_solve"],
              max_abs_err=err, ms=s_ms, device_ms=s_dev, plain_ms=s_plain, bound_ms=s_bound,
              bound_by=s_by, library_ms=lib_s,
              library="two torch.linalg.solve_triangular on the dense Cholesky factor",
-             library_max_abs_diff=lib_err, device_us_per_step=s_dev / (2 * k) * 1e3, **common)]
+             library_max_abs_diff=lib_err, chunk=sched["chunk"], chunks=sched["chunks"],
+             critical_path_steps=sched["critical_path_steps"],
+             device_us_per_step=s_dev / sched["critical_path_steps"] * 1e3,
+             device_us_per_row_and_direction=s_dev / (2 * k) * 1e3, **common)]
 
 
 def main() -> int:

@@ -124,6 +124,69 @@ def block_tridiag_solve_plain(f: BlockTridiagFactors, rhs):
     return out[..., 0] if vec else out
 
 
+def block_tridiag_solve_partitioned_plain(f: BlockTridiagFactors, rhs, chunk: int):
+    """The schedule of the solve kernel (csrc/banded.cu) in plain PyTorch, for
+    the tests: the k block rows in chunks of ``chunk``, per direction in three
+    phases.  (1) Each chunk with an inflow (every chunk but the first in the
+    direction) runs its substitution from zero inflow, giving the solution
+    yh at its last row, and pushes the b unit inflows through the same
+    substitution, giving its transfer T with y_last = yh + T y_inflow;
+    (2) in chunk order, y_last = yh + T y_inflow from the value the chunk
+    before published, and published in turn; (3) each chunk runs its
+    substitution again from that inflow.  The first chunk of a direction
+    runs once, from no inflow, and publishes its last row.  Same contract as
+    :func:`block_tridiag_solve_plain`; the two differ only by the rounding
+    the published inflows carry."""
+    Ld, Lo = f.Ld, f.Lo
+    k, b, _ = Ld.shape
+    vec = rhs.ndim == 2
+    if vec:
+        rhs = rhs[..., None]
+    nr = rhs.shape[-1]
+    chunk = min(int(chunk), k)
+    starts = list(range(0, k, chunk))
+
+    def fwd_row(i, v, z):           # Ld_i^-1 (v - Lo_{i-1} z); z None: no coupling
+        t = v if z is None else v - Lo[i - 1] @ z
+        return torch.linalg.solve_triangular(Ld[i], t, upper=False)
+
+    def bwd_row(i, v, z):           # Ld_i^-T (v - Lo_i' z)
+        t = v if z is None else v - Lo[i].mT @ z
+        return torch.linalg.solve_triangular(Ld[i].mT, t, upper=True)
+
+    def sweep(rows, step, src, unit):
+        """One direction over the chunks (``rows``: each chunk's rows in the
+        order of the direction); ``unit(i)``: the coupling block whose
+        columns phase 1 pushes through from the chunk's first row ``i``."""
+        sol = [None] * k
+        published = None
+        for j, idx in enumerate(rows):
+            if j == 0:
+                z = None
+                for i in idx:
+                    z = sol[i] = step(i, src[i], z)
+                published = z
+                continue
+            # phase 1: zero inflow (nr columns) and the b unit inflows at once
+            i0 = idx[0]
+            Z = step(i0, torch.cat([src[i0], -unit(i0)], dim=1), None)
+            for i in idx[1:]:
+                Z = step(i, torch.cat([src[i], torch.zeros_like(Z[:, nr:])], dim=1), Z)
+            yh, T = Z[:, :nr], Z[:, nr:]
+            # phase 2, then phase 3 from the inflow the chunk before published
+            inflow, published = published, yh + T @ published
+            z = inflow
+            for i in idx:
+                z = sol[i] = step(i, src[i], z)
+        return torch.stack(sol)
+
+    fwd_rows = [list(range(s, min(s + chunk, k))) for s in starts]
+    y = sweep(fwd_rows, fwd_row, rhs, lambda i: Lo[i - 1])
+    bwd_rows = [list(range(min(s + chunk, k) - 1, s - 1, -1)) for s in reversed(starts)]
+    x = sweep(bwd_rows, bwd_row, y, lambda i: Lo[i].mT)
+    return x[..., 0] if vec else x
+
+
 # ---------------------------------------------------------------------------
 # Entry points
 # ---------------------------------------------------------------------------

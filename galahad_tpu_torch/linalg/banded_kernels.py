@@ -13,12 +13,13 @@ on the current stream (and count the launch) or raise.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from .ldlt_kernels import H100_BYTES_PER_S, H100_FLOPS, _launch
 
-MAX_BLOCK = 32           # blocks of 1..32: a lane of the kernels' warp per row
+MAX_BLOCK = 32           # blocks of 1..32: the factor's warp holds a block row a lane
 
 _counts = dict(factor=0, solve=0, factor_plain=0, solve_plain=0)
 
@@ -46,18 +47,92 @@ def _library():
     from ._cuda_build import load_cuda_library
 
     lib = load_cuda_library("banded.cu")
+    _status_word()                       # before any graph capture: pinned host memory
     if not getattr(lib, "_typed", False):
         for fn in (lib.banded_factor_f32, lib.banded_factor_f64):
             fn.argtypes = [_PTR, _PTR, _PTR, _PTR, _PTR, ctypes.c_int, ctypes.c_int, _PTR]
             fn.restype = ctypes.c_int
         for fn in (lib.banded_solve_f32, lib.banded_solve_f64):
             fn.argtypes = [_PTR, _PTR, _PTR, _PTR, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                           _PTR]
+                           ctypes.c_int, _PTR, _PTR, _PTR]
             fn.restype = ctypes.c_int
         lib.banded_error_string.argtypes = [ctypes.c_int]
         lib.banded_error_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib
+
+
+_status = None           # int32 in pinned host memory: set by a solve whose wait gave up
+
+
+def _status_word() -> torch.Tensor:
+    global _status
+    if _status is None:
+        _status = torch.zeros(1, dtype=torch.int32).pin_memory()
+    return _status
+
+
+def banded_check() -> None:
+    """Synchronise the card and raise if a solve gave up waiting for a chunk
+    before its own (it then wrote NaN where it waited; the chunk order of the
+    kernel makes every wait end, so this reports a fault).  The wrapper asks
+    the same at each call, without synchronising."""
+    torch.cuda.synchronize()
+    _raise_if_a_solve_gave_up()
+
+
+def _raise_if_a_solve_gave_up() -> None:
+    if _status is not None and int(_status[0]):
+        raise RuntimeError("a block-tridiagonal solve gave up waiting for the chunk before "
+                           "its own: its result holds NaN")
+
+
+# ---------------------------------------------------------------------------
+# The solve's schedule: chunks of block rows
+# ---------------------------------------------------------------------------
+
+
+def block_tile(b: int) -> int:
+    """The block size the kernels are compiled for that holds b: the next
+    power of two (b < it is padded in shared memory)."""
+    return 1 << (b - 1).bit_length()
+
+
+def default_chunk(k: int) -> int:
+    """Block rows per chunk of the solve kernel: about sqrt(1.5 k), which
+    balances the 4 m row steps of a solve's critical path against its 2 P
+    hops between chunks (P = k / m; on an H100 a row step of b = 8 costs
+    about 0.35 us and a hop about 0.5 us, tools/banded_bench.py)."""
+    return max(1, math.ceil(math.sqrt(1.5 * k)))
+
+
+def solve_schedule(k: int, chunk: int) -> dict:
+    """The solve kernel's schedule of k block rows in chunks of ``chunk``:
+    ``chunks`` (P) and ``critical_path_steps``, the dependent steps of one
+    solve (both directions) when a row step and a hop between chunks each
+    count one.  Per direction: the first chunk runs its rows from no
+    inflow; every other chunk first runs them from zero inflow (phase 1,
+    from the start), then takes its inflow from the chunk before (one hop),
+    then runs them again (phase 3).  The backward items start when their
+    chunk's forward rows are written."""
+    chunk = min(chunk, k)
+    P = -(-k // chunk)
+    lens = [min(chunk, k - j * chunk) for j in range(P)]
+    pub = 0
+    done_f = []
+    for j, n in enumerate(lens):
+        pub = n if j == 0 else max(n, pub) + 1
+        done_f.append(pub if j == 0 else pub + n)
+    end = 0
+    for j in range(P - 1, -1, -1):
+        n = lens[j]
+        if j == P - 1:
+            pub = done_f[j] + n
+            end = max(end, pub)
+        else:
+            pub = max(done_f[j] + n, pub) + 1
+            end = max(end, pub + n)
+    return dict(chunk=chunk, chunks=P, critical_path_steps=end)
 
 
 def _check(name: str, t: torch.Tensor, shape, like: torch.Tensor) -> None:
@@ -101,10 +176,12 @@ def block_tridiag_factor(D: torch.Tensor, L: torch.Tensor):
     return Ld, Lo, ok
 
 
-def block_tridiag_solve(Ld: torch.Tensor, Lo: torch.Tensor, rhs: torch.Tensor):
+def block_tridiag_solve(Ld: torch.Tensor, Lo: torch.Tensor, rhs: torch.Tensor, chunk=None):
     """x with A x = rhs for the factors (Ld, Lo); ``rhs`` (k, b) or (k, b, r):
-    one launch of the solve kernel (forward and backward sweep, a warp per
-    right-hand side) on the current stream."""
+    one launch of the solve kernel (forward and backward sweep, the rows in
+    chunks of ``chunk`` on many blocks; default :func:`default_chunk`; one
+    chunk of k rows is the sequential solve) on the current stream, after
+    one memset of its workspace."""
     if Ld.dim() != 3 or Ld.shape[1] != Ld.shape[2]:
         raise ValueError(f"Ld must be (k, b, b), got {tuple(Ld.shape)}")
     k, b = Ld.shape[0], Ld.shape[1]
@@ -115,13 +192,24 @@ def block_tridiag_solve(Ld: torch.Tensor, Lo: torch.Tensor, rhs: torch.Tensor):
         raise ValueError(f"rhs must be (k, b) or (k, b, r), got {tuple(rhs.shape)}")
     nrhs = rhs.shape[2] if rhs.dim() == 3 else 1
     _check("rhs", rhs, (k, b) + tuple(rhs.shape[2:]), Ld)
+    m = default_chunk(k) if chunk is None else int(chunk)
+    if m < 1:
+        raise ValueError(f"chunk must be at least 1, got {chunk}")
+    m = min(m, k)
     out = torch.empty_like(rhs)
     if nrhs == 0:
         return out
+    _raise_if_a_solve_gave_up()
+    P = -(-k // m)
+    # the kernel's workspace: each chunk's published rows, its ticket and flags
+    size = torch.finfo(Ld.dtype).bits // 8
+    work = torch.empty(nrhs * (2 * P * block_tile(b) * size + 4 * (1 + P)), dtype=torch.uint8,
+                       device=Ld.device)
     lib = _library()
     fn = lib.banded_solve_f64 if Ld.dtype == torch.float64 else lib.banded_solve_f32
     _launch("block_tridiag_solve", fn, lib.banded_error_string, Ld.device,
-            Ld.data_ptr(), Lo.data_ptr(), rhs.data_ptr(), out.data_ptr(), k, b, nrhs)
+            Ld.data_ptr(), Lo.data_ptr(), rhs.data_ptr(), out.data_ptr(), k, b, nrhs, m,
+            work.data_ptr(), _status_word().data_ptr())
     _counts["solve"] += 1
     return out
 

@@ -879,6 +879,75 @@ def test_banded_kernels_match_plain(cuda, dtype, tol, b, k):
     assert after["factor"] - before["factor"] == 2 and after["solve"] - before["solve"] == 4
 
 
+def banded_case_check(D, L, rhs, dtype, tol, chunk=None):
+    """Factor and solve against the plain versions (each tensor to ``tol``
+    times its own largest |plain value|), the solve twice bitwise equal."""
+    Ld, Lo, ok = banded_kernels.block_tridiag_factor(D, L)
+    assert bool(ok)
+    x = banded_kernels.block_tridiag_solve(Ld, Lo, rhs, chunk=chunk)
+    f, ref = banded_plain(D, L, rhs)
+    for got, want in ((Ld, f.Ld), (Lo, f.Lo), (x, ref)):
+        if want.numel():
+            err = float((got - want).abs().max())
+            assert err <= tol * max(1.0, float(want.abs().max()))
+    assert same_bits(banded_kernels.block_tridiag_solve(Ld, Lo, rhs, chunk=chunk), x)
+    return Ld, Lo, x
+
+
+# (k, chunk): one chunk, one chunk + 1 and - 1 row, a ragged last chunk,
+# chunks of one row, whole chunks and one row over, the default chunk
+BANDED_CHUNKS = [(64, 64), (65, 64), (63, 64), (100, 7), (37, 1), (2, 1), (247, 62), (248, 62),
+                 (249, 62), (2500, None)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 1e-11)])
+@pytest.mark.parametrize("b", [1, 3, 8, 32])
+@pytest.mark.parametrize("k,chunk", BANDED_CHUNKS)
+def test_the_banded_solve_at_chunk_boundaries(cuda, dtype, tol, b, k, chunk):
+    """The solve kernel's chunks at and around their boundaries, one
+    right-hand side and three, against the plain (sequential) solve."""
+    D, L = banded_blocks(k, b, dtype, cuda, seed=7 * k + b)
+    rng = np.random.default_rng(k + b)
+    for shape in ((k, b), (k, b, 3)):
+        rhs = torch.as_tensor(rng.normal(size=shape), dtype=dtype, device=cuda)
+        banded_case_check(D, L, rhs, dtype, tol, chunk=chunk)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 1e-11)])
+@pytest.mark.parametrize("b", [3, 5, 12, 27])
+def test_banded_kernels_pad_other_block_sizes(cuda, dtype, tol, b):
+    """A b that is not a power of two runs in the next one, padded in shared
+    memory with the identity: the same factors and solutions as the plain
+    versions."""
+    D, L = banded_blocks(40, b, dtype, cuda, seed=b)
+    rhs = torch.as_tensor(np.random.default_rng(b).normal(size=(40, b, 3)), dtype=dtype,
+                          device=cuda)
+    banded_case_check(D, L, rhs, dtype, tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("b", [2, 8])
+def test_banded_kernels_take_unaligned_blocks_bitwise(cuda, dtype, b):
+    """Blocks whose address a bulk copy does not take (8 or 4 bytes off 16)
+    are copied element by element: the same bits as the aligned call."""
+    k = 50
+    D, L = banded_blocks(k, b, dtype, cuda, seed=3)
+    rhs = torch.as_tensor(np.random.default_rng(3).normal(size=(k, b)), dtype=dtype, device=cuda)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=dtype, device=cuda)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16 != 0
+        return view
+
+    Ld, Lo, ok = banded_kernels.block_tridiag_factor(D, L)
+    Ld2, Lo2, ok2 = banded_kernels.block_tridiag_factor(shifted(D), shifted(L))
+    assert same_bits(Ld, Ld2) and same_bits(Lo, Lo2) and bool(ok) and bool(ok2)
+    x = banded_kernels.block_tridiag_solve(Ld, Lo, rhs)
+    assert same_bits(banded_kernels.block_tridiag_solve(shifted(Ld), shifted(Lo), rhs), x)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("b", [1, 4, 8, 32])
 def test_the_banded_factor_kernel_gives_the_identity_for_a_failed_block(cuda, dtype, b):
