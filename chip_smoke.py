@@ -87,6 +87,20 @@ JSON line per phase:
                 kernels in each replay as many times as the KKT mode calls
                 them, and no plain banded code
 
+then ``frontend``: ``qp.frontend.qp_solve`` and the command line on the card.
+The flagship as a ``SparseQP`` through ``qp_solve(QPControl())`` (x, y, z and
+host KKT bitwise equal to the ``flagship`` phase's ``ipm_solve``, every
+flagship kernel in each replay, no plain code); the dense QP of the
+``dense`` phase with ``scale=1``, ``presolve_problem`` and ``presolve_reduce``
+(status 0, host KKT <= 1e-6 in the original variables, for the scaled run in
+the scaled ones where its IPM stopped, objective within 1e-8 relative of the
+plain ``ipm_solve``'s; the seconds of ``scale_get``,
+``presolve_apply`` and ``presolve_reduce``); ``dqp`` and ``ccqp`` at n = 1024
+(the JAX package's status and iterations, two runs bitwise equal, seconds,
+host reads and H^-1 solves per DQP iteration); ``batch`` over
+examples/sweep/sweep.list against tests/frontend_sweep_oracle.json (status,
+iterations, objective within 1e-8 relative, no ERROR line) and ``solve
+--json`` on QPMIXB (the DQP rescue's result);
 then ``banded_path_kernels`` (both banded kernels on every block set the
 banded problems factor at their starting point, against the plain versions,
 and at their last iteration, by relative residual against the sequential
@@ -128,6 +142,15 @@ K_ARC_PARITY = 100
 # `JAX_PLATFORMS=cpu python tools/make_dense_oracle.py arcs 100`
 JAX_ARC_ITERS = {("taylor", 4): (0, 14), ("puiseux", 3): (0, 16), ("zhao_sun", 3): (0, 15)}
 DENSE_N, DENSE_M, DENSE_EQ = 4096, 2048, 512
+# DQP and CCQP through qp_solve on convex_qp_arrays(DQP_N, DQP_N / 2, 0,
+# equalities=DQP_N / 8): n = 1024 is the largest size at which the JAX
+# package's two solves stay well under ten minutes on the CPU (97 s and 110
+# s; at n = 4096 they ran past 20 minutes).  Its dqp_solve / ccqp_solve there,
+# float64 on the CPU (tools/make_frontend_oracle.py dense 1024), gave
+# (status, iterations, objective): both stop at maxit, unconverged
+DQP_N = 1024
+JAX_DQP = {"dqp": (-18, 200, 34872.34931029197), "ccqp": (-18, 200, 45456.67897984131)}
+FLAGSHIP_KERNELS = ("partial_ldlt", "ldlt_wide", "extend_add", "sweep_fwd", "sweep_bwd")
 TOL = {torch.float32: 1e-4, torch.float64: 1e-11}   # x max|plain result|
 TPU_KERNEL = "galahad_tpu/linalg/pallas_kernels.py:129"
 SOURCE = "galahad_tpu_torch/csrc/partial_ldlt.cu"
@@ -2373,6 +2396,223 @@ def banded_kernel_entries(launches, timed):
              device_us_per_step=s_dev / sched["critical_path_steps"] * 1e3,
              device_us_per_row_and_direction=s_dev / (2 * k) * 1e3, **common)]
 
+# ---------------------------------------------------------------------------
+# The QP front end and the command line
+# ---------------------------------------------------------------------------
+
+
+def frontend_flagship(flagship_solution):
+    """The flagship as a SparseQP through ``qp_solve(QPControl())``: the
+    IPM's bits, every flagship kernel in each replay, no plain code."""
+    from galahad_tpu_torch.qp.frontend import QPControl, qp_solve
+
+    qp = flagship_qp(K_FLAGSHIP, "cuda")
+    infos = []
+
+    def front(q, ctl):
+        x, y, z, info = qp_solve(q, ctl)
+        infos.append(info)
+        return x, y, z, info.ipm
+
+    x, y, z, st, wall, peak, counts = counted_solve(qp, QPControl(), front)
+    info = infos[0]
+    kkt = host_kkt(qp, x, y, z)[0]
+    ref = flagship_solution
+    per = st.run.launches_per_replay
+    check(info.solver == "cqp" and info.status == int(Status.OK) and info.inform is st.inform,
+          f"frontend, flagship: {info.solver} answered with status {info.status}")
+    check(st.run.path == "graph", f"frontend, flagship: ran the {st.run.path} path")
+    check(all(same_bits(a.cpu(), b) for a, b in zip((x, y, z), ref[:3])) and kkt == ref[3],
+          "frontend, flagship: x, y, z or the host KKT differ from ipm_solve's")
+    check(per is not None and all(per[k] > 0 for k in FLAGSHIP_KERNELS),
+          f"frontend, flagship: a flagship kernel is missing from the replay: {per}")
+    check(all(counts[k] == 0 for k in PLAIN_COUNTS),
+          f"frontend, flagship: plain code ran: { {k: counts[k] for k in PLAIN_COUNTS} }")
+    return dict(status=info.status, iterations=info.iter, solver=info.solver, host_kkt=kkt,
+                objective=info.obj, wall_s=wall, replays=st.run.replays,
+                launches_per_replay={k: per[k] for k in FLAGSHIP_KERNELS},
+                device_launches={k: counts[k] for k in FLAGSHIP_KERNELS},
+                plain_counts={k: counts[k] for k in PLAIN_COUNTS},
+                peak_device_memory_bytes=peak, bitwise_equal_to_ipm_solve=True)
+
+
+def synced_s(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def frontend_dense():
+    """The dense phase's QP through qp_solve with scaling and each presolve."""
+    from galahad_tpu_torch.pre import (PresolveControl, ScaleControl, presolve_apply,
+                                       presolve_reduce, scale_apply, scale_get)
+    from galahad_tpu_torch.qp.frontend import QPControl, qp_solve
+
+    qp = make_qp(**convex_qp_arrays(DENSE_N, DENSE_M, 0, equalities=DENSE_EQ))
+    (x, _, _, st), plain_s = synced_s(lambda: ipm_solve(qp))
+    check(st.status == int(Status.OK), f"frontend, n={DENSE_N}: ipm_solve status {st.status}")
+    ref = float(qp.objective(x))
+    _, scale_s = synced_s(lambda: scale_get(qp, ScaleControl(method="sinkhorn")))
+    pinfo, apply_s = synced_s(lambda: presolve_apply(qp, PresolveControl()))
+    (red, tr), reduce_s = synced_s(lambda: presolve_reduce(qp, PresolveControl()))
+    rows = []
+    for fields in (dict(scale=1), dict(presolve_problem=True), dict(presolve_reduce=True)):
+        (x, y, z, info), wall = synced_s(lambda: qp_solve(qp, QPControl(**fields)))
+        what = f"frontend, n={DENSE_N}, {fields}"
+        check(info.status == int(Status.OK) and info.solver == "cqp",
+              f"{what}: {info.solver} status {info.status}")
+        check(x.shape == (DENSE_N,) and bool(torch.isfinite(x).all()), f"{what}: x not finite")
+        kkt = dense_host_kkt(qp, x, y, z)[0]
+        row = dict(control=fields, status=info.status, iterations=info.iter, host_kkt=kkt)
+        if fields.get("scale"):
+            # the IPM's stopping test holds on the scaled problem; back in the
+            # original variables the dual residual is divided by the column
+            # scale, so the 1e-6 is held where the IPM solved (the same
+            # Sinkhorn factors, the solution mapped back into that problem)
+            sc = scale_get(qp, ScaleControl(method="sinkhorn"))
+            kkt = dense_host_kkt(scale_apply(qp, sc), x / sc.col, y / sc.row, z * sc.col)[0]
+            row.update(host_kkt_original_variables=row.pop("host_kkt"), host_kkt_scaled=kkt,
+                       col_scale_range=[float(sc.col.min()), float(sc.col.max())],
+                       row_scale_range=[float(sc.row.min()), float(sc.row.max())])
+        obj = float(qp.objective(x))
+        rel = abs(obj - ref) / max(1.0, abs(ref))
+        check(kkt <= 1e-6, f"{what}: host KKT {kkt:.3e}")
+        check(rel <= 1e-8, f"{what}: objective {obj!r} off the plain solve's {ref!r} by {rel:.3e}")
+        rows.append(dict(row, objective=obj, objective_rel_to_plain=rel,
+                         path=info.ipm.run.path, wall_s=wall))
+    return dict(n=DENSE_N, m=DENSE_M, plain_iterations=st.iter, plain_objective=ref,
+                plain_wall_s=plain_s, scale_get_s=scale_s, presolve_apply_s=apply_s,
+                presolve_apply_tightened=int(pinfo.n_tightened),
+                presolve_apply_forced_rows=int(pinfo.n_forced_rows),
+                presolve_reduce_s=reduce_s, presolve_reduce_n_m=[red.n, red.m],
+                presolve_reduce_dropped=[tr.n_fixed, tr.n_rows_dropped], runs=rows)
+
+
+def frontend_dqp():
+    """DQP and CCQP through qp_solve at n = DQP_N: the JAX package's status
+    and iterations, two runs bitwise equal; per DQP iteration the seconds,
+    host reads and H^-1 solves.  The column read of B' against the matvec,
+    bitwise, on the card."""
+    from galahad_tpu_torch.qp.dqp import DQPControl, _dual_pieces, bt_unit
+    from galahad_tpu_torch.qp.frontend import QPControl, qp_solve
+    from galahad_tpu_torch import classify_bounds
+
+    from galahad_tpu_torch.linalg.cholesky import chol_factor_shifted, chol_solve
+
+    qp = make_qp(**convex_qp_arrays(DQP_N, DQP_N // 2, 0, equalities=DQP_N // 8))
+    # one H^-1 solve as DQP makes it (two triangular solves on the row-major factor)
+    L = chol_factor_shifted(qp.H, 0.0)[0].contiguous()
+    hinv_ms = time_ms(lambda: chol_solve(L, qp.g), reps=100)
+    del L
+    *_, Bt, _ = _dual_pieces(qp, classify_bounds(qp), DQPControl())
+    size = 2 * qp.m + 2 * qp.n
+    idx = np.random.default_rng(0).choice(size, 64, replace=False)
+    vals = torch.randn(size, dtype=torch.float64, device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(0))
+    for j in idx:
+        jj = torch.full((1,), int(j), dtype=torch.int64, device="cuda")
+        e = torch.zeros(size, dtype=torch.float64, device="cuda")
+        e[int(j)] = vals[int(j)]
+        check(torch.equal(bt_unit(qp, jj, vals[int(j)]), Bt(e)),
+              f"frontend, dqp: the column read of B' differs from the matvec at {j}")
+    rows = []
+    for name in ("dqp", "ccqp"):
+        runs = []
+        for _ in range(2):
+            (x, y, z, info), wall = synced_s(
+                lambda: qp_solve(qp, QPControl(quadratic_programming_solver=name)))
+            runs.append((x, y, z, info, wall))
+        x, y, z, info, wall = runs[0]
+        d = info.dqp
+        status, iters, obj = JAX_DQP[name]
+        check((info.status, info.iter) == (status, iters),
+              f"frontend, {name}: status {info.status}, {info.iter} iterations; the JAX "
+              f"package gives {status}, {iters}")
+        check(info.solver == "dqp" and bool(torch.isfinite(x).all()),
+              f"frontend, {name}: answered by {info.solver}, x finite: "
+              f"{bool(torch.isfinite(x).all())}")
+        check(all(same_bits(a, b) for a, b in zip((x, y, z), runs[1][:3]))
+              and runs[1][3].iter == info.iter, f"frontend, {name}: two runs differ")
+        kkt, r_p, r_d, comp = dense_host_kkt(qp, x, y, z)
+        rows.append(dict(solver=name, status=info.status, iterations=info.iter,
+                         objective=info.obj, jax_objective=obj,
+                         objective_rel_to_jax=abs(info.obj - obj) / abs(obj),
+                         norm_pg=d.norm_pg, host_kkt=kkt, host_r_p=r_p, host_r_d=r_d,
+                         host_comp=comp, wall_s=[r[4] for r in runs],
+                         s_per_dqp_iteration=wall / max(d.iter, 1),
+                         host_reads=d.host_reads,
+                         host_reads_per_iteration=d.host_reads / max(d.iter, 1),
+                         hinv_solves=d.hinv_solves,
+                         hinv_solves_per_iteration=d.hinv_solves / max(d.iter, 1),
+                         hinv_share_of_wall=d.hinv_solves * hinv_ms / 1e3 / wall,
+                         two_runs_bitwise_equal=True))
+    return dict(n=qp.n, m=qp.m, column_read_bitwise_equal_matvec=len(idx), hinv_ms=hinv_ms,
+                runs=rows)
+
+
+def frontend_cli(root):
+    """The command line on the card: ``batch`` over the sweep list against the
+    front end's oracle, and ``solve --json`` on QPMIXB."""
+    import io
+    import tempfile
+
+    from galahad_tpu_torch import cli
+
+    with open(os.path.join(root, "tests", "frontend_sweep_oracle.json")) as fh:
+        oracle = json.load(fh)["fixtures"]
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(root):
+        out = os.path.join(tmp, "RES.d")
+        t0 = time.perf_counter()
+        rc = cli.main(["batch", "examples/sweep/sweep.list", "--out", out])
+        batch_s = time.perf_counter() - t0
+        with open(out) as fh:
+            lines = fh.read().splitlines()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc_solve = cli.main(["solve", "examples/sweep/QPMIXB.qplib", "--json"])
+        solve_s = time.perf_counter() - t0
+    check(len(lines) == 20 and not any(" ERROR " in ln for ln in lines),
+          f"frontend, batch: {len(lines)} lines, errors: {[ln for ln in lines if ' ERROR ' in ln]}")
+    rows = []
+    for line in lines:
+        f = line.split()
+        name, status, obj, iters, wall = f[0], int(f[3]), float(f[4]), int(f[8]), float(f[9])
+        ref = oracle[name]
+        check((status, iters) == (ref["status"], ref["iter"]),
+              f"frontend, batch, {name}: status {status}, {iters} iterations; the oracle "
+              f"gives {ref['status']}, {ref['iter']}")
+        rel = abs(obj - ref["obj"]) / max(1.0, abs(ref["obj"]))
+        check(rel <= 1e-8, f"frontend, batch, {name}: objective off by {rel:.3e} relative")
+        rows.append(dict(name=name, status=status, iterations=iters, solver=ref["solver"],
+                         objective_rel=rel, wall_s=wall))
+    check(sorted(r["name"] for r in rows) == sorted(oracle), "frontend, batch: fixtures missing")
+    check(rc == (1 if any(v["status"] != 0 for v in oracle.values()) else 0),
+          f"frontend, batch: exit code {rc}")
+    r = json.loads(buf.getvalue().splitlines()[-1])
+    ref = oracle["QPMIXB"]
+    rel = abs(r["objective"] - ref["obj"]) / abs(ref["obj"])
+    check(rc_solve == 0 and (r["status"], r["iterations"]) == (ref["status"], ref["iter"])
+          and rel <= 1e-8, f"frontend, solve --json QPMIXB: {r}")
+    return dict(batch=rows, batch_s=batch_s, batch_exit_code=rc,
+                solve_json_qpmixb=dict(r, objective_rel=rel), solve_s=solve_s)
+
+
+def phase_frontend(flagship_solution):
+    """``qp_solve`` and the command line on the card."""
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    parts, seconds = {}, {}
+    for name, fn in (("flagship", lambda: frontend_flagship(flagship_solution)),
+                     ("dense", frontend_dense), ("dqp", frontend_dqp),
+                     ("cli", lambda: frontend_cli(root))):
+        t0 = time.perf_counter()
+        parts[name] = fn()
+        seconds[name] = time.perf_counter() - t0
+    emit("frontend", **parts, seconds=dict(seconds, total=time.perf_counter() - t_phase))
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2389,6 +2629,7 @@ def main() -> int:
         phase_repeat(qp, plan, D_x, C_diag, b)
         launches, solution = phase_flagship(qp, per_factorization)
         phase_fused(qp, solution)
+        flagship_solution = tuple(v.cpu() for v in solution[:3]) + (solution[3],)
         del solution
         line = phase_kernels(qp, plan, D_x, C_diag, b, launches)
         del plan, D_x, C_diag, b
@@ -2396,6 +2637,7 @@ def main() -> int:
         del qp
         phase_dense()
         banded_launches = phase_banded()
+        phase_frontend(flagship_solution)
         timed = phase_banded_path_kernels()
         line["kernels"] += banded_kernel_entries(banded_launches, timed)
         del timed

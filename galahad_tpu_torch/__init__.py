@@ -5,8 +5,12 @@ here; this package imports ``torch`` and keeps its own copy of what it
 needs.  Ported so far: the interior-point QP solve (``qp.ipm_solve``,
 Mehrotra or a series arc) of a sparse problem (``make_sparse_qp`` /
 ``io.qplib.read_sparse_qp``) over the flat supernodal LDL^T and its
-hand-written CUDA kernels, and of a dense one (``make_qp`` /
-``io.qplib.read_qp``) over SBLS's Schur-complement Cholesky pair.
+hand-written CUDA kernels, of a dense one (``make_qp`` /
+``io.qplib.read_qp``) over SBLS's Schur-complement Cholesky pair, and of a
+banded one (``qp.make_banded_qp``) over the block-tridiagonal kernels; the
+dual projection solvers DQP, CCQP and DLP (``qp.dqp``); the front end
+``qp.qp_solve`` with scaling and presolve (``pre``), LSQP, WCP and L1QP; and
+the command line ``python -m galahad_tpu_torch solve|batch`` (``cli``).
 
 Entry points run on the CUDA device unless the caller asks for the CPU
 (``device="cpu"``); float64 is the default precision.

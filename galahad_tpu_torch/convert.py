@@ -7,6 +7,8 @@ objects from them.  This module imports no JAX.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -15,6 +17,9 @@ from .core.problem import QP, make_qp
 from .core.sparse import COOPattern, SparseQP
 from .linalg.band_ops import BandMatrix
 from .linalg.supernodal_flat import FlatGroup, FlatPlan
+from .pre.presolve import PresolveTransform
+from .pre.scale import Scaling
+from .qp.dqp import DQPInfo
 from .qp.ipm import IPMState, device_state
 from .qp.ipm_banded import BandedQP, make_banded_qp
 
@@ -156,3 +161,39 @@ def ipm_state_from_numpy(fields: dict, dtype=None, device=None) -> IPMState:
         res_c=scalar("res_c", float("inf"), float),
         best_infeas=scalar("best_infeas", float("inf"), float),
         stall=scalar("stall", 0, int)))
+
+
+def _tensor(a, dtype=None, device=None):
+    return torch.as_tensor(np.array(a, dtype=np.float64, order="C"),
+                           device=resolve_device(device)).to(resolve_dtype(dtype))
+
+
+def scaling_from_numpy(fields: dict, dtype=None, device=None) -> Scaling:
+    """Build a Scaling from the JAX ``Scaling``'s fields as numpy arrays:
+    ``row`` (m,) and ``col`` (n,)."""
+    return Scaling(row=_tensor(fields["row"], dtype, device),
+                   col=_tensor(fields["col"], dtype, device))
+
+
+def presolve_transform_from_numpy(fields: dict) -> PresolveTransform:
+    """Build a PresolveTransform from the JAX ``PresolveTransform``'s fields
+    (host numpy arrays and Python values in both packages; ``empty``, which
+    the JAX package sets as an attribute, is read too)."""
+    names = {f.name for f in dataclasses.fields(PresolveTransform)}
+    kw = {k: v for k, v in fields.items() if k in names}
+    for k in ("keep_x", "keep_c", "x_fixed_val", "x_fixed", "transfer_row",
+              "transfer_coef", "x_l0", "x_u0", "c_l0", "c_u0", "H", "g", "A"):
+        if kw.get(k) is not None:
+            kw[k] = np.array(kw[k])
+    kw["merged_rows"] = [(int(i), int(k), float(s)) for i, k, s in kw.get("merged_rows") or []]
+    return PresolveTransform(**kw)
+
+
+def dqp_info_from_numpy(fields: dict, dtype=None, device=None) -> DQPInfo:
+    """Build a DQPInfo from the JAX ``DQPInfo``'s fields as numpy arrays:
+    ``x``, ``y``, ``z`` and the scalars ``obj``, ``iter``, ``converged``,
+    ``status``, ``norm_pg``."""
+    return DQPInfo(x=_tensor(fields["x"], dtype, device), y=_tensor(fields["y"], dtype, device),
+                   z=_tensor(fields["z"], dtype, device), obj=float(fields["obj"]),
+                   iter=int(fields["iter"]), converged=bool(fields["converged"]),
+                   status=int(fields["status"]), norm_pg=float(fields["norm_pg"]))

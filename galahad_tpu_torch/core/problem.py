@@ -1,8 +1,8 @@
 """The dense QP container, bound classification and input checks.
 
 Counterpart of galahad_tpu/core/problem.py: ``INFINITY``,
-``canonical_dtype``, ``QP`` (with its constructor ``make_qp``),
-``BoundMasks``, ``classify_bounds`` and ``check_qp``.  The ``NLP``
+``canonical_dtype``, ``QP`` (with its constructor ``make_qp`` and the guard
+``require_dense``), ``BoundMasks``, ``classify_bounds`` and ``check_qp``.  The ``NLP``
 container is not ported yet.
 """
 from __future__ import annotations
@@ -156,6 +156,14 @@ def make_qp(*, g, A=None, c_l=None, c_u=None, x_l=None, x_u=None, H=None,
               x_l=vec(x_l, -INFINITY, n), x_u=vec(x_u, INFINITY, n),
               H=None if h_kind in ("zero", "identity") else dev(H),
               f=float(f), x=dev(x), y=dev(y), z=dev(z), name=name, h_kind=h_kind)
+
+
+def require_dense(qp, where: str) -> None:
+    """Refuse anything but a dense ``QP`` (a ``SparseQP`` or ``BandedQP`` has
+    no dense H and A) with a ``TypeError`` that says so."""
+    if not isinstance(qp, QP):
+        raise TypeError(f"{where} takes a dense QP (make_qp / read_qp), "
+                        f"not a {type(qp).__name__}")
 
 
 @dataclasses.dataclass

@@ -1,4 +1,5 @@
-"""QP solvers of the port (the interior-point method: sparse, banded and dense)."""
+"""QP solvers of the port: the interior-point method (sparse, banded and
+dense), DQP / CCQP, the named wrappers and the ``qp_solve`` front end."""
 from .ipm import (  # noqa: F401
     IPMControl,
     IPMInform,
@@ -17,4 +18,9 @@ from .ipm_banded import (  # noqa: F401
     ipm_solve_banded_compiled,
     make_banded_qp,
 )
-from .wrappers import bqpb_solve, lpb_solve  # noqa: F401
+from .dqp import DQPControl, DQPInfo, ccqp_solve, dqp_solve  # noqa: F401
+from .frontend import (  # noqa: F401
+    L1QPControl, QPControl, QPInfo, WCPControl,
+    l1qp_solve, lsqp_solve, qp_solve, wcp_solve,
+)
+from .wrappers import bqpb_solve, dlp_solve, lpb_solve  # noqa: F401

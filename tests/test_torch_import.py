@@ -27,6 +27,11 @@ import galahad_tpu_torch.native
 import galahad_tpu_torch.qp.ipm
 import galahad_tpu_torch.qp.ipm_banded
 import galahad_tpu_torch.qp.wrappers
+import galahad_tpu_torch.qp.dqp
+import galahad_tpu_torch.qp.frontend
+import galahad_tpu_torch.pre.scale
+import galahad_tpu_torch.pre.presolve
+import galahad_tpu_torch.cli
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
