@@ -6,12 +6,12 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 It needs one CUDA device, ``nvcc`` and ``g++``; it builds the native
-symbolic library and the five CUDA sources from this checkout (into
-``galahad_tpu_torch/_build/``, all six at once), then runs, printing one
+symbolic library and the seven CUDA sources from this checkout (into
+``galahad_tpu_torch/_build/``, all eight at once), then runs, printing one
 JSON line per phase:
 
   1. device     card name and power limit, torch and CUDA versions
-  2. build      build seconds of the six libraries
+  2. build      build seconds of the eight libraries
   3. kernel     every kernel against its plain PyTorch version on the
                 card, with time and bound per shape: the small-front
                 partial LDL^T at Fpad in {8..128} x nb in {1, 37, 4096} x
@@ -101,6 +101,25 @@ host reads and H^-1 solves per DQP iteration); ``batch`` over
 examples/sweep/sweep.list against tests/frontend_sweep_oracle.json (status,
 iterations, objective within 1e-8 relative, no ERROR line) and ``solve
 --json`` on QPMIXB (the DQP rescue's result);
+then ``tr``: the trust-region subproblems on the card, their main path run
+with the secular and tridiagonal kernels' counters set to 0 before and read
+after: the reference's headline batch (1,024 TRS of n = 64, bench.py:81)
+through ``trs_solve``, ``trs_solve_chol``, ``rqs_solve`` (sigma = 1/radius,
+p = 3) and ``dps_solve`` in both norms, f64 and f32, each twice (bitwise
+equal), against tests/trs_oracle.json (f64: obj and multiplier within 1e-10
+relative, flags equal) and the port's CPU run of the same call on its first
+256 problems (``TR_TOL``), timed by the bench's chained two-point slope with
+``eigh``'s share; both secular kernels against their plain versions on the
+inputs those calls give them and on a batch of hard cases and equality problems (s within 1e-12 /
+1e-5 relative, the batch position changing no bit); the tridiagonal LDL'
+entry points on 1,024 systems of k = 64 and one chain of k = 1,000,000
+against the plain versions (``TRIDIAG_TOL``) and by residual; the sparse TRS
+at n = 99,856 (the grid Laplacian of grid_qp_coo(316) minus 3 I, radius 1.5,
+with M = 2 I, a contract to 0.75, and a hard case) held by its optimality
+conditions in float64 with scipy, with the flagship kernels launched and no
+plain code; and the Krylov solvers (GLTR, GLRT, LQR, LQT on that H, LSTR,
+LSRT, L2RT on the flagship's A, LLST and LLS on dense A) against their CPU
+runs (iter equal, x within 1e-8 relative);
 then ``banded_path_kernels`` (both banded kernels on every block set the
 banded problems factor at their starting point, against the plain versions,
 and at their last iteration, by relative residual against the sequential
@@ -108,7 +127,8 @@ solve's), then the ``kernels`` line (seven entries: the five of the
 flagship's path, measured after the ``fused`` phase, and the two banded
 kernels, on the Schur-complement blocks of the banded LP at n = 20,000, with
 the library's dense Cholesky and triangular solves of the same matrix as
-their yardstick, and their critical-path steps)
+their yardstick, and their critical-path steps, and the four kernels of the
+``tr`` phase)
 and, as its last line, ``{"ok": true, "device": {...}}``.  Any failed
 phase ends the run with a non-zero exit code and no such line.  Without
 a CUDA device it exits non-zero at once; nothing here runs the port on
@@ -335,11 +355,12 @@ def phase_device():
 
 
 def phase_build():
-    """Build the six libraries at once (one compiler process each)."""
+    """Build the eight libraries at once (one compiler process each)."""
     import threading
 
-    from galahad_tpu_torch.linalg import _cuda_build
+    from galahad_tpu_torch.linalg import _cuda_build, tridiag_kernels
     from galahad_tpu_torch.native import build as native_build
+    from galahad_tpu_torch.tr import secular_kernels
 
     seconds: dict = {}
     errors: list = []
@@ -357,7 +378,9 @@ def phase_build():
             ("ldlt_wide_s", ldlt_kernels._wide_library),
             ("sweep_s", sweep_kernels._library),
             ("extend_add_s", ea_kernels._library),
-            ("banded_s", banded_kernels._library)]
+            ("banded_s", banded_kernels._library),
+            ("secular_s", secular_kernels._library),
+            ("tridiag_s", tridiag_kernels._library)]
     t0 = time.perf_counter()
     threads = [threading.Thread(target=timed, args=j) for j in jobs]
     for th in threads:
@@ -366,7 +389,8 @@ def phase_build():
         th.join()
     check(not errors, "build failed: " + " | ".join(errors))
     ptxas = {}
-    for src in ("partial_ldlt.cu", "ldlt_wide.cu", "sweep.cu", "extend_add.cu", "banded.cu"):
+    for src in ("partial_ldlt.cu", "ldlt_wide.cu", "sweep.cu", "extend_add.cu", "banded.cu",
+                "secular.cu", "tridiag.cu"):
         log = _cuda_build.build_info.get(src, {}).get("log", "")
         ptxas[src] = [ln.split("ptxas info    : ")[-1] for ln in log.splitlines()
                       if "registers" in ln or "error" in ln.lower()
@@ -2614,6 +2638,703 @@ def phase_frontend(flagship_solution):
     emit("frontend", **parts, seconds=dict(seconds, total=time.perf_counter() - t_phase))
 
 
+# ---------------------------------------------------------------------------
+# The trust-region subproblems (the ``tr`` phase)
+# ---------------------------------------------------------------------------
+
+SECULAR_SOURCE = "galahad_tpu_torch/csrc/secular.cu"
+TRIDIAG_SOURCE = "galahad_tpu_torch/csrc/tridiag.cu"
+TPU_TRS_NEWTON = ("galahad_tpu/tr/trs.py:93 _secular_newton (lax.fori_loop :135; XLA, "
+                  "no Pallas)")
+TPU_RQS_NEWTON = ("galahad_tpu/tr/trs.py:242 rqs_solve's loops (lax.while_loop :301, "
+                  "lax.fori_loop :319; XLA, no Pallas)")
+TPU_TRIDIAG_FACTOR = ("galahad_tpu/linalg/cholesky.py:87 tridiag_factor (lax.scan :102; XLA, "
+                      "no Pallas)")
+TPU_TRIDIAG_SOLVE = ("galahad_tpu/linalg/cholesky.py:109 tridiag_solve (lax.scan :118 / :130; "
+                     "XLA, no Pallas)")
+TR_BATCH, TR_N = 1024, 64            # the reference's headline batch (bench.py:81)
+TR_SOLVERS = ("trs", "chol", "rqs", "dps", "dps_goldfarb")
+TR_CPU = 256                         # problems of the headline batch run again on the host
+# obj (and multiplier) relative to tests/trs_oracle.json (float64 results of
+# the JAX package: held in f64 only; in f32 recorded) and to the port's CPU
+# run of the same call; s of the secular kernels relative to their plain
+# versions.  f32: the CPU run and the card each lie ~1e-4-3e-3 from the f64
+# answer (the eigenvalues in f32; rqs's sigma ||x||^3 term), so 1e-2.
+TR_TOL = {torch.float64: dict(oracle=1e-10, cpu=1e-10, s=1e-12),
+          torch.float32: dict(oracle=None, cpu=1e-2, s=1e-5)}
+TRIDIAG_CHAIN = 1_000_000            # the long chain of the tridiagonal kernels
+TRIDIAG_PREFIX = 20_000              # its rows held to the plain factor on the host
+# kernel against plain, relative to the largest value: the plain version on the
+# card rounds l e before the difference, the kernel does not (one rounding per
+# step along a diagonally dominant chain)
+TRIDIAG_TOL = {torch.float64: 1e-13, torch.float32: 1e-5}
+SPARSE_RADIUS, SPARSE_CONTRACT, SPARSE_SHIFT = 1.5, 0.75, 3.0
+FLAGSHIP_PLAIN = ("ldlt_wide_plain", "extend_add_plain", "sweep_plain")
+
+
+def tr_counts() -> dict:
+    from galahad_tpu_torch.linalg import tridiag_kernels
+    from galahad_tpu_torch.tr import secular_kernels
+
+    out = dict(secular_kernels.secular_counts())
+    out.update({"tridiag_" + k: v for k, v in tridiag_kernels.tridiag_counts().items()})
+    return out
+
+
+def reset_tr_counts() -> None:
+    from galahad_tpu_torch.linalg import tridiag_kernels
+    from galahad_tpu_torch.tr import secular_kernels
+
+    secular_kernels.reset_secular_counts()
+    tridiag_kernels.reset_tridiag_counts()
+
+
+def reset_flagship_counts() -> None:
+    ldlt_kernels.reset_launch_count()
+    sweep_kernels.reset_sweep_counts()
+    ea_kernels.reset_ea_counts()
+
+
+def headline_batch(dtype, device=None):
+    """(H, c, radius) of the reference's headline batch (bench.py:94-97; the
+    data of tools/make_trs_oracle.py): default_rng(0) draws B (1024, 64, 64)
+    and then the radii U(0.1, 2.0), H = (B + B')/2, c = default_rng(1)."""
+    rng = np.random.default_rng(0)
+    B = rng.normal(size=(TR_BATCH, TR_N, TR_N))
+    H = (B + np.swapaxes(B, -1, -2)) / 2
+    radius = rng.uniform(0.1, 2.0, size=TR_BATCH)
+    c = np.random.default_rng(1).normal(size=(TR_BATCH, TR_N))
+    return tuple(torch.as_tensor(a, device=device or "cuda").to(dtype) for a in (H, c, radius))
+
+
+def tr_solve(name, H, c, radius):
+    from galahad_tpu_torch.tr import dps_solve, rqs_solve, trs_solve, trs_solve_chol
+
+    if name == "trs":
+        return trs_solve(H, c, radius)
+    if name == "chol":
+        return trs_solve_chol(H, c, radius)
+    if name == "rqs":
+        return rqs_solve(H, c, 1.0 / radius, p=3.0)
+    return dps_solve(H, c, radius=radius, goldfarb=name == "dps_goldfarb")
+
+
+def rel_err(got, ref) -> float:
+    got = torch.as_tensor(got, dtype=torch.float64).cpu()
+    ref = torch.as_tensor(ref, dtype=torch.float64).cpu()
+    return float(((got - ref).abs() / ref.abs().clamp(min=1.0)).max()) if ref.numel() else 0.0
+
+
+def same_info(a, b) -> bool:
+    return all(same_bits(getattr(a, f), getattr(b, f))
+               for f in ("x", "obj", "multiplier", "norm_x", "hard_case", "interior"))
+
+
+def chained_ms(fn, c, reps: int) -> float:
+    """Device time of ``reps`` solves chained through the linear term (rep
+    i+1's c is c + 1e-4 x of rep i), by CUDA events after a sync."""
+    torch.cuda.synchronize()
+
+    def run():
+        cc = c
+        for _ in range(reps):
+            cc = cc + 1e-4 * fn(cc)
+
+    return event_ms(run)
+
+
+def slope_ms(fn, c, r1: int = 2, r2: int = 10) -> float:
+    """ms per batch by the bench's two-point slope (bench.py:112-122); the
+    main path has run ``fn`` twice already."""
+    return (chained_ms(fn, c, r2) - chained_ms(fn, c, r1)) / (r2 - r1)
+
+
+def hard_equality_batch(dtype):
+    """The headline H with c cut to have no part along the leftmost
+    eigenvector in every third problem and scaled by 0.01 (hard cases), for
+    the kernels' check beside equality problems."""
+    H, c, radius = headline_batch(dtype)
+    lam, Q = torch.linalg.eigh(H)
+    ct = (Q.mT @ c[..., None])[..., 0]
+    ct[::3, 0] = 0.0
+    return H, (Q @ (0.01 * ct)[..., None])[..., 0], radius
+
+
+def capture_secular_inputs(run):
+    """The inputs ``run()`` gives the two secular kernels (their dispatch in
+    tr/trs.py is wrapped while it runs): lists of argument tuples."""
+    from galahad_tpu_torch.tr import trs as T
+
+    got = dict(trs=[], rqs=[])
+    orig = T._secular_newton, T._rqs_newton
+
+    def trs(*a):
+        got["trs"].append(a)
+        return orig[0](*a)
+
+    def rqs(*a):
+        got["rqs"].append(a)
+        return orig[1](*a)
+
+    T._secular_newton, T._rqs_newton = trs, rqs
+    try:
+        run()
+    finally:
+        T._secular_newton, T._rqs_newton = orig
+    return got
+
+
+def tridiag_systems(B, k, dtype, seed=0):
+    """(d, e, b) of B symmetric tridiagonal systems of order k, diagonally
+    dominant (|d| in [2, 4], a fifth of them negative; |e| < 1)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (B, k) if B else (k,)
+    d = torch.rand(shape, generator=g, device="cuda", dtype=dtype) * 2.0 + 2.0
+    d = torch.where(torch.rand(shape, generator=g, device="cuda") < 0.2, -d, d)
+    e = torch.rand(shape[:-1] + (k - 1,), generator=g, device="cuda", dtype=dtype) * 2.0 - 1.0
+    b = torch.randn(shape, generator=g, device="cuda", dtype=dtype)
+    return d, e, b
+
+
+def tridiag_residual(d, e, b, x) -> float:
+    r = d * x - b
+    r[..., 1:] += e * x[..., :-1]
+    r[..., :-1] += e * x[..., 1:]
+    return float(r.abs().max() / b.abs().max())
+
+
+def sparse_trs_problems(device):
+    """The sparse TRS's problems at the flagship's width: H = the grid
+    Laplacian of grid_qp_coo(316) minus 3 I (indefinite), g =
+    default_rng(5); and the hard case H = diag(linspace(-1, 3, n)) with
+    g = 0.01 e_j, j = round(0.2 (n - 1)): the same place in the spectrum as
+    e_3 at n = 16 in tests/test_trs_sparse.py (at n = 99,856 e_3 lies 1.2e-4
+    above the leftmost eigenvalue, and that problem is not a hard case)."""
+    from galahad_tpu_torch import COOPattern
+
+    n, _, (ii, jj, vv), _ = grid_qp_coo(K_FLAGSHIP)
+    vv = vv.copy()
+    vv[ii == jj] -= SPARSE_SHIFT
+    g = np.random.default_rng(5).standard_normal(n)
+    gh = np.zeros(n)
+    gh[int(round(0.2 * (n - 1)))] = 0.01
+    ar = np.arange(n)
+    return dict(
+        grid=(COOPattern(ii, jj, n, n), torch.as_tensor(vv, device=device), g, vv),
+        hard=(COOPattern(ar, ar, n, n), torch.as_tensor(np.linspace(-1.0, 3.0, n),
+                                                        device=device), gh, None))
+
+
+def sparse_optimality(pat, vals, g, info, radius, m_diag, shift):
+    """The sparse TRS's result held by its optimality conditions, in float64
+    with scipy on the host: ||x||_M = radius within 1e-10 radius on the
+    boundary; ||(H + lam M) x + g|| <= 1e-8 ||g|| (plus, in the hard case,
+    ``shift`` ||M x||: the reference takes the hard case's x from the
+    factorization of H + (lam + shift) M); lam >= 0; and no negative
+    eigenvalue of H + lam M (the signs of the pivots of an LDL' of it by
+    SuperLU with diagonal pivots, or its diagonal where H is diagonal)."""
+    import scipy.sparse as sp
+    from scipy.sparse.linalg import splu
+
+    n = pat.n
+    r, c = pat.rows.astype(np.int64), pat.cols.astype(np.int64)
+    v = np.asarray(vals, np.float64)
+    Hl = sp.coo_matrix((v, (r, c)), shape=(n, n))
+    H = (Hl + sp.triu(Hl.T, 1)).tocsc()
+    x = info.x.double().cpu().numpy()
+    m = np.ones(n) if m_diag is None else np.full(n, float(m_diag))
+    lam = float(info.multiplier)
+    norm_m = float(np.sqrt((m * x * x).sum()))
+    res = float(np.linalg.norm(H @ x + lam * m * x + g))
+    bound = 1e-8 * np.linalg.norm(g) + (shift * np.linalg.norm(m * x) if info.hard_case else 0.0)
+    if (r == c).all():
+        negatives = int((H.diagonal() + lam * m < 0).sum())
+    else:
+        lu = splu((H + sp.diags(lam * m)).tocsc(), permc_spec="MMD_AT_PLUS_A",
+                  diag_pivot_thresh=0.0, options=dict(SymmetricMode=True))
+        negatives = int((lu.U.diagonal() < 0).sum())
+    boundary = not info.interior
+    out = dict(norm_x_m=norm_m, radius=radius, multiplier=lam, residual=res,
+               residual_bound=bound, negative_eigenvalues=negatives,
+               n_factorizations=info.n_factorizations, hard_case=info.hard_case,
+               interior=info.interior, obj=info.obj)
+    check(not boundary or abs(norm_m - radius) <= 1e-10 * radius,
+          f"tr, sparse: ||x||_M = {norm_m!r}, radius {radius}")
+    check(res <= bound, f"tr, sparse: residual {res:.3e} > {bound:.3e}")
+    check(lam >= 0 and negatives == 0,
+          f"tr, sparse: lambda {lam}, {negatives} negative eigenvalues of H + lambda M")
+    return out
+
+
+def coo_matvecs(pat, vals):
+    """(A v, A' u) of a COO matrix, and H v where ``pat`` is the lower
+    triangle of a symmetric H: the fixed-order sums of core/sparse.py."""
+    seg_r, src_r, _ = pat._dev("row", vals.device)
+    seg_c, src_c, _ = pat._dev("col", vals.device)
+    seg_s, src_s, vsel = pat._dev("sym", vals.device)
+    vs = vals.index_select(0, vsel)
+    return (lambda v: seg_r(vals * v.index_select(0, src_r)),
+            lambda u: seg_c(vals * u.index_select(0, src_c)),
+            lambda v: seg_s(vs * v.index_select(0, src_s)))
+
+
+def krylov_runs(device):
+    """The Krylov solvers at the flagship's width on ``device``: GLTR, GLRT,
+    LQR, LQT on the sparse TRS's H (n = 99,856, COO matvec), LSTR, LSRT,
+    L2RT on the A of grid_qp_coo(316) (49,928 x 99,856), LLST on a dense
+    2,048 x 512 A and LLS on a dense 4,096 x 1,024 A.  Returns
+    {name: (info, wall seconds)}."""
+    from galahad_tpu_torch import COOPattern
+    from galahad_tpu_torch import tr as TR
+
+    n, m, (ii, jj, vv), (ar, ac, av) = grid_qp_coo(K_FLAGSHIP)
+    vv = vv.copy()
+    vv[ii == jj] -= SPARSE_SHIFT
+    hmv = coo_matvecs(COOPattern(ii, jj, n, n), torch.as_tensor(vv, device=device))[2]
+    amv, atmv, _ = coo_matvecs(COOPattern(ar, ac, m, n), torch.as_tensor(av, device=device))
+    g = torch.as_tensor(np.random.default_rng(5).standard_normal(n), device=device)
+    b = torch.as_tensor(np.random.default_rng(6).standard_normal(m), device=device)
+    rng = np.random.default_rng(7)
+    A1, b1 = (torch.as_tensor(a, device=device) for a in (rng.normal(size=(2048, 512)),
+                                                          rng.normal(size=2048)))
+    A2, b2 = (torch.as_tensor(a, device=device) for a in (rng.normal(size=(4096, 1024)),
+                                                          rng.normal(size=4096)))
+    calls = dict(
+        gltr=lambda: TR.gltr_solve(hmv, g, SPARSE_RADIUS),
+        glrt=lambda: TR.glrt_solve(hmv, g, 1.0),
+        lqr=lambda: TR.lqr_solve(hmv, g, SPARSE_RADIUS),
+        lqt=lambda: TR.lqt_solve(hmv, g, 1.0),
+        lstr=lambda: TR.lstr_solve(amv, atmv, b, 1.0),
+        lsrt=lambda: TR.lsrt_solve(amv, atmv, b, 1.0),
+        l2rt=lambda: TR.l2rt_solve(amv, atmv, b, 1.0, p=3.0),
+        llst=lambda: TR.llst_solve(A1, b1, 1.0),
+        lls=lambda: TR.lls_solve(A2, b2, 1.0))
+    out = {}
+    for name, fn in calls.items():
+        info, wall = synced_s(fn) if device != "cpu" else _host_s(fn)
+        out[name] = (info, wall)
+    return out
+
+
+def _host_s(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def tr_main_path():
+    """The ``tr`` phase's main path on the card, as a user calls it, with the
+    counters of the secular and tridiagonal kernels set to 0 before and read
+    after (those of the flagship kernels around the sparse TRS): every
+    batched solver on the headline batch in f64 and f32, twice; the
+    tridiagonal LDL' entry points on 1,024 systems of k = 64 and on one
+    chain of k = 1,000,000; the sparse TRS (three solves and a contract);
+    and the Krylov solvers."""
+    from galahad_tpu_torch.linalg import tridiag_factor, tridiag_solve
+    from galahad_tpu_torch.tr import trs_contract, trs_solve_sparse
+    from galahad_tpu_torch.tr.trs_sparse import trs_sparse_plan
+
+    torch.cuda.synchronize()
+    reset_tr_counts()
+    headline, inputs = {}, {}
+    for dtype in (torch.float64, torch.float32):
+        H, c, radius = headline_batch(dtype)
+        # the secular kernels' inputs of the first runs, for their checks
+        inputs[dtype] = capture_secular_inputs(lambda: [
+            headline.__setitem__((name, dtype), [synced_s(lambda: tr_solve(name, H, c, radius))])
+            for name in TR_SOLVERS])
+        for name in TR_SOLVERS:
+            headline[(name, dtype)].append(synced_s(lambda: tr_solve(name, H, c, radius)))
+    tri = {}
+    for dtype in (torch.float64, torch.float32):
+        d, e, b = tridiag_systems(TR_BATCH, TR_N, dtype)
+        dh, l = tridiag_factor(d, e)
+        tri[("batch", dtype)] = (d, e, b, dh, l, tridiag_solve(dh, l, b))
+    d, e, b = tridiag_systems(0, TRIDIAG_CHAIN, torch.float64, seed=1)
+    (dh, l), fac_s = synced_s(lambda: tridiag_factor(d, e))
+    x, sol_s = synced_s(lambda: tridiag_solve(dh, l, b))
+    tri["chain"] = (d, e, b, dh, l, x, fac_s, sol_s)
+
+    probs = sparse_trs_problems("cuda")
+    pat, hv, g, _ = probs["grid"]
+    reset_flagship_counts()
+    _, analyse_s = synced_s(lambda: trs_sparse_plan(pat))
+    sparse = {}
+    sparse["radius"] = synced_s(lambda: trs_solve_sparse(pat, hv, g, SPARSE_RADIUS))
+    sparse["m_diag"] = synced_s(lambda: trs_solve_sparse(pat, hv, g, SPARSE_RADIUS,
+                                                         m_diag=np.full(pat.n, 2.0)))
+    sparse["contract"] = synced_s(lambda: trs_contract(pat, hv, g, SPARSE_CONTRACT,
+                                                       sparse["radius"][0]))
+    grid_launches = launch_counts()
+    hpat, hvals, gh, _ = probs["hard"]
+    sparse["hard"] = synced_s(lambda: trs_solve_sparse(hpat, hvals, gh, 5.0))
+    krylov = krylov_runs("cuda")
+    counts = tr_counts()
+    return dict(headline=headline, inputs=inputs, tridiag=tri, sparse=sparse,
+                analyse_s=analyse_s, grid_launches=grid_launches, krylov=krylov, counts=counts,
+                probs=probs)
+
+
+def tr_headline_rows(main, oracle):
+    """The headline batch: each solver's two runs bitwise equal; in f64 obj
+    and multiplier within 1e-10 relative of tests/trs_oracle.json and its
+    flags equal; obj within ``TR_TOL`` of the port's own CPU run of the same
+    call on the first ``TR_CPU`` problems and the flags equal to it; its
+    time by the bench's chained slope, and ``eigh``'s time and share of it."""
+    from galahad_tpu_torch.tr.trs import _eigh
+
+    rows = []
+    for dtype in (torch.float64, torch.float32):
+        H, c, radius = headline_batch(dtype)
+        # the CPU run on the first TR_CPU problems: each problem's answer does not
+        # depend on the rest of the batch (checked on the card below)
+        Hc, cc, rc = (a[:TR_CPU].cpu() for a in (H, c, radius))
+        tol = TR_TOL[dtype]
+        eigh_ms = time_ms(lambda: _eigh(H), reps=1)
+        perm = torch.randperm(TR_BATCH, generator=torch.Generator().manual_seed(0)).to("cuda")
+        lam_a, _ = _eigh(H)
+        lam_b, _ = _eigh(H[perm])
+        eigh_position_free = same_bits(lam_a[perm], lam_b)
+        for name in TR_SOLVERS:
+            (a, wall_a), (b, wall_b) = main["headline"][(name, dtype)]
+            what = f"tr, {name}, {str(dtype)[6:]}"
+            check(same_info(a, b), f"{what}: two runs differ")
+            check(bool(torch.isfinite(a.x).all()) and a.x.shape == (TR_BATCH, TR_N),
+                  f"{what}: x not finite or of shape {tuple(a.x.shape)}")
+            host = tr_solve(name, Hc, cc, rc)
+            cpu_err = rel_err(a.obj[:TR_CPU], host.obj)
+            check(cpu_err <= tol["cpu"], f"{what}: obj off the CPU run by {cpu_err:.3e}")
+            flags = ("hard_case", "interior")
+            # f32's factorization TRS flags the problems its Newton leaves short
+            # of 1e-6 as near-hard: recorded, not held
+            if not (name == "chol" and dtype == torch.float32):
+                check(all(torch.equal(getattr(a, f)[:TR_CPU].cpu(), getattr(host, f))
+                          for f in flags), f"{what}: flags differ from the CPU run")
+            ora_err = rel_err(a.obj, oracle[f"{name}_obj"])
+            row = dict(solver=name, dtype=str(dtype)[6:], obj_rel_oracle=ora_err,
+                       obj_rel_cpu=cpu_err, two_runs_bitwise_equal=True,
+                       wall_s=[wall_a, wall_b], cpu_problems=TR_CPU,
+                       cpu_hard_cases=int(host.hard_case.sum()),
+                       card_hard_cases_of_those=int(a.hard_case[:TR_CPU].sum()))
+            if tol["oracle"] is not None:
+                check(ora_err <= tol["oracle"], f"{what}: obj off the oracle by {ora_err:.3e}")
+                if f"{name}_multiplier" in oracle:
+                    row["multiplier_rel_oracle"] = rel_err(a.multiplier,
+                                                           oracle[f"{name}_multiplier"])
+                    check(row["multiplier_rel_oracle"] <= tol["oracle"],
+                          f"{what}: multiplier off the oracle")
+                for f in flags:
+                    key = f"{name}_{f}"
+                    if key in oracle:
+                        check(torch.equal(getattr(a, f).cpu(),
+                                          torch.as_tensor(oracle[key], dtype=torch.bool)),
+                              f"{what}: {f} differs from the oracle")
+            row["hard_cases"] = int(a.hard_case.sum())
+            row["interior"] = int(a.interior.sum())
+            # the bench's reps for its own cell (trs, f64) and for the factorization
+            # TRS; the other eigh-bound solvers take eigh's time (eigh_ms) and
+            # are timed with fewer reps
+            reps = (2, 10) if name == "chol" or (name, dtype) == ("trs", torch.float64) \
+                else (1, 2)
+            ms = slope_ms(lambda cv: tr_solve(name, H, cv, radius).x, c, *reps)
+            row.update(ms_per_batch=ms, solves_per_s=TR_BATCH / ms * 1e3, slope_reps=reps)
+            if name != "chol":
+                row["eigh_ms"] = eigh_ms
+                row["eigh_share"] = eigh_ms / ms
+            rows.append(row)
+        rows.append(dict(dtype=str(dtype)[6:], eigh_ms=eigh_ms,
+                         eigh_bitwise_under_batch_permutation=eigh_position_free))
+    return rows
+
+
+def rqs_hard(lam, ct2, excl, sigma, p, lam_lo):
+    """The problems rqs_solve flags as hard on these kernel inputs (there it
+    takes lam_lo, not the kernel's s: s is the end of a bracket with no
+    root, set by roundoff)."""
+    from galahad_tpu_torch.tr.trs import _rqs_theta
+
+    norm_lo = _rqs_theta(lam, ct2, excl, sigma, p - 2.0, lam_lo)[1]
+    return excl.any(-1) & (lam.min(-1).values < 0) & (norm_lo < (lam_lo / sigma) ** (1 / (p - 2)))
+
+
+def secular_checks(main):
+    """Both secular kernels against their plain versions on the card: on the
+    inputs the main path gave them (trs_solve, rqs_solve and dps_solve on
+    the headline batch, f64 and f32) and on a batch of hard cases and
+    equality problems (f64): max relative error of s (for RQS over the
+    problems that use s, not the hard ones), and the kernels' answers under
+    a permutation of the batch (bitwise)."""
+    from galahad_tpu_torch.tr import TRSControl, secular_kernels
+    from galahad_tpu_torch.tr import trs as T
+
+    H, c, radius = hard_equality_batch(torch.float64)
+    sets = [(f"headline_{str(dt)[6:]}", main["inputs"][dt]) for dt in main["inputs"]]
+    sets.append(("hard_equality_float64", capture_secular_inputs(lambda: (
+        T.trs_solve(H, c, radius), T.trs_solve(H, c, radius, ctl=TRSControl(
+            equality_problem=True)), T.rqs_solve(H, c, 1.0 / radius)))))
+    out = dict(trs=[], rqs=[])
+    perm = torch.randperm(TR_BATCH, generator=torch.Generator().manual_seed(1)).to("cuda")
+    for case, got in sets:
+        for a in got["trs"]:
+            lam, ct2, radius_b, lam_lo, n_its = a
+            tol = TR_TOL[lam.dtype]["s"]
+            radius_b = radius_b.expand(lam.shape[:-1])
+            s_k = secular_kernels.trs_secular_newton(lam, ct2, radius_b, lam_lo, n_its)
+            s_p = T.secular_newton_plain(lam, ct2, radius_b, lam_lo, n_its)
+            s_perm = secular_kernels.trs_secular_newton(lam[perm], ct2[perm], radius_b[perm],
+                                                        lam_lo[perm], n_its)
+            err = rel_err(s_k, s_p)
+            check(err <= tol, f"tr, trs_secular_newton, {case}: {err:.3e} > {tol:.1e}")
+            check(same_bits(s_k[perm], s_perm), f"tr, trs_secular_newton, {case}: the batch "
+                  f"position changed the answer")
+            out["trs"].append(dict(case=case, max_rel_err=err, tol=tol, its=n_its))
+        for a in got["rqs"]:
+            lam, ct2, excl, sigma, p, lam_lo, hi0, n_its = a
+            tol = TR_TOL[lam.dtype]["s"]
+            sigma = sigma.expand(lam.shape[:-1])
+            s_k = secular_kernels.rqs_secular_newton(lam, ct2, excl, sigma, p, lam_lo, hi0, n_its)
+            s_p = T.rqs_newton_plain(lam, ct2, excl, sigma, p, lam_lo, hi0, n_its)
+            s_perm = secular_kernels.rqs_secular_newton(
+                lam[perm], ct2[perm], excl[perm], sigma[perm], p, lam_lo[perm], hi0[perm], n_its)
+            hard = rqs_hard(lam, ct2, excl, sigma, p, lam_lo)
+            err = rel_err(s_k[~hard], s_p[~hard])
+            check(err <= tol, f"tr, rqs_secular_newton, {case}: {err:.3e} > {tol:.1e}")
+            check(same_bits(s_k[perm], s_perm), f"tr, rqs_secular_newton, {case}: the batch "
+                  f"position changed the answer")
+            out["rqs"].append(dict(case=case, max_rel_err=err, tol=tol, its=n_its,
+                                   excluded_entries=int(excl.sum()), hard=int(hard.sum()),
+                                   max_rel_err_hard=rel_err(s_k[hard], s_p[hard])))
+    return out
+
+
+def rqs_evaluations(lam, ct2, excl, sigma, p, lam_lo, hi0, its) -> int:
+    """The evaluations of theta that one RQS call makes on these inputs: per
+    problem the growth rounds its data needs plus the check that ends them
+    (at most 60 rounds), plus ``its`` Newton steps."""
+    from galahad_tpu_torch.tr.trs import _rqs_theta
+
+    hi = hi0.clone()
+    evals = torch.zeros_like(hi, dtype=torch.int64)
+    growing = torch.ones_like(hi, dtype=torch.bool)
+    for _ in range(60):
+        th = _rqs_theta(lam, ct2, excl, sigma, p - 2.0, hi)[0]
+        evals += growing.to(torch.int64)
+        growing = growing & (th < 0)
+        hi = torch.where(growing, hi * 2.0 + 1.0, hi)
+    return int(evals.sum()) + its * lam.shape[0]
+
+
+def secular_entries(main, checks):
+    """The ``kernels`` entries of the two secular kernels, on the inputs the
+    main path gives them on the headline batch in f64 (trs_solve's and
+    rqs_solve's calls)."""
+    from galahad_tpu_torch.tr import secular_kernels
+    from galahad_tpu_torch.tr import trs as T
+
+    counts = main["counts"]
+    headline_inputs = main["inputs"][torch.float64]
+    lam, ct2, radius, lam_lo, its = headline_inputs["trs"][0]
+    B, n = lam.shape
+    radius = radius.expand(B)
+    trs = lambda: secular_kernels.trs_secular_newton(lam, ct2, radius, lam_lo, its)  # noqa: E731
+    trs_ms = time_ms(trs, reps=20)
+    trs_dev = queued_ms([trs] * 20) / 20
+    trs_plain = event_ms(lambda: T.secular_newton_plain(lam, ct2, radius, lam_lo, its))
+    tb, to = secular_kernels.trs_bound_terms(B, n, its, lam.dtype)
+    r_lam, r_ct2, excl, sigma, p, r_lo, hi0, r_its = headline_inputs["rqs"][0]
+    sigma = sigma.expand(B)
+    rqs = lambda: secular_kernels.rqs_secular_newton(  # noqa: E731
+        r_lam, r_ct2, excl, sigma, p, r_lo, hi0, r_its)
+    rqs_ms = time_ms(rqs, reps=20)
+    rqs_dev = queued_ms([rqs] * 20) / 20
+    rqs_plain = event_ms(lambda: T.rqs_newton_plain(r_lam, r_ct2, excl, sigma, p, r_lo, hi0,
+                                                     r_its))
+    evals = rqs_evaluations(r_lam, r_ct2, excl, sigma, p, r_lo, hi0, r_its)
+    rb, ro = secular_kernels.rqs_bound_terms(B, n, evals, lam.dtype)
+    for key in ("trs", "rqs"):
+        check(counts[key] > 0, f"tr: the main path launched no {key} secular kernel")
+        check(counts[key + "_plain"] == 0, f"tr: the main path ran the plain {key} iteration")
+    per = (f"one call at the main path's shape: the headline batch ({B} x {n}, f64) as "
+           f"trs_solve / rqs_solve give it")
+    return [
+        dict(name="trs_secular_newton", route="cuda", source=SECULAR_SOURCE,
+             replaces=TPU_TRS_NEWTON, launches=counts["trs"],
+             max_abs_err=max(r["max_rel_err"] for r in checks["trs"]),
+             err="relative, s against the plain version", ms=trs_ms, device_ms=trs_dev,
+             plain_ms=trs_plain, bound_ms=max(tb, to) * 1e3,
+             bound_by="bytes" if tb >= to else "operations", library_ms=None,
+             iterations=its, per=per, checks=checks["trs"]),
+        dict(name="rqs_secular_newton", route="cuda", source=SECULAR_SOURCE,
+             replaces=TPU_RQS_NEWTON, launches=counts["rqs"],
+             max_abs_err=max(r["max_rel_err"] for r in checks["rqs"]),
+             err="relative, s against the plain version", ms=rqs_ms, device_ms=rqs_dev,
+             plain_ms=rqs_plain, bound_ms=max(rb, ro) * 1e3,
+             bound_by="bytes" if rb >= ro else "operations", library_ms=None,
+             iterations=r_its, theta_evaluations=evals, per=per, checks=checks["rqs"])]
+
+
+def tridiag_err(got, ref) -> float:
+    """max |got - ref| over max |ref| (the tridiagonal kernels' error)."""
+    return max(float((g - r).abs().max()) / max(float(r.abs().max()), 1e-300)
+               for g, r in zip(got, ref) if r.numel())
+
+
+def tridiag_entries(main):
+    """The tridiagonal kernels against their plain versions on the main
+    path's systems (1,024 x 64, f64 and f32): on the card within
+    ``TRIDIAG_TOL`` of the largest value (torch's addcmul on CUDA rounds the
+    product before the difference, the kernel's fma does not), and against
+    the plain version on the host (whose addcmul is fused, as XLA's scan
+    step: the JAX package's bits), recorded bitwise; on the chain of k =
+    1,000,000 (f64) the factor's first 20,000 rows against the plain version
+    on the host and the solve by its relative residual.  Their ``kernels``
+    entries at 1,024 x 64, f64."""
+    from galahad_tpu_torch.linalg import tridiag_kernels
+    from galahad_tpu_torch.linalg.cholesky import tridiag_factor_plain, tridiag_solve_plain
+
+    counts = main["counts"]
+    checks = []
+    for dtype in (torch.float64, torch.float32):
+        d, e, b, dh, l, x = main["tridiag"][("batch", dtype)]
+        pd, pl = tridiag_factor_plain(d, e)
+        px = tridiag_solve_plain(pd, pl, b)
+        err = tridiag_err((dh, l, x), (pd, pl, px))
+        hd, hl = tridiag_factor_plain(d.cpu(), e.cpu())
+        hx = tridiag_solve_plain(hd, hl, b.cpu())
+        host_err = tridiag_err((dh.cpu(), l.cpu(), x.cpu()), (hd, hl, hx))
+        tol = TRIDIAG_TOL[dtype]
+        check(err <= tol and host_err <= tol, f"tr, tridiag {dtype}: {err:.3e} against the "
+              f"plain version on the card, {host_err:.3e} on the host (tol {tol:.1e})")
+        checks.append(dict(shape=[TR_BATCH, TR_N], dtype=str(dtype)[6:], rel_err=err, tol=tol,
+                           rel_err_host_plain=host_err,
+                           bitwise_equal_to_host_plain=host_err == 0.0,
+                           residual=tridiag_residual(d, e, b, x)))
+    d, e, b, dh, l, x, fac_s, sol_s = main["tridiag"]["chain"]
+    P = TRIDIAG_PREFIX
+    pd, pl = tridiag_factor_plain(d[:P].cpu(), e[:P - 1].cpu())
+    perr = tridiag_err((dh[:P].cpu(), l[:P - 1].cpu()), (pd, pl))
+    res = tridiag_residual(d, e, b, x)
+    check(perr <= TRIDIAG_TOL[torch.float64] and res <= 1e-12,
+          f"tr, tridiag chain: prefix error {perr:.3e}, relative residual {res:.3e}")
+    checks.append(dict(shape=[TRIDIAG_CHAIN], dtype="float64", factor_prefix_rows=P,
+                       factor_prefix_rel_err_host_plain=perr, solve_relative_residual=res,
+                       residual_tol=1e-12, factor_s=fac_s, solve_s=sol_s,
+                       factor_us_per_row=fac_s / TRIDIAG_CHAIN * 1e6,
+                       solve_us_per_row=sol_s / TRIDIAG_CHAIN * 1e6))
+    err64 = checks[0]["rel_err"]
+    d, e, b, dh, l, x = main["tridiag"][("batch", torch.float64)]
+    fac = lambda: tridiag_kernels.tridiag_factor(d, e)           # noqa: E731
+    sol = lambda: tridiag_kernels.tridiag_solve(dh, l, b)        # noqa: E731
+    f_ms, s_ms = time_ms(fac, reps=20), time_ms(sol, reps=20)
+    f_dev, s_dev = queued_ms([fac] * 20) / 20, queued_ms([sol] * 20) / 20
+    f_plain = event_ms(lambda: tridiag_factor_plain(d, e))
+    s_plain = event_ms(lambda: tridiag_solve_plain(dh, l, b))
+    T = torch.diag_embed(d) + torch.diag_embed(e, 1) + torch.diag_embed(e, -1)
+    torch.linalg.solve(T[:2], b[:2])                                   # the library's warm-up
+    lib_s = event_ms(lambda: torch.linalg.solve(T, b))
+    lib_err = float((torch.linalg.solve(T, b) - x).abs().max())
+    fb, fo = tridiag_kernels.factor_bound_terms(TR_BATCH, TR_N, d.dtype)
+    sb, so = tridiag_kernels.solve_bound_terms(TR_BATCH, TR_N, d.dtype)
+    for key in ("factor", "solve"):
+        check(counts["tridiag_" + key] > 0, f"tr: the main path launched no tridiag {key}")
+        check(counts[f"tridiag_{key}_plain"] == 0, f"tr: the main path ran the plain {key}")
+    per = (f"one call at the main path's shape: {TR_BATCH} systems of k = {TR_N} (GLTR's "
+           f"itmax), f64; launches: the tridiagonal entry points of the tr phase (no solver "
+           f"of the JAX package calls them)")
+    return [
+        dict(name="tridiag_factor", route="cuda", source=TRIDIAG_SOURCE,
+             replaces=TPU_TRIDIAG_FACTOR, launches=counts["tridiag_factor"], max_abs_err=err64,
+             err="relative to the largest value, against the plain version on the card",
+             ms=f_ms, device_ms=f_dev, plain_ms=f_plain, bound_ms=max(fb, fo) * 1e3,
+             bound_by="bytes" if fb >= fo else "operations", library_ms=None,
+             critical_path_steps=TR_N - 1, per=per, checks=checks),
+        dict(name="tridiag_solve", route="cuda", source=TRIDIAG_SOURCE,
+             replaces=TPU_TRIDIAG_SOLVE, launches=counts["tridiag_solve"], max_abs_err=err64,
+             err="relative to the largest value, against the plain version on the card",
+             ms=s_ms, device_ms=s_dev, plain_ms=s_plain, bound_ms=max(sb, so) * 1e3,
+             bound_by="bytes" if sb >= so else "operations", library_ms=lib_s,
+             library="torch.linalg.solve on the assembled dense (1024, 64, 64) tridiagonals",
+             library_max_abs_diff=lib_err, critical_path_steps=2 * TR_N - 1, per=per)]
+
+
+def tr_sparse_rows(main):
+    """The sparse TRS's runs held by their optimality conditions; trials,
+    analyse seconds, ms per trial, launches of rows 1a-3 (plain 0)."""
+    sparse, probs = main["sparse"], main["probs"]
+    pat, hv, g, vv = probs["grid"]
+    hpat, hvals, gh, _ = probs["hard"]
+    from galahad_tpu_torch.tr import TRSSparseControl
+
+    shift = TRSSparseControl().hard_case_shift
+    rows = {}
+    for name, (info, wall) in sparse.items():
+        if name == "hard":
+            opt = sparse_optimality(hpat, hvals.cpu().numpy(), gh, info, 5.0, None, shift)
+            check(info.hard_case, "tr, sparse: the hard case was not flagged")
+        else:
+            radius = SPARSE_CONTRACT if name == "contract" else SPARSE_RADIUS
+            opt = sparse_optimality(pat, vv, g, info, radius,
+                                    2.0 if name == "m_diag" else None, shift)
+        rows[name] = dict(opt, wall_s=wall, ms_per_trial=wall / info.n_factorizations * 1e3,
+                          history_lambda=[float(v) for v in info.history_lambda])
+    gl = main["grid_launches"]
+    for key in ("partial_ldlt", "ldlt_wide", "extend_add", "sweep_fwd", "sweep_bwd"):
+        check(gl[key] > 0, f"tr, sparse: no {key} launch on the grid's trials")
+    check(all(gl[k] == 0 for k in FLAGSHIP_PLAIN), f"tr, sparse: plain code ran: {gl}")
+    return dict(n=pat.n, analyse_s=main["analyse_s"], runs=rows,
+                launches_grid_runs={k: gl[k] for k in KERNEL_COUNTS},
+                plain_counts={k: gl[k] for k in FLAGSHIP_PLAIN})
+
+
+def tr_krylov_rows(main):
+    """Each Krylov solver's card run against the port's CPU run of the same
+    inputs: iter equal, x within 1e-8 relative."""
+    host = krylov_runs("cpu")
+    rows = {}
+    for name, (info, wall) in main["krylov"].items():
+        ref, host_s = host[name]
+        err = rel_err(info.x, ref.x)
+        it = getattr(info, "iter", None)
+        check(it == getattr(ref, "iter", None), f"tr, {name}: iter {it} on the card, "
+              f"{getattr(ref, 'iter', None)} on the CPU")
+        check(err <= 1e-8 and bool(torch.isfinite(info.x).all()),
+              f"tr, {name}: x off the CPU run by {err:.3e}")
+        rows[name] = dict(iter=it, x_rel_cpu=err, wall_s=wall, cpu_wall_s=host_s,
+                          obj=float(getattr(info, "obj", getattr(info, "r_norm", 0.0))),
+                          multiplier=float(info.multiplier))
+    return rows
+
+
+def phase_tr():
+    """The trust-region subproblems on the card: one ``tr`` line; returns
+    the four kernels' entries of the ``kernels`` line."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "tests", "trs_oracle.json")) as fh:
+        oracle = json.load(fh)
+    t0 = time.perf_counter()
+    main = tr_main_path()
+    main_s = time.perf_counter() - t0
+    seconds = dict(main_path=main_s)
+    t = time.perf_counter()
+    headline = tr_headline_rows(main, oracle)
+    seconds["headline"] = time.perf_counter() - t
+    t = time.perf_counter()
+    entries = secular_entries(main, secular_checks(main)) + tridiag_entries(main)
+    seconds["kernels"] = time.perf_counter() - t
+    t = time.perf_counter()
+    sparse = tr_sparse_rows(main)
+    seconds["sparse_checks"] = time.perf_counter() - t
+    t = time.perf_counter()
+    krylov = tr_krylov_rows(main)
+    seconds["krylov_cpu_checks"] = time.perf_counter() - t
+    seconds["total"] = time.perf_counter() - t0
+    emit("tr", headline=headline, sparse=sparse, krylov=krylov, counts=main["counts"],
+         kernels={e["name"]: dict(launches=e["launches"], ms=e["ms"], device_ms=e["device_ms"],
+                                  plain_ms=e["plain_ms"], bound_ms=e["bound_ms"])
+                  for e in entries}, seconds=seconds)
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -2638,8 +3359,9 @@ def main() -> int:
         phase_dense()
         banded_launches = phase_banded()
         phase_frontend(flagship_solution)
+        tr_entries = phase_tr()
         timed = phase_banded_path_kernels()
-        line["kernels"] += banded_kernel_entries(banded_launches, timed)
+        line["kernels"] += banded_kernel_entries(banded_launches, timed) + tr_entries
         del timed
         print(json.dumps(line), flush=True)
     except SmokeFailure as exc:

@@ -9,8 +9,10 @@ hand-written CUDA kernels, of a dense one (``make_qp`` /
 ``io.qplib.read_qp``) over SBLS's Schur-complement Cholesky pair, and of a
 banded one (``qp.make_banded_qp``) over the block-tridiagonal kernels; the
 dual projection solvers DQP, CCQP and DLP (``qp.dqp``); the front end
-``qp.qp_solve`` with scaling and presolve (``pre``), LSQP, WCP and L1QP; and
-the command line ``python -m galahad_tpu_torch solve|batch`` (``cli``).
+``qp.qp_solve`` with scaling and presolve (``pre``), LSQP, WCP and L1QP; the
+command line ``python -m galahad_tpu_torch solve|batch`` (``cli``); and the
+trust-region and regularization subproblems (``tr``: TRS, RQS, DPS, GLTR/GLRT,
+LSTR/LSRT/L2RT, LQR/LQT, LLST/LLS and the sparse TRS on the flat LDL^T).
 
 Entry points run on the CUDA device unless the caller asks for the CPU
 (``device="cpu"``); float64 is the default precision.

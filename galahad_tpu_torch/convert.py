@@ -22,10 +22,13 @@ from .pre.scale import Scaling
 from .qp.dqp import DQPInfo
 from .qp.ipm import IPMState, device_state
 from .qp.ipm_banded import BandedQP, make_banded_qp
+from .tr.trs import TRSInfo
+from .tr.trs_sparse import TRSSparseInfo
 
 
-def _pattern(p) -> COOPattern:
-    """``p``: a dict (or object) with ``rows``, ``cols``, ``m``, ``n``."""
+def coo_pattern_from_numpy(p) -> COOPattern:
+    """Build a COOPattern from the JAX ``COOPattern``'s fields: ``p`` is a
+    dict (or an object) with ``rows``, ``cols``, ``m`` and ``n``."""
     get = p.get if isinstance(p, dict) else lambda k: getattr(p, k)
     return COOPattern(np.asarray(get("rows")), np.asarray(get("cols")),
                       int(get("m")), int(get("n")))
@@ -52,7 +55,8 @@ def sparse_qp_from_numpy(fields: dict, dtype=None, device=None) -> SparseQP:
         x_l=dev(fields["x_l"]), x_u=dev(fields["x_u"]),
         h_vals=dev(fields["h_vals"]), a_vals=dev(fields["a_vals"]),
         x=dev(fields.get("x")), y=dev(fields.get("y")), z=dev(fields.get("z")),
-        h_pat=_pattern(fields["h_pat"]), a_pat=_pattern(fields["a_pat"]),
+        h_pat=coo_pattern_from_numpy(fields["h_pat"]),
+        a_pat=coo_pattern_from_numpy(fields["a_pat"]),
         name=str(fields.get("name", "")))
 
 
@@ -197,3 +201,28 @@ def dqp_info_from_numpy(fields: dict, dtype=None, device=None) -> DQPInfo:
                    z=_tensor(fields["z"], dtype, device), obj=float(fields["obj"]),
                    iter=int(fields["iter"]), converged=bool(fields["converged"]),
                    status=int(fields["status"]), norm_pg=float(fields["norm_pg"]))
+
+
+def trs_info_from_numpy(fields: dict, dtype=None, device=None) -> TRSInfo:
+    """Build a TRSInfo from the JAX ``TRSInfo``'s fields as numpy arrays:
+    ``x``, ``obj``, ``multiplier``, ``norm_x`` (tensors of ``dtype``) and the
+    flags ``hard_case``, ``interior`` (bool tensors), on ``device``."""
+    device = resolve_device(device)
+    flag = lambda k: torch.as_tensor(np.asarray(fields[k], bool), device=device)   # noqa: E731
+    return TRSInfo(x=_tensor(fields["x"], dtype, device), obj=_tensor(fields["obj"], dtype, device),
+                   multiplier=_tensor(fields["multiplier"], dtype, device),
+                   norm_x=_tensor(fields["norm_x"], dtype, device),
+                   hard_case=flag("hard_case"), interior=flag("interior"))
+
+
+def trs_sparse_info_from_numpy(fields: dict, dtype=None, device=None) -> TRSSparseInfo:
+    """Build a TRSSparseInfo from the JAX ``TRSSparseInfo``'s fields (``x`` as
+    a numpy array, the rest host values as in both packages), so that a JAX
+    result warm-starts the port's ``trs_contract``."""
+    return TRSSparseInfo(
+        x=_tensor(fields["x"], dtype, device), obj=float(fields["obj"]),
+        multiplier=float(fields["multiplier"]), norm_x=float(fields["norm_x"]),
+        hard_case=bool(fields["hard_case"]), interior=bool(fields["interior"]),
+        n_factorizations=int(fields["n_factorizations"]),
+        history_lambda=np.asarray(fields["history_lambda"], np.float64),
+        history_norm=np.asarray(fields["history_norm"], np.float64))

@@ -21,6 +21,8 @@ from __future__ import annotations
 
 import torch
 
+from . import tridiag_kernels
+
 
 def scalar_like(v, like: torch.Tensor) -> torch.Tensor:
     """``v`` as a 0-d tensor of ``like``'s type and device, made by a fill
@@ -88,3 +90,70 @@ def chol_factor_shifted(M: torch.Tensor, shift0=0.0, growth: float = 100.0,
         L, ok = try_factor(shift)
         tries += 1
     return L, shift, ok
+
+
+# ---------------------------------------------------------------------------
+# Scalar tridiagonal LDL^T (the JAX package's tridiag_factor / tridiag_solve)
+# ---------------------------------------------------------------------------
+
+
+def tridiag_factor_plain(d: torch.Tensor, e: torch.Tensor):
+    """LDL' factorization of the symmetric tridiagonal matrix with diagonal
+    ``d (..., k)`` and subdiagonal ``e (..., k-1)`` (PTTRF equivalent,
+    reference src/gltr/gltr.f90:50): ``(dhat, l)`` with M = L diag(dhat) L',
+    L unit lower bidiagonal with subdiagonal ``l``.  The recurrence of the
+    JAX package's ``lax.scan``, one step a batched tensor op:
+    l_i = e_i / dhat_{i-1},  dhat_i = d_i - l_i e_i, the difference by
+    ``addcmul``.  On the CPU torch's ``addcmul`` is one fused multiply-add,
+    as XLA compiles the scan's step, so the bits are the JAX package's; on
+    CUDA it rounds the product first, so there the plain version and the
+    kernel (an fma) differ by a rounding per step.  Runs on any device; used
+    on the CPU and, on the card, only to hold the kernel against."""
+    tridiag_kernels.count_plain("factor")
+    k = d.shape[-1]
+    dp = d[..., 0]
+    dhat, ls = [dp], []
+    for i in range(1, k):
+        li = e[..., i - 1] / dp
+        dp = torch.addcmul(d[..., i], li, e[..., i - 1], value=-1)
+        dhat.append(dp)
+        ls.append(li)
+    l = torch.stack(ls, -1) if ls else e[..., :0].clone()
+    return torch.stack(dhat, -1), l
+
+
+def tridiag_solve_plain(dhat: torch.Tensor, l: torch.Tensor, b: torch.Tensor):
+    """x with L diag(dhat) L' x = b for the factors of
+    :func:`tridiag_factor_plain`: forward y_i = b_i - l_{i-1} y_{i-1}, then
+    z = y / dhat, backward x_i = z_i - l_i x_{i+1}, each step an
+    ``addcmul`` (fused on the CPU, as the JAX package's scans compile: see
+    :func:`tridiag_factor_plain`).  Runs on any device."""
+    tridiag_kernels.count_plain("solve")
+    k = b.shape[-1]
+    y = [b[..., 0]]
+    for i in range(1, k):
+        y.append(torch.addcmul(b[..., i], l[..., i - 1], y[-1], value=-1))
+    z = torch.stack(y, -1) / dhat
+    x = [z[..., k - 1]]
+    for i in range(k - 2, -1, -1):
+        x.append(torch.addcmul(z[..., i], l[..., i], x[-1], value=-1))
+    return torch.stack(x[::-1], -1)
+
+
+def tridiag_factor(d: torch.Tensor, e: torch.Tensor):
+    """``(dhat, l)`` of :func:`tridiag_factor_plain`, batched over leading
+    dimensions.  A CPU tensor takes the plain version; on CUDA tensors this
+    is one launch of the hand-written kernel (csrc/tridiag.cu, one thread
+    per system walking the chain) or an error."""
+    if d.device.type == "cpu":
+        return tridiag_factor_plain(d, e)
+    return tridiag_kernels.tridiag_factor(d, e)
+
+
+def tridiag_solve(dhat: torch.Tensor, l: torch.Tensor, b: torch.Tensor):
+    """Solve with the tridiagonal LDL' factors of :func:`tridiag_factor`;
+    ``b (..., k)``.  A CPU tensor takes the plain version; on CUDA tensors
+    one launch of the hand-written kernel or an error."""
+    if b.device.type == "cpu":
+        return tridiag_solve_plain(dhat, l, b)
+    return tridiag_kernels.tridiag_solve(dhat, l, b)

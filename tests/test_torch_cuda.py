@@ -1013,3 +1013,131 @@ def test_the_banded_step_on_the_graph_equals_the_direct_path(cuda, monkeypatch, 
     assert per["banded_factor_plain"] == per["banded_solve_plain"] == 0
     _, _, _, sc = ipm_solve(banded_qp(200, mode, "cpu"), IPMControl())
     assert (sc.status, sc.iter) == (st.status, st.iter)
+
+
+# ---------------------------------------------------------------------------
+# The trust-region kernels: csrc/tridiag.cu and csrc/secular.cu
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(1,), (2,), (7,), (1024, 64), (3, 5, 17), (4, 1), (100_000,)])
+def test_tridiag_kernels_match_plain(cuda, shape, dtype):
+    """The tridiagonal factor and solve kernels against the plain versions:
+    on the card within 1e-13 (f64) / 1e-5 (f32) of the largest value
+    (torch's addcmul on CUDA rounds the product before the difference, the
+    kernel's fma does not), and on the host, where addcmul is fused as the
+    kernel's step, bitwise; a chain of 100,000 by its factor's first 300
+    rows and the solve's residual.  The systems are diagonally dominant
+    (|d| in [2, 4], |e| < 1), so that the unpivoted recurrence is stable and
+    a rounding per step stays a rounding."""
+    from galahad_tpu_torch.linalg import cholesky, tridiag_kernels
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    k = shape[-1]
+    d = torch.rand(shape, generator=g, device=cuda, dtype=dtype) * 2.0 + 2.0
+    d = torch.where(torch.rand(shape, generator=g, device=cuda) < 0.2, -d, d)
+    e = torch.rand(shape[:-1] + (k - 1,), generator=g, device=cuda, dtype=dtype) * 2.0 - 1.0
+    b = torch.randn(shape, generator=g, device=cuda, dtype=dtype)
+    tridiag_kernels.reset_tridiag_counts()
+    dh, l = cholesky.tridiag_factor(d, e)
+    x = cholesky.tridiag_solve(dh, l, b)
+    assert tridiag_kernels.tridiag_counts()["factor"] == 1
+    assert tridiag_kernels.tridiag_counts()["solve"] == 1
+    tol = 1e-13 if dtype == torch.float64 else 1e-5
+
+    def close(got, ref, tol):
+        assert float((got - ref).abs().max()) <= tol * max(float(ref.abs().max()), 1e-300)
+
+    if k <= 64:
+        pd, pl = cholesky.tridiag_factor_plain(d, e)
+        px = cholesky.tridiag_solve_plain(pd, pl, b)
+        for got, ref in ((dh, pd), (l, pl), (x, px)):
+            if ref.numel():
+                close(got, ref, tol)
+        hd, hl = cholesky.tridiag_factor_plain(d.cpu(), e.cpu())
+        hx = cholesky.tridiag_solve_plain(hd, hl, b.cpu())
+        assert torch.equal(dh.cpu(), hd) and torch.equal(l.cpu(), hl) and torch.equal(x.cpu(), hx)
+    else:
+        hd, hl = cholesky.tridiag_factor_plain(d[:300].cpu(), e[:299].cpu())
+        assert torch.equal(dh[:300].cpu(), hd) and torch.equal(l[:299].cpu(), hl)
+        r = d * x
+        r[1:] += e * x[:-1]
+        r[:-1] += e * x[1:]
+        assert float((r - b).abs().max()) <= (1e-10 if dtype == torch.float64 else 1e-3)
+
+
+def secular_data(B, n, dtype, seed=0, hard_every=0):
+    rng = np.random.default_rng(seed)
+    H = rng.normal(size=(B, n, n))
+    H = (H + np.swapaxes(H, 1, 2)) / 2
+    c = rng.normal(size=(B, n))
+    if hard_every:
+        w, Q = np.linalg.eigh(H)
+        ct = np.einsum("bij,bi->bj", Q, c)
+        ct[::hard_every, 0] = 0.0
+        c = np.einsum("bij,bj->bi", Q, ct * 0.01)
+    radius = rng.uniform(0.1, 2.0, B)
+    return (torch.as_tensor(a, device="cuda").to(dtype) for a in (H, c, radius))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,n,hard", [(1024, 64, 0), (37, 200, 0), (64, 16, 3), (1, 1, 0)])
+def test_secular_kernels_match_plain(cuda, B, n, hard, dtype):
+    """Both secular kernels against their plain versions on the card, on
+    the eigen-data trs_solve and rqs_solve give them: s within 1e-12 (f64)
+    or 1e-5 (f32) relative; and the solvers' results on the card against
+    the same calls on the CPU: obj within 1e-10 (f64) / 1e-4 (f32)
+    relative, 1e-8 / 1e-2 on the batch of hard and near-hard cases (c cut
+    to 0.01 of its size: there obj is a small difference of large terms, a
+    change of 1e-16 in H moves it by ~2e-12 on the CPU, cuSOLVER's
+    eigenvectors are not LAPACK's, and in f32 the card and the host parted
+    by 2.7e-3 on one easy problem of it)."""
+    from galahad_tpu_torch.tr import secular_kernels
+    from galahad_tpu_torch.tr import trs as T
+
+    H, c, radius = secular_data(B, n, dtype, hard_every=hard)
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    lam, ct, _ = T._eigh_M(H, c)
+    ct2 = ct * ct
+    lam_lo = torch.clamp(-lam.min(-1).values, min=0.0)
+    s_k = secular_kernels.trs_secular_newton(lam, ct2, radius, lam_lo, 64)
+    s_p = T.secular_newton_plain(lam, ct2, radius, lam_lo, 64)
+    assert float(((s_k - s_p).abs() / s_p.abs().clamp(min=1.0)).max()) <= tol
+    eps = torch.finfo(dtype).eps
+    _, at_min, c_in_min = T._min_eigen(lam, ct, ct2, eps)
+    excl = at_min & ~c_in_min[..., None]
+    sigma = 1.0 / radius
+    hi = lam_lo + sigma ** 0.5 * ct2.sum(-1) ** 0.25 + torch.clamp(lam_lo, min=1.0)
+    r_k = secular_kernels.rqs_secular_newton(lam, ct2, excl, sigma, 3.0, lam_lo, hi, 96)
+    r_p = T.rqs_newton_plain(lam, ct2, excl, sigma, 3.0, lam_lo, hi, 96)
+    # where rqs_solve flags a hard case it takes lam_lo, not s (there s is the
+    # end of a bracket with no root, set by roundoff)
+    norm_lo = T._rqs_theta(lam, ct2, excl, sigma, 1.0, lam_lo)[1]
+    easy = ~(excl.any(-1) & (lam.min(-1).values < 0) & (norm_lo < lam_lo / sigma))
+    assert float(((r_k - r_p).abs() / r_p.abs().clamp(min=1.0))[easy].max()) <= tol
+    on_card = T.trs_solve(H, c, radius)
+    on_host = T.trs_solve(H.cpu(), c.cpu(), radius.cpu())
+    assert torch.equal(on_card.hard_case.cpu(), on_host.hard_case)
+    obj_tol = (1e-8 if hard else 1e-10) if dtype == torch.float64 else (1e-2 if hard else 1e-4)
+    err = (on_card.obj.cpu() - on_host.obj).abs() / on_host.obj.abs().clamp(min=1.0)
+    i = int(err.argmax())
+    assert float(err[i]) <= obj_tol, (
+        f"problem {i}: obj {float(on_card.obj[i])!r} on the card, {float(on_host.obj[i])!r} on "
+        f"the host; multiplier {float(on_card.multiplier[i])!r} / "
+        f"{float(on_host.multiplier[i])!r}; hard {bool(on_host.hard_case[i])}; lam "
+        f"{lam[i].cpu().tolist()[:3]} / {T._eigh_M(H.cpu()[i], c.cpu()[i])[0].tolist()[:3]}")
+
+
+def test_secular_kernels_ignore_the_batch_position(cuda):
+    from galahad_tpu_torch.tr import trs as T
+
+    H, c, radius = secular_data(256, 64, torch.float64)
+    perm = torch.randperm(256, generator=torch.Generator().manual_seed(0)).to("cuda")
+    a = T.trs_solve(H, c, radius)
+    b = T.trs_solve(H[perm], c[perm], radius[perm])
+    lam, ct, _ = T._eigh_M(H, c)
+    s1 = T._secular_newton(lam, ct * ct, radius, torch.zeros_like(radius), 64)
+    s2 = T._secular_newton(lam[perm], (ct * ct)[perm], radius[perm], torch.zeros_like(radius), 64)
+    assert torch.equal(s1[perm], s2)
+    assert float((a.obj[perm] - b.obj).abs().max()) <= 1e-12 * float(a.obj.abs().max())

@@ -32,6 +32,15 @@ import galahad_tpu_torch.qp.frontend
 import galahad_tpu_torch.pre.scale
 import galahad_tpu_torch.pre.presolve
 import galahad_tpu_torch.cli
+import galahad_tpu_torch.linalg.tridiag_kernels
+import galahad_tpu_torch.tr
+import galahad_tpu_torch.tr.gltr
+import galahad_tpu_torch.tr.llst
+import galahad_tpu_torch.tr.lqr
+import galahad_tpu_torch.tr.lstr
+import galahad_tpu_torch.tr.secular_kernels
+import galahad_tpu_torch.tr.trs
+import galahad_tpu_torch.tr.trs_sparse
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
@@ -158,3 +167,63 @@ def test_cuda_wrapper_does_not_fall_back(monkeypatch):
         ldlt_kernels.partial_ldlt(F, torch.zeros(1, dtype=torch.int32,
                                                  device="meta"))
     assert called == []
+
+
+@pytest.mark.parametrize("entry", ["trs_solve", "trs_solve_diagonal", "rqs_solve", "dps_solve",
+                                   "trs_solve_chol", "trs_solve_sparse", "llst_solve",
+                                   "lls_solve", "gltr_solve"])
+def test_tr_entry_points_default_to_the_card(entry):
+    """The trust-region entry points put numpy inputs on the CUDA device
+    unless asked for the CPU, and raise where there is none."""
+    import numpy as np
+    import torch
+
+    from galahad_tpu_torch import COOPattern
+    from galahad_tpu_torch import tr
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device exists")
+    H, c = np.eye(3), np.ones(3)
+    calls = {
+        "trs_solve": lambda: tr.trs_solve(H, c, 1.0),
+        "trs_solve_diagonal": lambda: tr.trs_solve_diagonal(c, c, 1.0),
+        "rqs_solve": lambda: tr.rqs_solve(H, c, 1.0),
+        "dps_solve": lambda: tr.dps_solve(H, c, radius=1.0),
+        "trs_solve_chol": lambda: tr.trs_solve_chol(H, c, 1.0),
+        "trs_solve_sparse": lambda: tr.trs_solve_sparse(
+            COOPattern(np.arange(3), np.arange(3), 3, 3), c, c, 1.0),
+        "llst_solve": lambda: tr.llst_solve(H, c, 1.0),
+        "lls_solve": lambda: tr.lls_solve(H, c, 1.0),
+        "gltr_solve": lambda: tr.gltr_solve(lambda v: v, c, 1.0),
+    }
+    with pytest.raises(RuntimeError, match="CUDA"):
+        calls[entry]()
+
+
+def test_tr_kernel_wrappers_do_not_fall_back():
+    """The tridiagonal factor and solve, and the two secular iterations, on
+    tensors that claim a device other than the CPU reach the kernels'
+    wrappers (and fail here for want of a card), never the plain versions."""
+    import torch
+
+    from galahad_tpu_torch.linalg import tridiag_factor, tridiag_kernels, tridiag_solve
+    from galahad_tpu_torch.tr import secular_kernels
+    from galahad_tpu_torch.tr import trs as T
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    tridiag_kernels.reset_tridiag_counts()
+    secular_kernels.reset_secular_counts()
+    z = lambda *shape: torch.zeros(*shape, device="meta")      # noqa: E731
+    with pytest.raises(ValueError, match="CUDA"):
+        tridiag_factor(z(4, 8), z(4, 7))
+    with pytest.raises(ValueError, match="CUDA"):
+        tridiag_solve(z(4, 8), z(4, 7), z(4, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        T._secular_newton(z(4, 8), z(4, 8), z(4), z(4), 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        T._rqs_newton(z(4, 8), z(4, 8), torch.zeros(4, 8, dtype=torch.bool, device="meta"),
+                      z(4), 3.0, z(4), z(4), 96)
+    assert tridiag_kernels.tridiag_counts() == dict(factor=0, solve=0, factor_plain=0,
+                                                    solve_plain=0)
+    assert secular_kernels.secular_counts() == dict(trs=0, rqs=0, trs_plain=0, rqs_plain=0)
