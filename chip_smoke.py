@@ -111,7 +111,9 @@ relative, flags equal) and the port's CPU run of the same call on its first
 256 problems (``TR_TOL``), timed by the bench's chained two-point slope with
 ``eigh``'s share; both secular kernels against their plain versions on the
 inputs those calls give them and on a batch of hard cases and equality problems (s within 1e-12 /
-1e-5 relative, the batch position changing no bit); the tridiagonal LDL'
+1e-5 relative, each problem's iteration count within 1..max_its, the batch position changing no
+bit), and timed there, in f32 and at the Krylov solvers' shape (B = 1, n = 64, padded); the
+tridiagonal LDL'
 entry points on 1,024 systems of k = 64 and one chain of k = 1,000,000
 against the plain versions (``TRIDIAG_TOL``) and by residual; the sparse TRS
 at n = 99,856 (the grid Laplacian of grid_qp_coo(316) minus 3 I, radius 1.5,
@@ -153,6 +155,11 @@ from galahad_tpu_torch.linalg import (banded_kernels, ea_kernels, ldlt_kernels, 
 from galahad_tpu_torch.linalg.sbls import sparse_kkt_factorize, sparse_kkt_plan
 from galahad_tpu_torch.qp.fused import launch_counts
 from galahad_tpu_torch.qp.ipm import IPMControl, ipm_solve, ipm_solve_compiled
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
+import secular_bench  # noqa: E402  (tools/secular_bench.py: the secular kernels' inputs, timing)
+from secular_bench import (TR_BATCH, TR_N, capture_secular_inputs,  # noqa: E402
+                           headline_batch)
 
 K_FLAGSHIP = 316
 ARC_RUNS = (("taylor", 4), ("puiseux", 3), ("zhao_sun", 3))
@@ -2643,6 +2650,7 @@ def phase_frontend(flagship_solution):
 # ---------------------------------------------------------------------------
 
 SECULAR_SOURCE = "galahad_tpu_torch/csrc/secular.cu"
+RQS_GROWTH = 60                      # theta evaluations of RQS's bracket growth, at most
 TRIDIAG_SOURCE = "galahad_tpu_torch/csrc/tridiag.cu"
 TPU_TRS_NEWTON = ("galahad_tpu/tr/trs.py:93 _secular_newton (lax.fori_loop :135; XLA, "
                   "no Pallas)")
@@ -2652,7 +2660,6 @@ TPU_TRIDIAG_FACTOR = ("galahad_tpu/linalg/cholesky.py:87 tridiag_factor (lax.sca
                       "no Pallas)")
 TPU_TRIDIAG_SOLVE = ("galahad_tpu/linalg/cholesky.py:109 tridiag_solve (lax.scan :118 / :130; "
                      "XLA, no Pallas)")
-TR_BATCH, TR_N = 1024, 64            # the reference's headline batch (bench.py:81)
 TR_SOLVERS = ("trs", "chol", "rqs", "dps", "dps_goldfarb")
 TR_CPU = 256                         # problems of the headline batch run again on the host
 # obj (and multiplier) relative to tests/trs_oracle.json (float64 results of
@@ -2693,18 +2700,6 @@ def reset_flagship_counts() -> None:
     ldlt_kernels.reset_launch_count()
     sweep_kernels.reset_sweep_counts()
     ea_kernels.reset_ea_counts()
-
-
-def headline_batch(dtype, device=None):
-    """(H, c, radius) of the reference's headline batch (bench.py:94-97; the
-    data of tools/make_trs_oracle.py): default_rng(0) draws B (1024, 64, 64)
-    and then the radii U(0.1, 2.0), H = (B + B')/2, c = default_rng(1)."""
-    rng = np.random.default_rng(0)
-    B = rng.normal(size=(TR_BATCH, TR_N, TR_N))
-    H = (B + np.swapaxes(B, -1, -2)) / 2
-    radius = rng.uniform(0.1, 2.0, size=TR_BATCH)
-    c = np.random.default_rng(1).normal(size=(TR_BATCH, TR_N))
-    return tuple(torch.as_tensor(a, device=device or "cuda").to(dtype) for a in (H, c, radius))
 
 
 def tr_solve(name, H, c, radius):
@@ -2758,30 +2753,6 @@ def hard_equality_batch(dtype):
     ct = (Q.mT @ c[..., None])[..., 0]
     ct[::3, 0] = 0.0
     return H, (Q @ (0.01 * ct)[..., None])[..., 0], radius
-
-
-def capture_secular_inputs(run):
-    """The inputs ``run()`` gives the two secular kernels (their dispatch in
-    tr/trs.py is wrapped while it runs): lists of argument tuples."""
-    from galahad_tpu_torch.tr import trs as T
-
-    got = dict(trs=[], rqs=[])
-    orig = T._secular_newton, T._rqs_newton
-
-    def trs(*a):
-        got["trs"].append(a)
-        return orig[0](*a)
-
-    def rqs(*a):
-        got["rqs"].append(a)
-        return orig[1](*a)
-
-    T._secular_newton, T._rqs_newton = trs, rqs
-    try:
-        run()
-    finally:
-        T._secular_newton, T._rqs_newton = orig
-    return got
 
 
 def tridiag_systems(B, k, dtype, seed=0):
@@ -3062,8 +3033,9 @@ def secular_checks(main):
     inputs the main path gave them (trs_solve, rqs_solve and dps_solve on
     the headline batch, f64 and f32) and on a batch of hard cases and
     equality problems (f64): max relative error of s (for RQS over the
-    problems that use s, not the hard ones), and the kernels' answers under
-    a permutation of the batch (bitwise)."""
+    problems that use s, not the hard ones), the kernels' answers and
+    iteration counts under a permutation of the batch (bitwise), and every
+    count between 1 and the cap (percentiles recorded)."""
     from galahad_tpu_torch.tr import TRSControl, secular_kernels
     from galahad_tpu_torch.tr import trs as T
 
@@ -3074,103 +3046,114 @@ def secular_checks(main):
             equality_problem=True)), T.rqs_solve(H, c, 1.0 / radius)))))
     out = dict(trs=[], rqs=[])
     perm = torch.randperm(TR_BATCH, generator=torch.Generator().manual_seed(1)).to("cuda")
+
+    def counts_ok(name, case, its, its_perm, cap, what="iteration"):
+        check(int(its.min()) >= min(1, cap) and int(its.max()) <= cap,
+              f"tr, {name}, {case}: {what} counts {int(its.min())}..{int(its.max())} "
+              f"outside 1..{cap}")
+        check(torch.equal(its[perm], its_perm), f"tr, {name}, {case}: the batch position "
+              f"changed a{'n' if what[0] in 'aeiou' else ''} {what} count")
+        return secular_kernels.iteration_percentiles(its)
+
     for case, got in sets:
         for a in got["trs"]:
             lam, ct2, radius_b, lam_lo, n_its = a
             tol = TR_TOL[lam.dtype]["s"]
             radius_b = radius_b.expand(lam.shape[:-1])
-            s_k = secular_kernels.trs_secular_newton(lam, ct2, radius_b, lam_lo, n_its)
+            s_k, its = secular_kernels.trs_secular_newton(lam, ct2, radius_b, lam_lo, n_its,
+                                                          iterations=True)
             s_p = T.secular_newton_plain(lam, ct2, radius_b, lam_lo, n_its)
-            s_perm = secular_kernels.trs_secular_newton(lam[perm], ct2[perm], radius_b[perm],
-                                                        lam_lo[perm], n_its)
+            s_perm, its_perm = secular_kernels.trs_secular_newton(
+                lam[perm], ct2[perm], radius_b[perm], lam_lo[perm], n_its, iterations=True)
             err = rel_err(s_k, s_p)
             check(err <= tol, f"tr, trs_secular_newton, {case}: {err:.3e} > {tol:.1e}")
             check(same_bits(s_k[perm], s_perm), f"tr, trs_secular_newton, {case}: the batch "
                   f"position changed the answer")
-            out["trs"].append(dict(case=case, max_rel_err=err, tol=tol, its=n_its))
+            pct = counts_ok("trs_secular_newton", case, its, its_perm, n_its)
+            out["trs"].append(dict(case=case, max_rel_err=err, tol=tol, its=n_its,
+                                   iterations=pct))
         for a in got["rqs"]:
             lam, ct2, excl, sigma, p, lam_lo, hi0, n_its = a
             tol = TR_TOL[lam.dtype]["s"]
             sigma = sigma.expand(lam.shape[:-1])
-            s_k = secular_kernels.rqs_secular_newton(lam, ct2, excl, sigma, p, lam_lo, hi0, n_its)
+            s_k, its, growth = secular_kernels.rqs_secular_newton(
+                lam, ct2, excl, sigma, p, lam_lo, hi0, n_its, iterations=True)
             s_p = T.rqs_newton_plain(lam, ct2, excl, sigma, p, lam_lo, hi0, n_its)
-            s_perm = secular_kernels.rqs_secular_newton(
-                lam[perm], ct2[perm], excl[perm], sigma[perm], p, lam_lo[perm], hi0[perm], n_its)
+            s_perm, its_perm, growth_perm = secular_kernels.rqs_secular_newton(
+                lam[perm], ct2[perm], excl[perm], sigma[perm], p, lam_lo[perm], hi0[perm], n_its,
+                iterations=True)
             hard = rqs_hard(lam, ct2, excl, sigma, p, lam_lo)
             err = rel_err(s_k[~hard], s_p[~hard])
             check(err <= tol, f"tr, rqs_secular_newton, {case}: {err:.3e} > {tol:.1e}")
             check(same_bits(s_k[perm], s_perm), f"tr, rqs_secular_newton, {case}: the batch "
                   f"position changed the answer")
+            pct = counts_ok("rqs_secular_newton", case, its, its_perm, n_its)
+            grown = counts_ok("rqs_secular_newton", case, growth, growth_perm, RQS_GROWTH,
+                              "growth evaluation")
             out["rqs"].append(dict(case=case, max_rel_err=err, tol=tol, its=n_its,
-                                   excluded_entries=int(excl.sum()), hard=int(hard.sum()),
+                                   iterations=pct, growth_evaluations=grown,
+                                   excluded_entries=int(excl.sum()),
+                                   hard=int(hard.sum()),
                                    max_rel_err_hard=rel_err(s_k[hard], s_p[hard])))
     return out
-
-
-def rqs_evaluations(lam, ct2, excl, sigma, p, lam_lo, hi0, its) -> int:
-    """The evaluations of theta that one RQS call makes on these inputs: per
-    problem the growth rounds its data needs plus the check that ends them
-    (at most 60 rounds), plus ``its`` Newton steps."""
-    from galahad_tpu_torch.tr.trs import _rqs_theta
-
-    hi = hi0.clone()
-    evals = torch.zeros_like(hi, dtype=torch.int64)
-    growing = torch.ones_like(hi, dtype=torch.bool)
-    for _ in range(60):
-        th = _rqs_theta(lam, ct2, excl, sigma, p - 2.0, hi)[0]
-        evals += growing.to(torch.int64)
-        growing = growing & (th < 0)
-        hi = torch.where(growing, hi * 2.0 + 1.0, hi)
-    return int(evals.sum()) + its * lam.shape[0]
 
 
 def secular_entries(main, checks):
     """The ``kernels`` entries of the two secular kernels, on the inputs the
     main path gives them on the headline batch in f64 (trs_solve's and
-    rqs_solve's calls)."""
+    rqs_solve's calls; f32 beside them), and at the Krylov solvers' shape
+    (B = 1, n = 64, padded), timed by tools/secular_bench.py::timing: device
+    time, critical path (the largest count of iterations the kernel took, RQS's
+    growth evaluations added, all the kernel's own counts) and time per step,
+    iteration percentiles, schedule; the bound from the iterations this run's
+    data needed."""
     from galahad_tpu_torch.tr import secular_kernels
-    from galahad_tpu_torch.tr import trs as T
 
     counts = main["counts"]
-    headline_inputs = main["inputs"][torch.float64]
-    lam, ct2, radius, lam_lo, its = headline_inputs["trs"][0]
-    B, n = lam.shape
-    radius = radius.expand(B)
-    trs = lambda: secular_kernels.trs_secular_newton(lam, ct2, radius, lam_lo, its)  # noqa: E731
-    trs_ms = time_ms(trs, reps=20)
-    trs_dev = queued_ms([trs] * 20) / 20
-    trs_plain = event_ms(lambda: T.secular_newton_plain(lam, ct2, radius, lam_lo, its))
-    tb, to = secular_kernels.trs_bound_terms(B, n, its, lam.dtype)
-    r_lam, r_ct2, excl, sigma, p, r_lo, hi0, r_its = headline_inputs["rqs"][0]
-    sigma = sigma.expand(B)
-    rqs = lambda: secular_kernels.rqs_secular_newton(  # noqa: E731
-        r_lam, r_ct2, excl, sigma, p, r_lo, hi0, r_its)
-    rqs_ms = time_ms(rqs, reps=20)
-    rqs_dev = queued_ms([rqs] * 20) / 20
-    rqs_plain = event_ms(lambda: T.rqs_newton_plain(r_lam, r_ct2, excl, sigma, p, r_lo, hi0,
-                                                     r_its))
-    evals = rqs_evaluations(r_lam, r_ct2, excl, sigma, p, r_lo, hi0, r_its)
-    rb, ro = secular_kernels.rqs_bound_terms(B, n, evals, lam.dtype)
     for key in ("trs", "rqs"):
         check(counts[key] > 0, f"tr: the main path launched no {key} secular kernel")
         check(counts[key + "_plain"] == 0, f"tr: the main path ran the plain {key} iteration")
+    krylov = secular_bench.krylov_secular_inputs()
+    out = {}
+    for name in ("trs", "rqs"):
+        rows = {}
+        for shape, a in (("headline_float64", main["inputs"][torch.float64][name][0]),
+                         ("headline_float32", main["inputs"][torch.float32][name][0]),
+                         ("krylov_padded_float64", krylov[name][0])):
+            row = rows[shape] = secular_bench.timing(name, a)
+            tol = TR_TOL[a[0].dtype]["s"]
+            check(row["max_rel_err"] <= tol, f"tr, {name}_secular_newton, {shape}: "
+                  f"{row['max_rel_err']:.3e} from the plain version")
+        out[name] = rows
+    B, n = main["inputs"][torch.float64]["trs"][0][0].shape
+    h_trs, h_rqs = out["trs"]["headline_float64"], out["rqs"]["headline_float64"]
+    tb, to = secular_kernels.trs_bound_terms(B, n, h_trs["iterations_total"], torch.float64)
+    rb, ro = secular_kernels.rqs_bound_terms(B, n, h_rqs["theta_evaluations"], torch.float64)
     per = (f"one call at the main path's shape: the headline batch ({B} x {n}, f64) as "
-           f"trs_solve / rqs_solve give it")
+           f"trs_solve / rqs_solve give it; the bound counts the iterations this run's data "
+           f"needed; by_shape: f32 and the Krylov solvers' shape (B = 1, n = 64, "
+           f"{secular_bench.KRYLOV_ROWS} Lanczos rows and the 1e12 pad)")
+    keys = ("critical_path_steps", "device_us_per_step", "iterations", "iterations_total",
+            "schedule")
     return [
         dict(name="trs_secular_newton", route="cuda", source=SECULAR_SOURCE,
              replaces=TPU_TRS_NEWTON, launches=counts["trs"],
              max_abs_err=max(r["max_rel_err"] for r in checks["trs"]),
-             err="relative, s against the plain version", ms=trs_ms, device_ms=trs_dev,
-             plain_ms=trs_plain, bound_ms=max(tb, to) * 1e3,
-             bound_by="bytes" if tb >= to else "operations", library_ms=None,
-             iterations=its, per=per, checks=checks["trs"]),
+             err="relative, s against the plain version", ms=h_trs["ms"],
+             device_ms=h_trs["device_ms"], plain_ms=h_trs["plain_ms"],
+             bound_ms=max(tb, to) * 1e3, bound_by="bytes" if tb >= to else "operations",
+             library_ms=None, max_its=h_trs["max_its"], **{k: h_trs[k] for k in keys},
+             per=per, by_shape=out["trs"], checks=checks["trs"]),
         dict(name="rqs_secular_newton", route="cuda", source=SECULAR_SOURCE,
              replaces=TPU_RQS_NEWTON, launches=counts["rqs"],
              max_abs_err=max(r["max_rel_err"] for r in checks["rqs"]),
-             err="relative, s against the plain version", ms=rqs_ms, device_ms=rqs_dev,
-             plain_ms=rqs_plain, bound_ms=max(rb, ro) * 1e3,
-             bound_by="bytes" if rb >= ro else "operations", library_ms=None,
-             iterations=r_its, theta_evaluations=evals, per=per, checks=checks["rqs"])]
+             err="relative, s against the plain version", ms=h_rqs["ms"],
+             device_ms=h_rqs["device_ms"], plain_ms=h_rqs["plain_ms"],
+             bound_ms=max(rb, ro) * 1e3, bound_by="bytes" if rb >= ro else "operations",
+             library_ms=None, max_its=h_rqs["max_its"], **{k: h_rqs[k] for k in keys},
+             growth_evaluations_max=h_rqs["growth_evaluations_max"],
+             theta_evaluations=h_rqs["theta_evaluations"], per=per, by_shape=out["rqs"],
+             checks=checks["rqs"])]
 
 
 def tridiag_err(got, ref) -> float:

@@ -266,12 +266,19 @@ def _trs_from_eigen(lam, ct, radius, back, ctl: TRSControl):
     boundary_active = torch.ones_like(pd) if ctl.equality_problem else lam_min < 0
     hard = ~c_in_min & (norm_pinv < radius) & boundary_active
 
-    # secular Newton for the easy boundary case (dummy data in the hard case)
+    # secular Newton for the easy boundary case.  A hard case's s is not
+    # used; it gets a problem whose root is its start, s = 1 (lam = 0, ct2 =
+    # radius^2 e_1, lam_lo = 0), which stops at once.  The JAX package's
+    # stand-in (lam + 1, ct2 = 1, lam_lo = 1) has poles inside the bracket
+    # when lam_min < -2: there the loop wanders for all its iterations, and
+    # its s is set by the last bit of a step below an ulp.
+    e1 = torch.zeros_like(ct2)
+    e1[..., 0] = 1.0
     s_b = _secular_newton(
-        torch.where(hard[..., None], lam + 1.0, lam),
-        torch.where(hard[..., None], 0.0 * ct2 + 1.0, ct2),
+        torch.where(hard[..., None], 0.0, lam),
+        torch.where(hard[..., None], (radius * radius)[..., None] * e1, ct2),
         radius,
-        torch.where(hard, 1.0, lam_lo),
+        torch.where(hard, 0.0, lam_lo),
         ctl.max_newton_its)
 
     # assemble the boundary solution in eigen-coordinates

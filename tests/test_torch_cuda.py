@@ -1129,6 +1129,150 @@ def test_secular_kernels_match_plain(cuda, B, n, hard, dtype):
         f"{lam[i].cpu().tolist()[:3]} / {T._eigh_M(H.cpu()[i], c.cpu()[i])[0].tolist()[:3]}")
 
 
+def secular_eigen_data(B, n, dtype, hard, seed=0):
+    """Eigen-data as trs_solve and rqs_solve give it, drawn directly (no
+    eigh, so that n may be large): lam sorted N(0, 9), ct = N(0, 1); with
+    ``hard`` every third problem has no part of c at its leftmost eigenvalue
+    and c is scaled by 0.01 (the hard batch of chip_smoke.py).  Returns lam,
+    ct2, the RQS mask, radius, lam_lo = max(-lam_min, 0)."""
+    from galahad_tpu_torch.tr import trs as T
+
+    rng = np.random.default_rng(seed)
+    lam = np.sort(rng.normal(size=(B, n)) * 3.0, axis=-1)
+    ct = rng.normal(size=(B, n))
+    if hard:
+        ct[::3, 0] = 0.0
+        ct *= 0.01
+    radius = rng.uniform(0.1, 2.0, B)
+    lam, ct, radius = (torch.as_tensor(a, device="cuda").to(dtype) for a in (lam, ct, radius))
+    ct2 = ct * ct
+    _, at_min, c_in_min = T._min_eigen(lam, ct, ct2, torch.finfo(dtype).eps)
+    return lam, ct2, at_min & ~c_in_min[..., None], radius, torch.clamp(-lam[:, 0], min=0.0)
+
+
+@pytest.mark.parametrize("B,n", [(1, 1), (37, 1), (1024, 8), (37, 16), (1, 64), (1024, 64),
+                                 (37, 65), (1, 128), (37, 129), (1024, 200), (1, 1000),
+                                 (37, 1000), (1, 20_000)])
+def test_secular_kernels_every_layout(cuda, B, n):
+    """Both secular kernels against their plain versions on the card in every
+    layout of secular_schedule (16 lanes, a warp, a block, a block
+    whose entries overflow shared memory at n = 20,000), f32 and f64, easy
+    and hard data, RQS at p in {3, 4, 2.5}, caps 1, 2 and 64 (TRS) or 96
+    (RQS): s within 1e-12 (f64) / 1e-5 (f32) relative (RQS where rqs_solve
+    uses s, not its hard cases); every iteration count between 1 and the cap,
+    every RQS growth count between 1 and 60; two runs and a permuted batch
+    bitwise equal.  At n = 1 TRS's psi is linear, one step reaches the root
+    and the plain version's second step is below an ulp: whether it takes it
+    or bisects is decided by the last bit.  There the kernel stops at the
+    root, so TRS at n = 1 and the cap 2 is held to the plain version at the
+    cap 64 where the bracket holds the root (||x(lam_lo)|| > radius);
+    elsewhere both bisect, and it is held at the cap 2."""
+    from galahad_tpu_torch.tr import secular_kernels
+    from galahad_tpu_torch.tr import trs as T
+
+    perm = torch.randperm(B, generator=torch.Generator().manual_seed(3)).to("cuda")
+
+    def close(got, ref, mask, tol, what):
+        err = ((got - ref).abs() / ref.abs().clamp(min=1.0))[mask]
+        assert err.numel() == 0 or float(err.max()) <= tol, f"{what}: {float(err.max()):.3e}"
+
+    def same(a, b):
+        return torch.equal(a, b) and bool((torch.signbit(a) == torch.signbit(b)).all())
+
+    for dtype in (torch.float64, torch.float32):
+        tol = 1e-12 if dtype == torch.float64 else 1e-5
+        for hard in (False, True):
+            lam, ct2, excl, radius, lam_lo = secular_eigen_data(B, n, dtype, hard)
+            every = torch.ones(B, dtype=torch.bool, device="cuda")
+            for cap in (1, 2, 64):
+                what = f"trs {dtype} hard={hard} cap={cap}"
+                s, its = secular_kernels.trs_secular_newton(lam, ct2, radius, lam_lo, cap,
+                                                            iterations=True)
+                ref = T.secular_newton_plain(lam, ct2, radius, lam_lo, cap)
+                if n == 1 and cap == 2:
+                    root = (ct2 / (lam + lam_lo[:, None]) ** 2).sum(-1).sqrt() > radius
+                    ref = torch.where(root, T.secular_newton_plain(
+                        lam, ct2, radius, lam_lo, 64), ref)
+                close(s, ref, every, tol, what)
+                assert int(its.min()) >= 1 and int(its.max()) <= cap, what
+                s2, its2 = secular_kernels.trs_secular_newton(lam, ct2, radius, lam_lo, cap,
+                                                              iterations=True)
+                sp, itsp = secular_kernels.trs_secular_newton(
+                    lam[perm], ct2[perm], radius[perm], lam_lo[perm], cap, iterations=True)
+                assert same(s, s2) and same(s[perm], sp), what
+                assert torch.equal(its, its2) and torch.equal(its[perm], itsp), what
+            for p in (3.0, 4.0, 2.5):
+                sigma = 1.0 / radius
+                pm2 = p - 2.0
+                hi = lam_lo + sigma ** (1 / (p - 1)) * ct2.sum(-1) ** (pm2 / (2 * (p - 1))) \
+                    + torch.clamp(lam_lo, min=1.0)
+                norm_lo = T._rqs_theta(lam, ct2, excl, sigma, pm2, lam_lo)[1]
+                easy = ~(excl.any(-1) & (lam[:, 0] < 0) & (norm_lo < (lam_lo / sigma) ** (1 / pm2)))
+                for cap in (1, 2, 96):
+                    what = f"rqs p={p} {dtype} hard={hard} cap={cap}"
+                    s, its, growth = secular_kernels.rqs_secular_newton(
+                        lam, ct2, excl, sigma, p, lam_lo, hi, cap, iterations=True)
+                    close(s, T.rqs_newton_plain(lam, ct2, excl, sigma, p, lam_lo, hi, cap), easy,
+                          tol, what)
+                    assert int(its.min()) >= 1 and int(its.max()) <= cap, what
+                    assert int(growth.min()) >= 1 and int(growth.max()) <= 60, what
+                    sp, itsp, growthp = secular_kernels.rqs_secular_newton(
+                        lam[perm], ct2[perm], excl[perm], sigma[perm], p, lam_lo[perm], hi[perm],
+                        cap, iterations=True)
+                    assert same(s[perm], sp) and torch.equal(its[perm], itsp), what
+                    assert torch.equal(growth[perm], growthp), what
+                    if dtype == torch.float32 and p == 2.5:
+                        assert int(its.min()) == cap, "f32 RQS at p = 2.5 runs to the cap"
+
+
+@pytest.mark.parametrize("B,n", [(1024, 64), (37, 200), (1, 1000)])
+def test_secular_kernels_with_a_pole_in_the_bracket(cuda, B, n):
+    """Inputs whose bracket may hold a pole of ||x|| (most problems here do)
+    and no root: TRS on the JAX package's stand-in for a hard case (lam + 1,
+    ct2 = 1, lam_lo = 1, where lam_min < -2), RQS with lam_lo = 0 below the
+    pole at -lam_min.  Both the kernels and the plain loops wander there, and their
+    answers differ; the kernels promise a finite s no smaller than lam_lo
+    (for TRS no larger than the bracket can grow to, lam_lo + width 2^cap),
+    at most ``cap`` iterations and 60 growth evaluations, and the same bits
+    in two runs and under a permutation of the batch."""
+    from galahad_tpu_torch.tr import secular_kernels
+
+    perm = torch.randperm(B, generator=torch.Generator().manual_seed(4)).to("cuda")
+    for dtype in (torch.float64, torch.float32):
+        lam, ct2, _, radius, lam_lo = secular_eigen_data(B, n, dtype, False)
+        assert bool((lam[:, 0] < -2.0).all())
+        lam_t, ct2_t, lo_t = lam + 1.0, torch.ones_like(ct2), torch.ones_like(lam_lo)
+        width = torch.sqrt(ct2_t.sum(-1)) / radius + 1.0
+        for cap in (1, 2, 64):
+            what = f"trs {dtype} cap={cap}"
+            s, its = secular_kernels.trs_secular_newton(lam_t, ct2_t, radius, lo_t, cap,
+                                                        iterations=True)
+            assert bool(torch.isfinite(s).all()) and bool((s >= lo_t).all()), what
+            assert bool((s <= lo_t + width * 2.0 ** cap).all()), what
+            assert int(its.min()) >= 1 and int(its.max()) <= cap, what
+            s2, its2 = secular_kernels.trs_secular_newton(lam_t, ct2_t, radius, lo_t, cap,
+                                                          iterations=True)
+            sp, itsp = secular_kernels.trs_secular_newton(lam_t[perm], ct2_t[perm], radius[perm],
+                                                          lo_t[perm], cap, iterations=True)
+            assert torch.equal(s, s2) and torch.equal(s[perm], sp), what
+            assert torch.equal(its, its2) and torch.equal(its[perm], itsp), what
+        sigma, zero = 1.0 / radius, torch.zeros_like(lam_lo)
+        excl = torch.zeros_like(lam, dtype=torch.bool)
+        hi = sigma ** 0.5 * ct2.sum(-1) ** 0.25 + 1.0
+        for cap in (1, 2, 96):
+            what = f"rqs {dtype} cap={cap}"
+            s, its, growth = secular_kernels.rqs_secular_newton(lam, ct2, excl, sigma, 3.0, zero,
+                                                                hi, cap, iterations=True)
+            assert bool(torch.isfinite(s).all()) and bool((s >= 0).all()), what
+            assert int(its.min()) >= 1 and int(its.max()) <= cap, what
+            assert int(growth.min()) >= 1 and int(growth.max()) <= 60, what
+            sp, itsp, growthp = secular_kernels.rqs_secular_newton(
+                lam[perm], ct2[perm], excl[perm], sigma[perm], 3.0, zero[perm], hi[perm], cap,
+                iterations=True)
+            assert torch.equal(s[perm], sp) and torch.equal(its[perm], itsp), what
+            assert torch.equal(growth[perm], growthp), what
+
+
 def test_secular_kernels_ignore_the_batch_position(cuda):
     from galahad_tpu_torch.tr import trs as T
 
