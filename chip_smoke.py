@@ -115,7 +115,11 @@ inputs those calls give them and on a batch of hard cases and equality problems 
 bit), and timed there, in f32 and at the Krylov solvers' shape (B = 1, n = 64, padded); the
 tridiagonal LDL'
 entry points on 1,024 systems of k = 64 and one chain of k = 1,000,000
-against the plain versions (``TRIDIAG_TOL``) and by residual; the sparse TRS
+against the plain versions (``TRIDIAG_TOL`` on the card; the factor and the
+batch solve bitwise equal to the plain versions on the host, the chain's
+factor on its first ``TRIDIAG_PREFIX`` rows; the chain's chunked solve by its
+residual against the sequential one's, and two runs bitwise), timed by
+tools/tridiag_bench.py at the shapes (a)-(d) there; the sparse TRS
 at n = 99,856 (the grid Laplacian of grid_qp_coo(316) minus 3 I, radius 1.5,
 with M = 2 I, a contract to 0.75, and a hard case) held by its optimality
 conditions in float64 with scipy, with the flagship kernels launched and no
@@ -158,8 +162,10 @@ from galahad_tpu_torch.qp.ipm import IPMControl, ipm_solve, ipm_solve_compiled
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
 import secular_bench  # noqa: E402  (tools/secular_bench.py: the secular kernels' inputs, timing)
+import tridiag_bench  # noqa: E402  (tools/tridiag_bench.py: the tridiagonal kernels' inputs, timing)
 from secular_bench import (TR_BATCH, TR_N, capture_secular_inputs,  # noqa: E402
                            headline_batch)
+from tridiag_bench import tridiag_rel_residual, tridiag_residual, tridiag_systems  # noqa: E402
 
 K_FLAGSHIP = 316
 ARC_RUNS = (("taylor", 4), ("puiseux", 3), ("zhao_sun", 3))
@@ -2755,25 +2761,6 @@ def hard_equality_batch(dtype):
     return H, (Q @ (0.01 * ct)[..., None])[..., 0], radius
 
 
-def tridiag_systems(B, k, dtype, seed=0):
-    """(d, e, b) of B symmetric tridiagonal systems of order k, diagonally
-    dominant (|d| in [2, 4], a fifth of them negative; |e| < 1)."""
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    shape = (B, k) if B else (k,)
-    d = torch.rand(shape, generator=g, device="cuda", dtype=dtype) * 2.0 + 2.0
-    d = torch.where(torch.rand(shape, generator=g, device="cuda") < 0.2, -d, d)
-    e = torch.rand(shape[:-1] + (k - 1,), generator=g, device="cuda", dtype=dtype) * 2.0 - 1.0
-    b = torch.randn(shape, generator=g, device="cuda", dtype=dtype)
-    return d, e, b
-
-
-def tridiag_residual(d, e, b, x) -> float:
-    r = d * x - b
-    r[..., 1:] += e * x[..., :-1]
-    r[..., :-1] += e * x[..., 1:]
-    return float(r.abs().max() / b.abs().max())
-
-
 def sparse_trs_problems(device):
     """The sparse TRS's problems at the flagship's width: H = the grid
     Laplacian of grid_qp_coo(316) minus 3 I (indefinite), g =
@@ -3166,12 +3153,15 @@ def tridiag_entries(main):
     """The tridiagonal kernels against their plain versions on the main
     path's systems (1,024 x 64, f64 and f32): on the card within
     ``TRIDIAG_TOL`` of the largest value (torch's addcmul on CUDA rounds the
-    product before the difference, the kernel's fma does not), and against
-    the plain version on the host (whose addcmul is fused, as XLA's scan
-    step: the JAX package's bits), recorded bitwise; on the chain of k =
-    1,000,000 (f64) the factor's first 20,000 rows against the plain version
-    on the host and the solve by its relative residual.  Their ``kernels``
-    entries at 1,024 x 64, f64."""
+    product before the difference, the kernel's fma does not), and bitwise
+    equal to the plain version on the host (whose addcmul is fused, as XLA's
+    scan step: the JAX package's bits); on the chain of k = 1,000,000 (f64)
+    the factor's first ``TRIDIAG_PREFIX`` rows bitwise equal to the plain
+    version on the host, and the solve (its chunked layout) within 10 x the
+    sequential solve's relative residual + 1e-15 (the sequential solve: the
+    batch layout, bitwise the plain version's) and bitwise repeatable.  Their
+    ``kernels`` entries at 1,024 x 64, f64, with ``by_shape`` at the shapes
+    (a)-(d) of tools/tridiag_bench.py."""
     from galahad_tpu_torch.linalg import tridiag_kernels
     from galahad_tpu_torch.linalg.cholesky import tridiag_factor_plain, tridiag_solve_plain
 
@@ -3186,24 +3176,33 @@ def tridiag_entries(main):
         hx = tridiag_solve_plain(hd, hl, b.cpu())
         host_err = tridiag_err((dh.cpu(), l.cpu(), x.cpu()), (hd, hl, hx))
         tol = TRIDIAG_TOL[dtype]
-        check(err <= tol and host_err <= tol, f"tr, tridiag {dtype}: {err:.3e} against the "
-              f"plain version on the card, {host_err:.3e} on the host (tol {tol:.1e})")
+        check(err <= tol and host_err == 0.0, f"tr, tridiag {dtype}: {err:.3e} against the "
+              f"plain version on the card (tol {tol:.1e}), {host_err:.3e} on the host (bitwise)")
         checks.append(dict(shape=[TR_BATCH, TR_N], dtype=str(dtype)[6:], rel_err=err, tol=tol,
-                           rel_err_host_plain=host_err,
-                           bitwise_equal_to_host_plain=host_err == 0.0,
+                           rel_err_host_plain=host_err, bitwise_equal_to_host_plain=True,
                            residual=tridiag_residual(d, e, b, x)))
     d, e, b, dh, l, x, fac_s, sol_s = main["tridiag"]["chain"]
     P = TRIDIAG_PREFIX
     pd, pl = tridiag_factor_plain(d[:P].cpu(), e[:P - 1].cpu())
-    perr = tridiag_err((dh[:P].cpu(), l[:P - 1].cpu()), (pd, pl))
+    prefix_equal = torch.equal(dh[:P].cpu(), pd) and torch.equal(l[:P - 1].cpu(), pl)
     res = tridiag_residual(d, e, b, x)
-    check(perr <= TRIDIAG_TOL[torch.float64] and res <= 1e-12,
-          f"tr, tridiag chain: prefix error {perr:.3e}, relative residual {res:.3e}")
+    x_seq = tridiag_kernels.tridiag_solve(dh, l, b, layout="batch")
+    rel = tridiag_rel_residual(d, e, b, x)
+    rel_seq = tridiag_rel_residual(d, e, b, x_seq)
+    again = same_bits(tridiag_kernels.tridiag_solve(dh, l, b), x)
+    check(prefix_equal and res <= 1e-12 and rel <= 10 * rel_seq + 1e-15 and again,
+          f"tr, tridiag chain: prefix bitwise {prefix_equal}, relative residual {res:.3e}, "
+          f"{rel:.3e} against the sequential solve's {rel_seq:.3e}, repeatable {again}")
+    sch = tridiag_kernels.tridiag_schedule(1, TRIDIAG_CHAIN, torch.float64)
     checks.append(dict(shape=[TRIDIAG_CHAIN], dtype="float64", factor_prefix_rows=P,
-                       factor_prefix_rel_err_host_plain=perr, solve_relative_residual=res,
-                       residual_tol=1e-12, factor_s=fac_s, solve_s=sol_s,
+                       factor_prefix_bitwise_equal_to_host_plain=prefix_equal,
+                       solve_relative_residual=res, residual_tol=1e-12,
+                       solve_rel_residual_normwise=rel, sequential_rel_residual_normwise=rel_seq,
+                       solve_two_runs_bitwise_equal=again, factor_s=fac_s, solve_s=sol_s,
                        factor_us_per_row=fac_s / TRIDIAG_CHAIN * 1e6,
-                       solve_us_per_row=sol_s / TRIDIAG_CHAIN * 1e6))
+                       solve_us_per_row=sol_s / TRIDIAG_CHAIN * 1e6,
+                       factor_layout=sch["factor"]["layout"], solve_layout=sch["solve"]["layout"],
+                       chunk=sch["solve"]["chunk"], chunks=sch["solve"]["chunks"]))
     err64 = checks[0]["rel_err"]
     d, e, b, dh, l, x = main["tridiag"][("batch", torch.float64)]
     fac = lambda: tridiag_kernels.tridiag_factor(d, e)           # noqa: E731
@@ -3216,28 +3215,44 @@ def tridiag_entries(main):
     torch.linalg.solve(T[:2], b[:2])                                   # the library's warm-up
     lib_s = event_ms(lambda: torch.linalg.solve(T, b))
     lib_err = float((torch.linalg.solve(T, b) - x).abs().max())
+    del T
     fb, fo = tridiag_kernels.factor_bound_terms(TR_BATCH, TR_N, d.dtype)
     sb, so = tridiag_kernels.solve_bound_terms(TR_BATCH, TR_N, d.dtype)
     for key in ("factor", "solve"):
         check(counts["tridiag_" + key] > 0, f"tr: the main path launched no tridiag {key}")
         check(counts[f"tridiag_{key}_plain"] == 0, f"tr: the main path ran the plain {key}")
+    by_shape = dict(tridiag_factor={}, tridiag_solve={})
+    for name, (B, k, dtype) in tridiag_bench.SHAPES.items():
+        for row in tridiag_bench.bench(name, B, k, dtype):
+            by_shape[row["kernel"]][name] = {
+                key: row[key] for key in ("device_ms", "critical_path_steps",
+                                          "device_us_per_step", "device_us_per_row", "residual",
+                                          "schedule") if key in row}
+    sched = tridiag_kernels.tridiag_schedule(TR_BATCH, TR_N, torch.float64)
     per = (f"one call at the main path's shape: {TR_BATCH} systems of k = {TR_N} (GLTR's "
            f"itmax), f64; launches: the tridiagonal entry points of the tr phase (no solver "
-           f"of the JAX package calls them)")
-    return [
-        dict(name="tridiag_factor", route="cuda", source=TRIDIAG_SOURCE,
-             replaces=TPU_TRIDIAG_FACTOR, launches=counts["tridiag_factor"], max_abs_err=err64,
-             err="relative to the largest value, against the plain version on the card",
-             ms=f_ms, device_ms=f_dev, plain_ms=f_plain, bound_ms=max(fb, fo) * 1e3,
-             bound_by="bytes" if fb >= fo else "operations", library_ms=None,
-             critical_path_steps=TR_N - 1, per=per, checks=checks),
-        dict(name="tridiag_solve", route="cuda", source=TRIDIAG_SOURCE,
-             replaces=TPU_TRIDIAG_SOLVE, launches=counts["tridiag_solve"], max_abs_err=err64,
-             err="relative to the largest value, against the plain version on the card",
-             ms=s_ms, device_ms=s_dev, plain_ms=s_plain, bound_ms=max(sb, so) * 1e3,
-             bound_by="bytes" if sb >= so else "operations", library_ms=lib_s,
-             library="torch.linalg.solve on the assembled dense (1024, 64, 64) tridiagonals",
-             library_max_abs_diff=lib_err, critical_path_steps=2 * TR_N - 1, per=per)]
+           f"of either package calls them); by_shape: device ms by tools/tridiag_bench.py at "
+           f"(a) 1,024 x 64 f64 / f32, (b) 1 x 64, (c) 64 x 5,000, (d) one chain of 10^6 rows")
+    out = []
+    for name, src, ms, dev, plain, (tb, to), lib in (
+            ("tridiag_factor", TPU_TRIDIAG_FACTOR, f_ms, f_dev, f_plain, (fb, fo), None),
+            ("tridiag_solve", TPU_TRIDIAG_SOLVE, s_ms, s_dev, s_plain, (sb, so), lib_s)):
+        which = name.split("_")[1]
+        steps = sched[which]["critical_path_steps"]
+        entry = dict(name=name, route="cuda", source=TRIDIAG_SOURCE, replaces=src,
+                     launches=counts["tridiag_" + which], max_abs_err=err64,
+                     err="relative to the largest value, against the plain version on the card",
+                     ms=ms, device_ms=dev, plain_ms=plain, bound_ms=max(tb, to) * 1e3,
+                     bound_by="bytes" if tb >= to else "operations", library_ms=lib,
+                     schedule=sched[which], critical_path_steps=steps,
+                     device_us_per_step=dev / steps * 1e3, per=per, by_shape=by_shape[name])
+        if lib is not None:
+            entry.update(library="torch.linalg.solve on the assembled dense (1024, 64, 64) "
+                                 "tridiagonals", library_max_abs_diff=lib_err)
+        else:
+            entry["checks"] = checks
+        out.append(entry)
+    return out
 
 
 def tr_sparse_rows(main):

@@ -143,17 +143,66 @@ def tridiag_solve_plain(dhat: torch.Tensor, l: torch.Tensor, b: torch.Tensor):
 def tridiag_factor(d: torch.Tensor, e: torch.Tensor):
     """``(dhat, l)`` of :func:`tridiag_factor_plain`, batched over leading
     dimensions.  A CPU tensor takes the plain version; on CUDA tensors this
-    is one launch of the hand-written kernel (csrc/tridiag.cu, one thread
-    per system walking the chain) or an error."""
+    is one launch of the hand-written kernel (csrc/tridiag.cu, a thread per
+    system walking its chain out of shared memory, laid out by
+    ``tridiag_kernels.tridiag_schedule``) or an error."""
     if d.device.type == "cpu":
         return tridiag_factor_plain(d, e)
     return tridiag_kernels.tridiag_factor(d, e)
 
 
+def tridiag_solve_chunked_plain(dhat: torch.Tensor, l: torch.Tensor, b: torch.Tensor,
+                                chunk: int):
+    """The chunked layout of the solve kernel (csrc/tridiag.cu) in plain
+    PyTorch, for the tests: the k rows in chunks of ``chunk``, per direction
+    in three phases.  (1) Each chunk with an inflow (every chunk but the first
+    in the direction) runs its substitution from zero inflow, giving its last
+    value vh, and the product T of -l over its rows (the transfer: v_last =
+    vh + T v_inflow); (2) in chunk order, fma(T, v_inflow, vh) from the value
+    the chunk before published, published in turn; (3) the chunk runs its
+    substitution again from that inflow, with the operations and order of
+    :func:`tridiag_solve_plain`.  The first chunk of a direction runs once and
+    publishes its last value.  Same contract as :func:`tridiag_solve_plain`;
+    the two differ only by the rounding the published inflows carry, and
+    agree bitwise with one chunk."""
+    k = b.shape[-1]
+    m = min(int(chunk), k)
+    starts = list(range(0, k, m))
+
+    def sweep(rows_of, coef, src):
+        out = [None] * k
+        published = None
+        for j, rows in enumerate(rows_of):
+            if j > 0:                            # phase 1, from zero inflow
+                vh, T = src(rows[0]), -coef(rows[0])
+                for i in rows[1:]:
+                    vh = torch.addcmul(src(i), coef(i), vh, value=-1)
+                    T = T * -coef(i)
+                inflow, published = published, torch.addcmul(vh, T, published)
+                v = inflow
+                for i in rows:                   # phase 3
+                    v = out[i] = torch.addcmul(src(i), coef(i), v, value=-1)
+            else:
+                v = out[rows[0]] = src(rows[0])
+                for i in rows[1:]:
+                    v = out[i] = torch.addcmul(src(i), coef(i), v, value=-1)
+                published = v
+        return out
+
+    fwd = [list(range(s, min(s + m, k))) for s in starts]
+    y = sweep(fwd, lambda i: l[..., i - 1], lambda i: b[..., i])
+    z = torch.stack(y, -1) / dhat
+    bwd = [r[::-1] for r in fwd[::-1]]
+    x = sweep(bwd, lambda i: l[..., i], lambda i: z[..., i])
+    return torch.stack(x, -1)
+
+
 def tridiag_solve(dhat: torch.Tensor, l: torch.Tensor, b: torch.Tensor):
     """Solve with the tridiagonal LDL' factors of :func:`tridiag_factor`;
     ``b (..., k)``.  A CPU tensor takes the plain version; on CUDA tensors
-    one launch of the hand-written kernel or an error."""
+    one launch of the hand-written kernel (its batch layout, or for few long
+    systems its chunked layout: :func:`tridiag_solve_chunked_plain`) or an
+    error."""
     if b.device.type == "cpu":
         return tridiag_solve_plain(dhat, l, b)
     return tridiag_kernels.tridiag_solve(dhat, l, b)

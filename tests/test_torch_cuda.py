@@ -1067,6 +1067,93 @@ def test_tridiag_kernels_match_plain(cuda, shape, dtype):
         assert float((r - b).abs().max()) <= (1e-10 if dtype == torch.float64 else 1e-3)
 
 
+# (B, k) of the layout cases: k = 1 and 2, B not a multiple of 32, k not a
+# multiple of the stage rows (32 batch, 512 chain, 256 chunked), one long system
+TRIDIAG_LAYOUT_SHAPES = [(1, 1), (3, 1), (5, 2), (37, 2), (33, 33), (1, 64), (70, 97),
+                         (2, 1031), (1, 4099), (40, 3001)]
+
+
+def tridiag_case(B, k, dtype, offset, seed):
+    """(d, e, b) on the card, diagonally dominant (|d| in [2, 4], a fifth of
+    them negative; |e| < 1), each a contiguous view into a buffer: with
+    ``offset`` at 1, 3 and 2 entries into it, so that rows start off the
+    16-byte alignment a bulk copy takes (in f64 d and e by 8 bytes)."""
+    rng = np.random.default_rng(seed)
+    d = rng.uniform(2.0, 4.0, (B, k)) * np.where(rng.random((B, k)) < 0.2, -1.0, 1.0)
+    e = rng.uniform(-1.0, 1.0, (B, k - 1))
+    b = rng.normal(size=(B, k))
+
+    def place(a, off):
+        buf = torch.zeros(a.size + off, dtype=dtype, device="cuda")
+        t = buf[off:].view(a.shape)
+        t.copy_(torch.as_tensor(a, dtype=dtype))
+        return t
+
+    return place(d, offset), place(e, 3 * offset), place(b, 2 * offset)
+
+
+def tridiag_rel_residual(d, e, b, x) -> float:
+    """max |T x - b| / (||T||_inf max |x|), in float64 on the host."""
+    d, e, b, x = (t.double().cpu() for t in (d, e, b, x))
+    r = d * x - b
+    r[:, 1:] += e * x[:, :-1]
+    r[:, :-1] += e * x[:, 1:]
+    norm = float(d.abs().max()) + (2.0 * float(e.abs().max()) if e.numel() else 0.0)
+    return float(r.abs().max()) / (norm * max(float(x.abs().max()), 1e-300))
+
+
+@pytest.mark.parametrize("B,k", TRIDIAG_LAYOUT_SHAPES)
+def test_tridiag_every_layout(cuda, B, k):
+    """Both tridiagonal kernels in every layout of tridiag_schedule, f64 and
+    f32, inputs aligned and off the 16-byte alignment: the factor (batch and
+    chain) bitwise equal to the plain version on the host (the JAX package's
+    bits); the batch solve bitwise equal to it; the chunked solve (the
+    default chunk and a third of k) bitwise equal to its plain mirror on the
+    host (cholesky.py::tridiag_solve_chunked_plain) and within 10 x the
+    sequential solve's relative residual + 1e-15; each call twice and on a
+    permuted batch, bitwise; one launch per call and no plain call."""
+    from galahad_tpu_torch.linalg import cholesky, tridiag_kernels as tk
+
+    perm = torch.randperm(B, generator=torch.Generator().manual_seed(5)).to("cuda")
+    for dtype in (torch.float64, torch.float32):
+        for offset in (0, 1):
+            what = f"B={B} k={k} {dtype} offset={offset}"
+            d, e, b = tridiag_case(B, k, dtype, offset, seed=B * 7919 + k)
+            hd, hl = cholesky.tridiag_factor_plain(d.cpu(), e.cpu())
+            hx = cholesky.tridiag_solve_plain(hd, hl, b.cpu())
+            seq = tridiag_rel_residual(d, e, b, hx)
+            for layout in tk.FACTOR_LAYOUTS:
+                tk.reset_tridiag_counts()
+                dh, l = tk.tridiag_factor(d, e, layout=layout)
+                assert tk.tridiag_counts() == dict(factor=1, solve=0, factor_plain=0,
+                                                   solve_plain=0), what
+                assert torch.equal(dh.cpu(), hd) and torch.equal(l.cpu(), hl), (what, layout)
+                dh2, l2 = tk.tridiag_factor(d, e, layout=layout)
+                assert same_bits(dh2, dh) and same_bits(l2, l), (what, layout)
+                dhp, lp = tk.tridiag_factor(d[perm], e[perm], layout=layout)
+                assert same_bits(dhp, dh[perm]) and same_bits(lp, l[perm]), (what, layout)
+            dh, l = (t.to("cuda") for t in (hd, hl))
+            for layout, chunk in (("batch", None), ("chunked", None),
+                                  ("chunked", max(1, k // 3))):
+                case = (what, layout, chunk)
+                tk.reset_tridiag_counts()
+                x = tk.tridiag_solve(dh, l, b, layout=layout, chunk=chunk)
+                assert tk.tridiag_counts() == dict(factor=0, solve=1, factor_plain=0,
+                                                   solve_plain=0), case
+                assert same_bits(tk.tridiag_solve(dh, l, b, layout=layout, chunk=chunk), x), case
+                xp = tk.tridiag_solve(dh[perm], l[perm], b[perm], layout=layout, chunk=chunk)
+                assert same_bits(xp, x[perm]), case
+                if layout == "batch":
+                    assert torch.equal(x.cpu(), hx), case
+                    continue
+                m = tk.solve_layout(B, k, dtype, "chunked", chunk)["chunk"]
+                mirror = cholesky.tridiag_solve_chunked_plain(hd, hl, b.cpu(), m)
+                assert torch.equal(x.cpu(), mirror), case
+                res = tridiag_rel_residual(d, e, b, x)
+                assert res <= 10 * seq + 1e-15, (case, res, seq)
+    tk.tridiag_check()
+
+
 def secular_data(B, n, dtype, seed=0, hard_every=0):
     rng = np.random.default_rng(seed)
     H = rng.normal(size=(B, n, n))

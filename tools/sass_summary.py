@@ -15,8 +15,9 @@ batch of loads issued together shows as one run of LDG before its adds.
 Last, the most frequent opcodes (``ops``): where a kernel's instruction
 stream goes (integer address arithmetic against floating-point work), and
 for each loop (a backward branch and the code it spans) that holds a
-shuffle, a barrier or a shared-memory load, its static counts of the
-floating-point, special-function (``MUFU``), shuffle and call instructions:
+shuffle, a barrier, a shared-memory load, a global load or store or a call,
+its static counts of the floating-point, special-function (``MUFU``),
+shuffle, load, store and call instructions:
 one iteration's work, the calls being slow paths of IEEE division and sqrt.
 
     python3 tools/sass_summary.py --listing DIR/secular.sass
@@ -66,12 +67,13 @@ def runs(seq):
 
 
 LOOP_OPS = ("DFMA", "DMUL", "DADD", "FFMA", "FMUL", "FADD", "MUFU", "SHFL", "CALL", "BAR",
-            "LDS", "LDG")
+            "LDS", "STS", "LDG", "STG", "LDGSTS")
 
 
 def loops(body: str):
     """(start, end, counts) of each loop of a function's SASS that holds a
-    SHFL, BAR or LDS: the code from a backward branch's target to the branch."""
+    SHFL, BAR, LDS, a global load or store or a call: the code from a
+    backward branch's target to the branch."""
     ins = [(int(a, 16), op) for a, op in re.findall(
         r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[0-9T] )?([A-Z][A-Z0-9_.]*)[^;]*;", body)]
     out = []
@@ -82,7 +84,7 @@ def loops(body: str):
             start = int(target.group(1), 16)
             span = [o.split(".")[0] for a, o in ins if start <= a <= addr]
             c = collections.Counter(span)
-            if c["SHFL"] or c["BAR"] or c["LDS"]:
+            if c["SHFL"] or c["BAR"] or c["LDS"] or c["LDG"] or c["STG"] or c["CALL"]:
                 out.append((start, addr, len(span), {k: c[k] for k in LOOP_OPS}))
     return out
 
