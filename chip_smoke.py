@@ -126,6 +126,20 @@ conditions in float64 with scipy, with the flagship kernels launched and no
 plain code; and the Krylov solvers (GLTR, GLRT, LQR, LQT on that H, LSTR,
 LSRT, L2RT on the flagship's A, LLST and LLS on dense A) against their CPU
 runs (iter equal, x within 1e-8 relative);
+then ``nlp``: the NLP solvers on the card, their main path run with the secular and
+flagship kernels' counters set to 0 before and read after (plain code 0): (a) TRU (exact
+TRS) and ARC (RQS) on 256 extended-Rosenbrock problems of n = 64 (tools/nlp_problems.py),
+each problem's status and iterations those of the port's CPU run on 64 of them spread over the
+batch (x within 1e-8 relative; every CPU run of the phase goes to four spawned processes,
+which run beside the build), s per outer iteration and ``eigh``'s share; (b) at n = 99,856 from the
+standard start TRU with GLTR and with L-BFGS (memory 10), ARC with GLRT, TRB with
+Hessian-vector products on [-2, 0.9]^n, each against its CPU run, with Lanczos steps and
+host reads per iteration and peak memory; (c) ``nls_solve_sparse`` at k = 316 (n = 99,856,
+m = 199,080) twice (bitwise equal, f <= 1e-10, rows 1a-3 launched) and at k = 100 against
+tests/nlp_oracle.json (the JAX package's iterations, f within 1e-8 relative, x's norm and 32
+entries within 1e-8); (d) the NLS menu, CHECK / FDH
+and DQP by TRB (``exact_arc=False``) against their CPU runs; the outer loops' host reads at
+most ceil(iter / 8) + 1; whether ``torch.linalg.eigh`` synchronises;
 then ``banded_path_kernels`` (both banded kernels on every block set the
 banded problems factor at their starting point, against the plain versions,
 and at their last iteration, by relative residual against the sequential
@@ -134,7 +148,8 @@ flagship's path, measured after the ``fused`` phase, and the two banded
 kernels, on the Schur-complement blocks of the banded LP at n = 20,000, with
 the library's dense Cholesky and triangular solves of the same matrix as
 their yardstick, and their critical-path steps, and the four kernels of the
-``tr`` phase)
+``tr`` phase; rows 6a, 6b and 1a-3 carry ``launches_nlp``, their launches on the ``nlp``
+phase's path)
 and, as its last line, ``{"ok": true, "device": {...}}``.  Any failed
 phase ends the run with a non-zero exit code and no such line.  Without
 a CUDA device it exits non-zero at once; nothing here runs the port on
@@ -143,6 +158,7 @@ the CPU.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -166,6 +182,7 @@ import tridiag_bench  # noqa: E402  (tools/tridiag_bench.py: the tridiagonal ker
 from secular_bench import (TR_BATCH, TR_N, capture_secular_inputs,  # noqa: E402
                            headline_batch)
 from tridiag_bench import tridiag_rel_residual, tridiag_residual, tridiag_systems  # noqa: E402
+import nlp_problems  # noqa: E402  (tools/nlp_problems.py: the nlp phase's problems)
 
 K_FLAGSHIP = 316
 ARC_RUNS = (("taylor", 4), ("puiseux", 3), ("zhao_sun", 3))
@@ -3333,6 +3350,421 @@ def phase_tr():
     return entries
 
 
+# ---------------------------------------------------------------------------
+# nlp: TRU / TRB / ARC / NLS, CHECK / FDH and DQP by TRB on the card
+# ---------------------------------------------------------------------------
+
+NLP_B, NLP_N = 256, 64            # (a): the headline batch's n; B cut from 1,024 (PERF.md §4)
+# (a): the problems run again on the host (each is independent), spread over the batch with
+# both ends in it, so its last slots are held too
+NLP_CPU_ROWS = np.linspace(0, NLP_B - 1, 64).round().astype(np.int64)
+NLP_CPU_WORKERS, NLP_CPU_THREADS = 4, 2       # the CPU runs that hold the card's
+NLP_CPU_LONGEST = ("tru_newton_gltr", "arc_glrt", "trb_hvp", "tru_bfgs_m10", "dqp_trb_n256")
+NLP_WIDE_N = 99_856               # (b), (c): the flagship's width (k = 316)
+NLP_TOL = 1e-8                    # x against the port's CPU run, relative
+# (c) at k = 316: the default stop, ||g|| <= max(1e-6, 1e-8 ||g_0||) = 9.9e-6 there, leaves
+# f = 4.5e-10 (PERF.md §6); ||g|| <= 1e-8 reaches f <= 1e-10 (13 iterations)
+NLP_SPARSE_STOP = dict(stop_g_absolute=1e-8, stop_g_relative=0.0)
+NLP_KERNELS = dict(trs_secular_newton="trs", rqs_secular_newton="rqs", partial_ldlt="partial_ldlt",
+                   ldlt_wide="ldlt_wide", extend_add="extend_add", sweep_fwd="sweep_fwd",
+                   sweep_bwd="sweep_bwd")
+NLP_PLAIN = ("trs_plain", "rqs_plain") + FLAGSHIP_PLAIN
+
+
+def nlp_counts() -> dict:
+    out = tr_counts()
+    out.update(launch_counts())
+    return out
+
+
+def nlp_x_err(got, ref) -> float:
+    got, ref = got.detach().double().cpu(), ref.detach().double().cpu()
+    return float((got - ref).abs().max()) / max(1.0, float(ref.abs().max()))
+
+
+def nlp_held(what, st, ref, x_tol=NLP_TOL):
+    """The card's state against the CPU's: status and iter (per problem)
+    equal, x within ``x_tol`` relative.  A batch on the card is held on the
+    problems the CPU ran (NLP_CPU_ROWS)."""
+    if st.x.dim() > 1:
+        rows = torch.as_tensor(NLP_CPU_ROWS, device=st.x.device)
+        st = dataclasses.replace(st, **{f: getattr(st, f)[rows] for f in ("x", "status", "iter")})
+    check(torch.equal(st.status.cpu(), ref.status.cpu()), f"nlp, {what}: status differs "
+          f"from the CPU run")
+    check(torch.equal(st.iter.cpu(), ref.iter.cpu()), f"nlp, {what}: iterations "
+          f"{st.iter.cpu().tolist() if st.iter.dim() == 0 else 'per problem'} differ from the "
+          f"CPU run's")
+    err = nlp_x_err(st.x, ref.x)
+    check(err <= x_tol and bool(torch.isfinite(st.x).all()), f"nlp, {what}: x off the CPU run "
+          f"by {err:.3e}")
+    return err
+
+
+def nlp_batch_calls(device, rows=None):
+    """(a): TRU (exact TRS) and ARC (RQS) on NLP_B extended-Rosenbrock
+    problems of n = 64 from the first rows of default_rng(0).normal(size=(1024,
+    64)), or on those of them at ``rows``."""
+    from galahad_tpu_torch import nlp
+
+    X = nlp_problems.random_starts(NLP_B, NLP_N, 0)
+    X = torch.as_tensor(X if rows is None else X[rows], device=device)
+    f = nlp_problems.ext_rosenbrock
+    return dict(tru_newton_direct=lambda: nlp.tru_solve(f, X),
+                arc_direct=lambda: nlp.arc_solve(f, X))
+
+
+def nlp_wide_calls(device):
+    """(b): the matrix-free models at n = 99,856 from the standard start."""
+    from galahad_tpu_torch import nlp
+
+    x0 = torch.as_tensor(nlp_problems.standard_start(NLP_WIDE_N), device=device)
+    f = nlp_problems.ext_rosenbrock
+    return dict(
+        tru_newton_gltr=lambda: nlp.tru_solve(f, x0, nlp.TRUControl(subproblem_direct=False)),
+        tru_bfgs_m10=lambda: nlp.tru_solve(f, x0, nlp.TRUControl(model="bfgs", lms_memory=10)),
+        arc_glrt=lambda: nlp.arc_solve(f, x0, nlp.ARCControl(subproblem_direct=False)),
+        trb_hvp=lambda: nlp.trb_solve(f, x0, torch.full_like(x0, -2.0), torch.full_like(x0, 0.9),
+                                      nlp.TRBControl(model="hvp")))
+
+
+def nlp_sparse_call(k, device, stop=None):
+    """(c): nls_solve_sparse on tools/nlp_problems.py::grid_residual_arrays(k)
+    from x = 1, maxit 40 (test_nls_sparse_gauss_newton_large's problem), with
+    NLSControl's stop fields ``stop`` (None: the defaults)."""
+    from galahad_tpu_torch import COOPattern
+    from galahad_tpu_torch.nlp import NLSControl, nls_solve_sparse
+
+    n, m, u, v, a, rows, cols = nlp_problems.grid_residual_arrays(k)
+    tu, tv, ta = (torch.as_tensor(w, device=device) for w in (u, v, a))
+    pat = COOPattern(rows, cols, m, n)
+    x0 = torch.full((n,), 1.0, dtype=torch.float64, device=device)
+    return pat, lambda: nls_solve_sparse(
+        lambda x: x[tu] + x[tv] ** 2 - ta,
+        lambda x: torch.stack([torch.ones_like(x[tv]), 2.0 * x[tv]]).T.reshape(-1),
+        pat, x0, NLSControl(maxit=40, **(stop or {})))
+
+
+def nlp_dqp_arrays(n, m, seed):
+    """A strictly convex QP whose dual TRB solves in few iterations: H = I +
+    B B'/n (condition ~5), m random rows around a feasible point, 0 <= x <= 1."""
+    r = np.random.default_rng(seed)
+    B = r.normal(size=(n, n))
+    A = r.normal(size=(m, n))
+    c_at = A @ r.uniform(0.2, 0.8, size=n)
+    return dict(H=np.eye(n) + B @ B.T / n, g=r.normal(size=n), A=A,
+                c_l=c_at - r.uniform(0.5, 1.0, m), c_u=c_at + r.uniform(0.5, 1.0, m),
+                x_l=np.zeros(n), x_u=np.ones(n))
+
+
+def nlp_menu_calls(device):
+    """(d): the NLS menu (8 models on the Rosenbrock residuals, 4 norms on the
+    exponential fit, 4 weight updates), CHECK / FDH and DQP by TRB
+    (``exact_arc=False``) on random_convex_qp(12, 6, 77) and at n = 256, at
+    the JAX tests' sizes."""
+    from galahad_tpu_torch import nlp
+    from galahad_tpu_torch.qp.dqp import DQPControl, dqp_solve
+
+    t_fit = torch.linspace(0, 1, 20, dtype=torch.float64, device=device)
+    y_fit = 2.0 * torch.exp(-1.5 * t_fit)
+
+    def rosen(x):
+        return torch.cat([10.0 * (x[1:] - x[:-1] ** 2), 1.0 - x[:-1]])
+
+    def expfit(x):
+        return x[0] * torch.exp(x[1] * t_fit) - y_fit
+
+    def vec(a):
+        return torch.as_tensor(np.asarray(a, np.float64), device=device)
+
+    calls = {}
+    for model in ("first_order", "diagonal", "gauss_newton", "newton", "gauss_to_newton",
+                  "tensor_gauss_newton", "tensor_newton", "tensor_gauss_to_newton"):
+        first = model in ("first_order", "diagonal")
+        x0 = vec(np.full(3 if first else 4, -0.5 if first else -1.2))
+        ctl = nlp.NLSControl(model=model, maxit=50 if first else 200)
+        calls["nls_" + model] = lambda x0=x0, ctl=ctl: nlp.nls_solve(rosen, x0, ctl)
+    for norm in ("diagonal_jtj", "diagonal_hessian", "band"):
+        calls["nls_norm_" + norm] = lambda norm=norm: nlp.nls_solve(
+            expfit, vec([1.0, 0.0]), nlp.NLSControl(norm=norm, maxit=200))
+    for wu in ("basic", "zero_reset", "imitate_tr", "increase"):
+        calls["nls_weight_" + wu] = lambda wu=wu: nlp.nls_solve(
+            expfit, vec([1.0, 0.0]), nlp.NLSControl(weight_update=wu, maxit=200))
+    fdh_pat = nlp.fdh_analyse(8, np.r_[np.arange(8), np.arange(1, 8)],
+                              np.r_[np.arange(8), np.arange(7)])
+    fq = lambda x: (x ** 2).sum() + (x[1:] * x[:-1]).sum() + (x ** 3).sum()  # noqa: E731
+    calls["check"] = lambda: nlp.check_derivatives(
+        lambda x: (x ** 3).sum() + x[0] * x[1], vec([1.0, 2.0, 0.5]))
+    calls["fdh"] = lambda: nlp.fdh_estimate(fdh_pat, torch.func.grad(fq),
+                                            vec(np.random.default_rng(0).normal(size=8)), h=1e-5)
+    for name, arrays in (("dqp_trb_12x6", convex_qp_arrays(12, 6, 77)),
+                         ("dqp_trb_n256", nlp_dqp_arrays(256, 16, 0))):
+        q = make_qp(h_kind="dense", device=device, **arrays)
+        calls[name] = lambda q=q: dqp_solve(q, ctl=DQPControl(exact_arc=False))
+    return calls
+
+
+def eigh_sync_probe(shape) -> dict:
+    """Whether ``torch.linalg.eigh`` of a symmetric batch of ``shape`` waits for
+    the card: a spin kernel of ~50 ms is queued first; a call that returns to
+    the host well before it ends does not synchronise."""
+    A = torch.randn(shape, dtype=torch.float64, device="cuda")
+    A = A + A.mT
+    torch.linalg.eigh(A)
+    torch.cuda.synchronize()
+    spin_ms = 50.0
+    torch.cuda._sleep(int(spin_ms * SPIN_CYCLES_PER_MS))
+    t0 = time.perf_counter()
+    torch.linalg.eigh(A)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    return dict(shape=list(shape), host_ms=host_ms, spin_ms=spin_ms,
+                synchronises=host_ms >= 0.8 * spin_ms)
+
+
+@contextlib.contextmanager
+def timed_calls(module, name: str, sink: list):
+    """Within the block, each call of ``module.name`` appends its seconds to
+    ``sink`` (a caller that looks the function up at call time sees it)."""
+    fn = getattr(module, name)
+
+    def wrapper(*args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        sink.append(time.perf_counter() - t0)
+        return out
+
+    setattr(module, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def nlp_main_path():
+    """The ``nlp`` phase's main path on the card, as a user calls it, with the
+    secular and flagship kernels' counters set to 0 before and read after:
+    (a), (b), (c) at k = 316 twice and at k = 100, and (d)."""
+    from galahad_tpu_torch.linalg import bsc
+
+    torch.cuda.synchronize()
+    reset_tr_counts()
+    reset_flagship_counts()
+    runs, per_run = {}, {}
+    for name, fn in {**nlp_batch_calls("cuda"), **nlp_wide_calls("cuda")}.items():
+        before = nlp_counts()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        runs[name] = synced_s(fn)
+        after = nlp_counts()
+        # the solve's own peak: above what earlier phases still hold
+        per_run[name] = dict({k: after[k] - before[k] for k in ("trs", "rqs")},
+                             peak_gib=(torch.cuda.max_memory_allocated() - base) / 2 ** 30)
+    _, fn = nlp_sparse_call(K_FLAGSHIP, "cuda", stop=NLP_SPARSE_STOP)
+    sparse, setup_s = [], []
+    before = nlp_counts()
+    for _ in range(2):
+        setup = dict(analyse=[], plan_upload=[])
+        with timed_calls(bsc, "bsc_analyse", setup["analyse"]), \
+                timed_calls(supernodal_flat, "flat_analyse", setup["analyse"]), \
+                timed_calls(supernodal_flat, "_device_plan_build", setup["plan_upload"]):
+            sparse.append(synced_s(fn))
+        setup_s.append({k: sum(v) for k, v in setup.items()})
+    after = nlp_counts()
+    sparse_launches = {k: after[k] - before[k] for k in KERNEL_COUNTS + FLAGSHIP_PLAIN}
+    _, fn100 = nlp_sparse_call(100, "cuda")
+    sparse100 = synced_s(fn100)
+    menu = {}
+    for name, fn in nlp_menu_calls("cuda").items():
+        menu[name] = synced_s(fn)
+    counts = nlp_counts()
+    return dict(runs=runs, per_run=per_run, sparse=sparse, sparse_launches=sparse_launches,
+                setup_s=setup_s, sparse100=sparse100, menu=menu, counts=counts)
+
+
+def nlp_state_row(name, st, wall, launches, ref, ref_s):
+    """One solve's row, held to the CPU run ``ref``: status, iterations, f,
+    the outer loop's host reads (checked against ceil(iter / 8) + 1) and the
+    Krylov solvers' apart, passes of the outer loop (its subproblem solves),
+    seconds on the card and on the host."""
+    it = st.iter.cpu()
+    row = dict(status=int(st.status.min()), iter_max=int(it.max()), iter_min=int(it.min()),
+               f_max=float(st.f.max()), norm_g_max=float(st.norm_g.max()),
+               host_reads=st.host_reads, host_reads_bound=-(-int(it.max()) // 8) + 1,
+               krylov_reads=st.krylov_reads, passes=launches, wall_s=wall,
+               s_per_outer_iteration=wall / max(launches, 1), cpu_wall_s=ref_s,
+               x_rel_cpu=nlp_held(name, st, ref))
+    check(st.host_reads <= row["host_reads_bound"], f"nlp, {name}: {st.host_reads} host reads "
+          f"for {row['iter_max']} iterations")
+    return row
+
+
+def nlp_cpu_calls():
+    return {**nlp_batch_calls("cpu", NLP_CPU_ROWS), **nlp_wide_calls("cpu"),
+            **nlp_menu_calls("cpu")}
+
+
+def nlp_worker_init():
+    """A CPU-check worker: two torch threads (the solvers at n = 99,856 are
+    bound by their dispatch, not by threads)."""
+    torch.set_num_threads(NLP_CPU_THREADS)
+
+
+def nlp_cpu_reference(name):
+    """One call of the ``nlp`` phase on the CPU, in a worker: (result, seconds)."""
+    return _host_s(nlp_cpu_calls()[name])
+
+
+class NlpCpuReferences:
+    """Every call of the ``nlp`` phase run again on the CPU by NLP_CPU_WORKERS
+    spawned processes (the longest first), started before the build and
+    joined after it: the build's compilers leave seven of eight cores idle
+    after their first ~13 s (banded.cu's alone takes ~45 s), and beside the
+    card's host-timed runs the same checks slowed those by up to 1.9x
+    (PERF.md §6).  ``join`` returns {name: (result, seconds)}; ``close`` stops
+    the pool (pending calls cancelled)."""
+
+    def __init__(self):
+        import concurrent.futures
+        import multiprocessing
+
+        self.t0 = time.perf_counter()
+        self.pool = concurrent.futures.ProcessPoolExecutor(
+            NLP_CPU_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+            initializer=nlp_worker_init)
+        names = sorted(nlp_cpu_calls(), key=lambda k: (k not in NLP_CPU_LONGEST, k))
+        self.futures = {name: self.pool.submit(nlp_cpu_reference, name) for name in names}
+
+    def join(self) -> dict:
+        t = time.perf_counter()
+        out = {name: f.result() for name, f in self.futures.items()}
+        self.seconds = dict(all=time.perf_counter() - self.t0,
+                            waited_after_build=time.perf_counter() - t)
+        return out
+
+    def close(self) -> None:
+        self.pool.shutdown(cancel_futures=True)
+
+
+def nlp_ab_rows(main, host, rows):
+    """(a) and (b): each card run held to the port's CPU run of the same call
+    (``nlp_state_row``); for (a) the time of one ``eigh`` of the batch's
+    Hessians and its share, for (b) Lanczos steps and host reads per
+    iteration.  Fills ``rows`` by name."""
+    eigh_ms = None
+    for name, (st, wall) in main["runs"].items():
+        ref, ref_s = host[name]
+        pr = main["per_run"][name]
+        launches = pr["trs"] + pr["rqs"]
+        row = rows[name] = nlp_state_row(name, st, wall, launches, ref, ref_s)
+        row["peak_gib"] = pr["peak_gib"]
+        if name in ("tru_newton_direct", "arc_direct"):
+            if eigh_ms is None:
+                X = torch.as_tensor(nlp_problems.random_starts(NLP_B, NLP_N, 0), device="cuda")
+                H0 = torch.func.vmap(torch.func.hessian(nlp_problems.ext_rosenbrock))(X)
+                eigh_ms = min(event_ms(lambda: torch.linalg.eigh(H0)) for _ in range(3))
+            row.update(eigh_ms=eigh_ms, eigh_share=eigh_ms * launches / (wall * 1e3),
+                       converged=int(st.converged.sum()))
+        else:
+            row.update(lanczos_steps_per_iteration=st.krylov_reads / max(launches, 1),
+                       host_reads_per_iteration=(st.host_reads + st.krylov_reads)
+                       / max(int(st.iter), 1))
+
+
+def nlp_sparse_row(main, oracle) -> dict:
+    """(c): the k = 316 runs (status, f, bitwise repeat, rows 1a-3 launched,
+    plain 0) and the k = 100 run against the JAX package's."""
+    (s1, w1), (s2, w2) = main["sparse"]
+    s100, w100 = main["sparse100"]
+    its, sl = int(s1.iter), main["sparse_launches"]
+    setup = main["setup_s"]
+    row = dict(n=NLP_WIDE_N, m=2 * 316 * 315, stop=NLP_SPARSE_STOP, status=int(s1.status),
+               iter=its, f=float(s1.f), norm_g=float(s1.norm_g),
+               analyse_s=[t["analyse"] for t in setup],
+               plan_upload_s=[t["plan_upload"] for t in setup], wall_s=[w1, w2],
+               ms_per_iteration=[(w - t["analyse"] - t["plan_upload"]) / its * 1e3
+                                 for w, t in zip((w1, w2), setup)],
+               host_reads=s1.host_reads, launches=sl,
+               k100=dict(status=int(s100.status), iter=int(s100.iter), f=float(s100.f),
+                         wall_s=w100, jax_iter=oracle["iter"], jax_f=oracle["f"]))
+    check(bool(s1.converged) and float(s1.f) <= 1e-10, f"nlp, sparse: status {int(s1.status)}, "
+          f"f {float(s1.f)!r}")
+    check(same_bits(s1.x, s2.x) and same_bits(s1.f, s2.f), "nlp, sparse: two runs differ")
+    for key in ("partial_ldlt", "ldlt_wide", "extend_add", "sweep_fwd", "sweep_bwd"):
+        check(sl[key] > 0, f"nlp, sparse: no {key} launch")
+    check(all(sl[k] == 0 for k in FLAGSHIP_PLAIN), f"nlp, sparse: plain code ran: {sl}")
+    x100 = nlp_x_err(s100.x[oracle["x_at"]], torch.tensor(oracle["x"], dtype=torch.float64))
+    x100_norm = abs(float(torch.linalg.norm(s100.x)) - oracle["x_norm"]) / oracle["x_norm"]
+    row["k100"].update(x_rel_jax=x100, x_norm_rel_jax=x100_norm)
+    check((int(s100.status), int(s100.iter)) == (oracle["status"], oracle["iter"])
+          and abs(float(s100.f) - oracle["f"]) <= 1e-8 * oracle["f"]
+          and x100 <= NLP_TOL and x100_norm <= NLP_TOL,
+          f"nlp, sparse k=100: ({int(s100.status)}, {int(s100.iter)}, {float(s100.f)!r}, x off "
+          f"by {x100:.3e}, its norm by {x100_norm:.3e}) against the JAX package's "
+          f"({oracle['status']}, {oracle['iter']}, {oracle['f']!r})")
+    return row
+
+
+def nlp_menu_rows(main, host, rows):
+    """(d): each card run held to the port's CPU run of the same call."""
+    for name, (out, wall) in main["menu"].items():
+        ref, ref_s = host[name]
+        row = rows[name] = dict(wall_s=wall, cpu_wall_s=ref_s)
+        if name == "check":
+            row.update(ok=out.ok, max_grad_error=out.max_grad_error,
+                       max_hess_error=out.max_hess_error)
+            check((out.ok, out.grad_ok, out.hess_ok) == (ref.ok, ref.grad_ok, ref.hess_ok)
+                  and out.ok, f"nlp, check: verdicts {out.ok} / {ref.ok}")
+        elif name == "fdh":
+            row.update(rel_cpu=nlp_x_err(out, ref))
+            check(row["rel_cpu"] <= NLP_TOL, f"nlp, fdh: {row['rel_cpu']:.3e} off the CPU run")
+        elif name.startswith("dqp"):
+            row.update(status=out.status, iter=out.iter, obj=out.obj,
+                       x_rel_cpu=nlp_x_err(out.x, ref.x), host_reads=out.host_reads,
+                       cpu=(ref.status, ref.iter))
+            check((out.status, out.iter) == (ref.status, ref.iter) and out.status == 0,
+                  f"nlp, {name}: ({out.status}, {out.iter}) on the card, ({ref.status}, "
+                  f"{ref.iter}) on the CPU")
+            check(row["x_rel_cpu"] <= NLP_TOL, f"nlp, {name}: x off the CPU run by "
+                  f"{row['x_rel_cpu']:.3e}")
+        else:
+            row.update(status=int(out.status), iter=int(out.iter), f=float(out.f),
+                       host_reads=out.host_reads, x_rel_cpu=nlp_held(name, out, ref))
+
+
+def phase_nlp(host, host_seconds):
+    """TRU / TRB / ARC / NLS, CHECK / FDH and DQP by TRB on the card, held to
+    their CPU runs ``host`` (``NlpCpuReferences``, which took
+    ``host_seconds``): one ``nlp`` line; returns the NLP path's launches of
+    the kernels of rows 6a, 6b and 1a-3 by their ``kernels`` entry's name.
+    Where a check fails, what was measured so far goes to stderr."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "tests", "nlp_oracle.json")) as fh:
+        oracle = json.load(fh)["nls_sparse_k100"]
+    t0 = time.perf_counter()
+    main = nlp_main_path()
+    main_s = time.perf_counter() - t0
+    counts = main["counts"]
+    out = dict(a_b={}, d={}, seconds=dict(main_path=main_s, cpu_references=host_seconds),
+               launches={entry: counts[key] for entry, key in NLP_KERNELS.items()},
+               plain={k: counts[k] for k in NLP_PLAIN}, batch=NLP_B, n=NLP_N)
+    try:
+        for key in ("trs", "rqs", "partial_ldlt", "ldlt_wide", "extend_add", "sweep_fwd",
+                    "sweep_bwd"):
+            check(counts[key] > 0, f"nlp: the main path launched no {key} kernel")
+        check(all(counts[k] == 0 for k in NLP_PLAIN), f"nlp: plain code ran on the card: "
+              f"{out['plain']}")
+        nlp_ab_rows(main, host, out["a_b"])
+        out["sparse"] = nlp_sparse_row(main, oracle)
+        nlp_menu_rows(main, host, out["d"])
+    except SmokeFailure:
+        print(json.dumps({"nlp_partial": out}, default=str), file=sys.stderr, flush=True)
+        raise
+    out["eigh_sync"] = [eigh_sync_probe((NLP_B, NLP_N, NLP_N)), eigh_sync_probe((64, 64))]
+    out["seconds"]["total"] = time.perf_counter() - t0
+    emit("nlp", **out)
+    return out["launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -3341,7 +3773,12 @@ def main() -> int:
     t_all = time.perf_counter()
     try:
         card = phase_device()
-        phase_build()
+        nlp_cpu = NlpCpuReferences()
+        try:
+            phase_build()
+            nlp_host = nlp_cpu.join()
+        finally:
+            nlp_cpu.close()
         phase_kernel()
         qp = flagship_qp(K_FLAGSHIP, "cuda")
         plan, D_x, C_diag, b, per_factorization = phase_kkt(qp)
@@ -3358,8 +3795,12 @@ def main() -> int:
         banded_launches = phase_banded()
         phase_frontend(flagship_solution)
         tr_entries = phase_tr()
+        nlp_launches = phase_nlp(nlp_host, nlp_cpu.seconds)
         timed = phase_banded_path_kernels()
         line["kernels"] += banded_kernel_entries(banded_launches, timed) + tr_entries
+        for entry in line["kernels"]:
+            if entry["name"] in nlp_launches:
+                entry["launches_nlp"] = nlp_launches[entry["name"]]
         del timed
         print(json.dumps(line), flush=True)
     except SmokeFailure as exc:

@@ -12,7 +12,10 @@ dual projection solvers DQP, CCQP and DLP (``qp.dqp``); the front end
 ``qp.qp_solve`` with scaling and presolve (``pre``), LSQP, WCP and L1QP; the
 command line ``python -m galahad_tpu_torch solve|batch`` (``cli``); and the
 trust-region and regularization subproblems (``tr``: TRS, RQS, DPS, GLTR/GLRT,
-LSTR/LSRT/L2RT, LQR/LQT, LLST/LLS and the sparse TRS on the flat LDL^T).
+LSTR/LSRT/L2RT, LQR/LQT, LLST/LLS and the sparse TRS on the flat LDL^T); the
+quasi-Newton kit (``qn``: LMS, SEC, SHA), the NLP solvers (``nlp``: TRU, TRB,
+ARC, NLS dense and sparse, CHECK / FDH, with ``core.problem.NLP``) and the
+sparse normal-matrix assembly BSC (``linalg.bsc``).
 
 Entry points run on the CUDA device unless the caller asks for the CPU
 (``device="cpu"``); float64 is the default precision.

@@ -16,20 +16,30 @@ from ._device import resolve_device, resolve_dtype
 from .core.problem import QP, make_qp
 from .core.sparse import COOPattern, SparseQP
 from .linalg.band_ops import BandMatrix
+from .linalg.bsc import BSCPlan
 from .linalg.supernodal_flat import FlatGroup, FlatPlan
+from .nlp._loop import TRUState
+from .nlp.check import FDHPattern
 from .pre.presolve import PresolveTransform
 from .pre.scale import Scaling
 from .qp.dqp import DQPInfo
 from .qp.ipm import IPMState, device_state
 from .qp.ipm_banded import BandedQP, make_banded_qp
+from .qn.lms import LMSData
+from .qn.sha import SHAPattern
 from .tr.trs import TRSInfo
 from .tr.trs_sparse import TRSSparseInfo
+
+
+def _get(fields):
+    """The field reader of a dict or of an object."""
+    return fields.get if isinstance(fields, dict) else lambda k: getattr(fields, k)
 
 
 def coo_pattern_from_numpy(p) -> COOPattern:
     """Build a COOPattern from the JAX ``COOPattern``'s fields: ``p`` is a
     dict (or an object) with ``rows``, ``cols``, ``m`` and ``n``."""
-    get = p.get if isinstance(p, dict) else lambda k: getattr(p, k)
+    get = _get(p)
     return COOPattern(np.asarray(get("rows")), np.asarray(get("cols")),
                       int(get("m")), int(get("n")))
 
@@ -226,3 +236,55 @@ def trs_sparse_info_from_numpy(fields: dict, dtype=None, device=None) -> TRSSpar
         n_factorizations=int(fields["n_factorizations"]),
         history_lambda=np.asarray(fields["history_lambda"], np.float64),
         history_norm=np.asarray(fields["history_norm"], np.float64))
+
+
+def tru_state_from_numpy(fields, dtype=None, device=None) -> TRUState:
+    """Build a TRUState from the JAX ``TRUState``'s fields as numpy arrays (a
+    dict or an object): ``x``, ``f``, ``g``, ``radius``, ``norm_g`` as
+    tensors of ``dtype``, ``iter`` / ``status`` int32, ``converged`` bool."""
+    get = _get(fields)
+    device = resolve_device(device)
+    t = lambda k, dt: torch.as_tensor(np.array(get(k)), device=device).to(dt)  # noqa: E731
+    ft = resolve_dtype(dtype)
+    return TRUState(x=t("x", ft), f=t("f", ft), g=t("g", ft), radius=t("radius", ft),
+                    iter=t("iter", torch.int32), converged=t("converged", torch.bool),
+                    status=t("status", torch.int32), norm_g=t("norm_g", ft))
+
+
+def lms_data_from_numpy(fields, dtype=None, device=None) -> LMSData:
+    """Build an LMSData from the JAX ``LMSData``'s fields: ``S``, ``Y``,
+    ``valid``, ``head``, ``delta`` (numpy) and ``method``; a wrapped ring
+    buffer keeps its slots and its ``head``."""
+    get = _get(fields)
+    device = resolve_device(device)
+    ft = resolve_dtype(dtype)
+    t = lambda k, dt: torch.as_tensor(np.array(get(k)), device=device).to(dt)  # noqa: E731
+    return LMSData(S=t("S", ft), Y=t("Y", ft), valid=t("valid", torch.bool),
+                   head=t("head", torch.int64), delta=t("delta", ft), method=str(get("method")))
+
+
+def sha_pattern_from_numpy(fields) -> SHAPattern:
+    """Build an SHAPattern from the JAX ``SHAPattern``'s fields (``row_cols``
+    as nested tuples or an array, ``row_deg``, ``n``, ``max_deg``)."""
+    get = _get(fields)
+    n, max_deg = int(get("n")), int(get("max_deg"))
+    return SHAPattern(row_cols=np.asarray(get("row_cols"), np.int64).reshape(n, max_deg),
+                      row_deg=np.asarray(get("row_deg"), np.int64), n=n, max_deg=max_deg)
+
+
+def fdh_pattern_from_numpy(fields) -> FDHPattern:
+    """Build an FDHPattern from the JAX ``FDHPattern``'s fields."""
+    get = _get(fields)
+    return FDHPattern(n=int(get("n")), rows=np.asarray(get("rows"), np.int32),
+                      cols=np.asarray(get("cols"), np.int32),
+                      groups=np.asarray(get("groups"), np.int32), ngroups=int(get("ngroups")))
+
+
+def bsc_plan_from_numpy(fields) -> BSCPlan:
+    """Build a BSCPlan from the JAX ``BSCPlan``'s fields: ``m``, ``n``,
+    ``s_pat`` (a COOPattern or its fields), ``p1``, ``p2``, ``dcol``,
+    ``sout``."""
+    get = _get(fields)
+    arr = lambda k: np.asarray(get(k), np.int64)  # noqa: E731
+    return BSCPlan(int(get("m")), int(get("n")), coo_pattern_from_numpy(get("s_pat")),
+                   arr("p1"), arr("p2"), arr("dcol"), arr("sout"))

@@ -2,8 +2,8 @@
 
 Counterpart of galahad_tpu/core/problem.py: ``INFINITY``,
 ``canonical_dtype``, ``QP`` (with its constructor ``make_qp`` and the guard
-``require_dense``), ``BoundMasks``, ``classify_bounds`` and ``check_qp``.  The ``NLP``
-container is not ported yet.
+``require_dense``), ``BoundMasks``, ``classify_bounds``, ``check_qp``, and the
+nonlinear program ``NLP`` with its constructor ``unconstrained_nlp``.
 """
 from __future__ import annotations
 
@@ -241,3 +241,48 @@ def check_qp(qp, infinity: float = INFINITY) -> int:
         if bool(torch.any(cl > cu)):
             return int(Status.BAD_BOUNDS)
     return int(Status.OK)
+
+
+# ---------------------------------------------------------------------------
+# Nonlinear programming problem
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class NLP:
+    """Nonlinear program  min f(x)  s.t.  c_l <= c(x) <= c_u, x_l <= x <= x_u.
+
+    Mirrors NLPT_problem_type (reference src/nlpt/nlpt.f90:84) with tensors
+    on one device and the user's callables ``objective(x) -> 0-d tensor`` and
+    ``constraints(x) -> (m,)``, written with torch operations so that
+    ``torch.func`` (grad, jvp, hessian, vmap) can transform them: they take
+    the place of the reference's eval_G / eval_H / eval_HPROD callbacks
+    (src/tru/tru.f90:1102-1440)."""
+
+    x: torch.Tensor                      # starting point / solution
+    x_l: torch.Tensor
+    x_u: torch.Tensor
+    c_l: Any = None
+    c_u: Any = None
+    y: Any = None
+    z: Any = None
+    name: str = ""
+    objective: Any = None                # callable f(x) -> 0-d tensor
+    constraints: Any = None              # callable c(x) -> (m,) or None
+
+    @property
+    def n(self) -> int:
+        return self.x.shape[-1]
+
+
+def unconstrained_nlp(objective, x0, name: str = "", dtype=None, device=None) -> NLP:
+    """An NLP with no constraints and infinite bounds (2 x INFINITY, as in the
+    JAX package).  ``x0`` keeps its device if it is a tensor; numpy input
+    goes to ``resolve_device(device)``."""
+    if torch.is_tensor(x0):
+        x0 = x0.to(resolve_dtype(dtype) if dtype is not None else x0.dtype)
+    else:
+        x0 = torch.as_tensor(np.asarray(x0, np.float64), device=resolve_device(device)).to(
+            resolve_dtype(dtype))
+    inf = torch.full((x0.shape[-1],), 2 * INFINITY, dtype=x0.dtype, device=x0.device)
+    return NLP(x=x0, x_l=-inf, x_u=inf, name=name, objective=objective)

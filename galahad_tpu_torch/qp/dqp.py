@@ -30,8 +30,10 @@ card would read the host).
 
 H^-1 is one Cholesky up front (``linalg/cholesky.py``: cuSOLVER / LAPACK
 calls, as the JAX package's are library calls), or a division by the
-diagonal for the diagonal kinds.  ``exact_arc=False`` (the JAX package's
-projected trust-region variant over ``nlp/tru.trb_solve``) is not ported.
+diagonal for the diagonal kinds.  ``exact_arc=False`` maximizes the dual by the
+bound-constrained trust-region solver instead (``nlp/tru.trb_solve`` on the
+negated dual, its dense Hessian from ``torch.func``), as the JAX package
+does.
 """
 from __future__ import annotations
 
@@ -138,10 +140,6 @@ def dqp_solve(qp: QP, y0=None, z0=None, ctl: DQPControl = DQPControl()) -> DQPIn
     dense ``QP`` only (a ``SparseQP`` raises ``TypeError``).  ``y0``/``z0``
     warm-start the duals."""
     require_dense(qp, "dqp_solve")
-    if not ctl.exact_arc:
-        raise NotImplementedError(
-            "DQPControl(exact_arc=False) hands the dual to nlp/tru.trb_solve, "
-            "which is not ported yet (ROADMAP queue 1 item 6)")
     like = dict(dtype=qp.g.dtype, device=qp.g.device)
     n, m = qp.n, qp.m
     bad = check_qp(qp, ctl.infinity)           # -3 / -4 entry contract
@@ -184,6 +182,9 @@ def dqp_solve(qp: QP, y0=None, z0=None, ctl: DQPControl = DQPControl()) -> DQPIn
     w0 = torch.cat([torch.clamp(y0, min=0.0), torch.clamp(-y0, min=0.0),
                     torch.clamp(z0, min=0.0), torch.clamp(-z0, min=0.0)])
     w0 = torch.clamp(w0, w_lo, w_hi)
+
+    if not ctl.exact_arc:
+        return _dqp_by_trb(qp, ctl, w0, w_lo, w_hi, b, Bt, Hinv, count)
 
     def grad_theta(w):
         return b - Bv(Hinv(Bt(w) - qp.g))
@@ -290,6 +291,31 @@ def dqp_solve(qp: QP, y0=None, z0=None, ctl: DQPControl = DQPControl()) -> DQPIn
     return DQPInfo(x=x, y=y, z=z, obj=float(qp.objective(x)), iter=iters, converged=conv,
                    status=int(Status.OK) if conv else int(Status.MAX_ITERATIONS),
                    norm_pg=float(npg), host_reads=count["reads"],
+                   hinv_solves=count["solves"])
+
+
+def _dqp_by_trb(qp: QP, ctl: DQPControl, w0, w_lo, w_hi, b, Bt, Hinv, count) -> DQPInfo:
+    """``exact_arc=False``: ``trb_solve`` on the negated dual over the box
+    [w_lo, w_hi] (JAX qp/dqp.py:160-168), stopping at ||P(w - g) - w|| <=
+    stop_d.  ``host_reads`` are trb_solve's reads of its flags."""
+    from ..nlp.tru import TRBControl, trb_solve
+
+    n, m = qp.n, qp.m
+
+    def neg_dual(w):
+        u = Bt(w) - qp.g
+        return -(-0.5 * torch.dot(u, Hinv(u)) + torch.dot(b, w))
+
+    st = trb_solve(neg_dual, w0, w_lo, w_hi,
+                   TRBControl(maxit=ctl.maxit, stop_g_absolute=ctl.stop_d, stop_g_relative=0.0))
+    w = st.x
+    y = w[:m] - w[m:2 * m]
+    z = w[2 * m:2 * m + n] - w[2 * m + n:]
+    u = z - qp.g + qp.Aty(y) if m else z - qp.g
+    x = Hinv(u)
+    return DQPInfo(x=x, y=y, z=z, obj=float(qp.objective(x)), iter=int(st.iter),
+                   converged=bool(st.converged), status=int(st.status),
+                   norm_pg=float(st.norm_g), host_reads=st.host_reads,
                    hinv_solves=count["solves"])
 
 

@@ -466,3 +466,19 @@ def check_same_banded_solve(jsolve, jq, tsolve, tol=1e-7):
     if st.inform is not None:
         assert abs(st.inform.obj - obj_j) <= tol
     return st
+
+
+F_ROUNDING = 1e-13
+
+
+def f_off(ref, got, rel: float) -> float:
+    """The largest |got - ref| over objective values, in units of the
+    allowance rel |ref| + F_ROUNDING sqrt(|ref|): <= 1 holds.  Near a
+    minimizer of a sum of squares f carries ~sqrt(2 f) times its residuals'
+    own rounding (a few eps of their terms), so a relative check alone asks
+    for bits that neither package has as f goes to 0 (F_ROUNDING is ~450
+    eps; the NLP parity cases need up to ~9 eps)."""
+    ref = np.asarray(ref, np.float64)
+    got = got.detach().cpu().numpy() if hasattr(got, "detach") else np.asarray(got, np.float64)
+    allowance = rel * np.abs(ref) + F_ROUNDING * np.sqrt(np.abs(ref))
+    return float(np.max(np.abs(got - ref) / np.maximum(allowance, np.finfo(np.float64).tiny)))

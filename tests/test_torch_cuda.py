@@ -1372,3 +1372,94 @@ def test_secular_kernels_ignore_the_batch_position(cuda):
     s2 = T._secular_newton(lam[perm], (ct * ct)[perm], radius[perm], torch.zeros_like(radius), 64)
     assert torch.equal(s1[perm], s2)
     assert float((a.obj[perm] - b.obj).abs().max()) <= 1e-12 * float(a.obj.abs().max())
+
+
+def nlp_problems():
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                    "tools"))
+    import nlp_problems as P
+    return P
+
+
+@pytest.mark.parametrize("solver", ["tru", "arc"])
+def test_nlp_batch_goes_through_the_secular_kernels(cuda, solver):
+    """TRU (exact TRS) and ARC (RQS) on a batch of 64 extended-Rosenbrock
+    problems of n = 16 on the card: the secular kernel launched once per outer
+    iteration for the whole batch, its plain version never; each problem's
+    status and iterations those of the CPU run, x within 1e-8."""
+    from galahad_tpu_torch import nlp
+    from galahad_tpu_torch.tr import secular_kernels
+
+    P = nlp_problems()
+    starts = P.random_starts(64, 16, seed=3)
+    call = nlp.tru_solve if solver == "tru" else nlp.arc_solve
+    secular_kernels.reset_secular_counts()
+    st = call(P.ext_rosenbrock, torch.as_tensor(starts, device=cuda))
+    counts = secular_kernels.secular_counts()
+    key = "trs" if solver == "tru" else "rqs"
+    assert counts[key] > 0 and counts[key + "_plain"] == 0, counts
+    ref = call(P.ext_rosenbrock, starts, device="cpu")
+    assert torch.equal(st.status.cpu(), ref.status) and torch.equal(st.iter.cpu(), ref.iter)
+    err = float((st.x.cpu() - ref.x).abs().max()) / max(1.0, float(ref.x.abs().max()))
+    assert err <= 1e-8
+    assert st.host_reads <= -(-int(st.iter.max()) // 8) + 1
+
+
+def test_nls_sparse_goes_through_the_flat_kernels(cuda):
+    """nls_solve_sparse at k = 30 on the card: rows 1a-3 launched, their plain
+    code never; the CPU run's status and iterations, f <= 1e-10."""
+    from galahad_tpu_torch import COOPattern
+    from galahad_tpu_torch.nlp import NLSControl, nls_solve_sparse
+    from galahad_tpu_torch.qp.fused import launch_counts
+
+    P = nlp_problems()
+    n, m, u, v, a, rows, cols = P.grid_residual_arrays(30)
+
+    def run(device):
+        tu, tv, ta = (torch.as_tensor(w, device=device) for w in (u, v, a))
+        return nls_solve_sparse(
+            lambda x: x[tu] + x[tv] ** 2 - ta,
+            lambda x: torch.stack([torch.ones_like(x[tv]), 2.0 * x[tv]]).T.reshape(-1),
+            COOPattern(rows, cols, m, n), torch.full((n,), 1.0, dtype=torch.float64,
+                                                     device=device), NLSControl(maxit=40))
+
+    ldlt_kernels.reset_launch_count()
+    sweep_kernels.reset_sweep_counts()
+    ea_kernels.reset_ea_counts()
+    st = run(cuda)
+    c = launch_counts()
+    assert all(c[k] > 0 for k in ("partial_ldlt", "sweep_fwd", "sweep_bwd")), c
+    assert all(c[k] == 0 for k in ("ldlt_wide_plain", "extend_add_plain", "sweep_plain")), c
+    ref = run("cpu")
+    assert (int(st.status), int(st.iter)) == (int(ref.status), int(ref.iter)) and int(st.status) == 0
+    assert float(st.f) <= 1e-10
+
+
+def test_lms_apply_on_the_card_is_repeatable(cuda):
+    """An L-BFGS and an L-SR1 operator on the card (n = 99,856, memory 10,
+    the ring wrapped): two applies bitwise equal, within 1e-10 of the CPU's."""
+    from galahad_tpu_torch import qn
+
+    n = 99_856
+    rng = np.random.default_rng(5)
+    d = torch.as_tensor(rng.uniform(1.0, 3.0, n))
+    for method in ("bfgs", "sr1"):
+        dc = qn.lms_setup(n, qn.LMSControl(memory=10, method=method), device="cpu")
+        dg = qn.lms_setup(n, qn.LMSControl(memory=10, method=method), device=cuda)
+        for _ in range(13):
+            s = torch.as_tensor(rng.normal(size=n))
+            y = d * s + 0.01 * torch.as_tensor(rng.normal(size=n))
+            dc = qn.lms_update(dc, s, y)
+            dg = qn.lms_update(dg, s.to(cuda), y.to(cuda))
+        v = torch.as_tensor(rng.normal(size=n))
+        op = qn.lms_operator(dg, shift=0.5)
+        w1, w2 = op(v.to(cuda)), qn.lms_apply(dg, v.to(cuda), shift=0.5)
+        assert torch.equal(w1, w2), method
+        ref = qn.lms_apply(dc, v, shift=0.5)
+        assert float((w1.cpu() - ref).abs().max()) <= 1e-10 * float(ref.abs().max()), method
+        if method == "bfgs":
+            i1, i2 = qn.lms_apply_inverse(dg, v.to(cuda)), qn.lms_apply_inverse(dg, v.to(cuda))
+            assert torch.equal(i1, i2)

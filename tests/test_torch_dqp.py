@@ -164,10 +164,23 @@ def test_jax_info_converts():
     check_same(dj, d, tol=0.0)
 
 
+def test_exact_arc_false_by_trb():
+    """``DQPControl(exact_arc=False)``: the dual by the port's ``trb_solve``
+    against the JAX package's on tests/test_qp_family2.py's
+    random_convex_qp(12, 6, 77) and on the "cold" case: the same status and
+    iteration count (27, 42), x, y, z and the objective within 1e-8; the
+    exact arc's x within 1e-6 (test_qp_family2.py's check)."""
+    ctl_j, ctl_t = j_dqp.DQPControl(exact_arc=False), t_dqp.DQPControl(exact_arc=False)
+    for jq, tq in (dense_pair(random_convex_qp_arrays(12, 6, 77)), pair("cold")):
+        dj = j_dqp.dqp_solve(jq, ctl=ctl_j)
+        dt = t_dqp.dqp_solve(tq, ctl=ctl_t)
+        check_same(dj, dt)
+        assert dt.status == 0 and dt.host_reads <= -(-dt.iter // 8) + 1
+        exact = t_dqp.dqp_solve(tq)
+        np.testing.assert_allclose(dt.x.numpy(), exact.x.numpy(), atol=1e-6)
+
+
 def test_refusals():
-    _, tq = pair("cold")
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        t_dqp.dqp_solve(tq, ctl=t_dqp.DQPControl(exact_arc=False))
     sq = make_sparse_qp(2, 1, h_coo=([0, 1], [0, 1], [1.0, 1.0]), a_coo=([0], [0], [1.0]),
                         g=np.zeros(2), device="cpu")
     for fn in (t_dqp.dqp_solve, t_dqp.ccqp_solve):

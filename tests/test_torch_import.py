@@ -41,6 +41,13 @@ import galahad_tpu_torch.tr.lstr
 import galahad_tpu_torch.tr.secular_kernels
 import galahad_tpu_torch.tr.trs
 import galahad_tpu_torch.tr.trs_sparse
+import galahad_tpu_torch.linalg.bsc
+import galahad_tpu_torch.nlp
+import galahad_tpu_torch.nlp.arc
+import galahad_tpu_torch.nlp.check
+import galahad_tpu_torch.nlp.nls
+import galahad_tpu_torch.nlp.tru
+import galahad_tpu_torch.qn
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
@@ -195,6 +202,38 @@ def test_tr_entry_points_default_to_the_card(entry):
         "llst_solve": lambda: tr.llst_solve(H, c, 1.0),
         "lls_solve": lambda: tr.lls_solve(H, c, 1.0),
         "gltr_solve": lambda: tr.gltr_solve(lambda v: v, c, 1.0),
+    }
+    with pytest.raises(RuntimeError, match="CUDA"):
+        calls[entry]()
+
+
+@pytest.mark.parametrize("entry", ["tru_solve", "trb_solve", "arc_solve", "nls_solve",
+                                   "nls_solve_sparse", "check_derivatives", "lms_setup",
+                                   "unconstrained_nlp"])
+def test_nlp_entry_points_default_to_the_card(entry):
+    """The NLP and quasi-Newton entry points put numpy inputs on the CUDA
+    device unless asked for the CPU, and raise where there is none."""
+    import numpy as np
+    import torch
+
+    from galahad_tpu_torch import COOPattern, nlp, qn
+    from galahad_tpu_torch.core.problem import unconstrained_nlp
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device exists")
+    f = lambda x: (x * x).sum()                                     # noqa: E731
+    x0 = np.ones(3)
+    calls = {
+        "tru_solve": lambda: nlp.tru_solve(f, x0),
+        "trb_solve": lambda: nlp.trb_solve(f, x0, -np.ones(3), np.ones(3)),
+        "arc_solve": lambda: nlp.arc_solve(f, x0),
+        "nls_solve": lambda: nlp.nls_solve(lambda x: x, x0),
+        "nls_solve_sparse": lambda: nlp.nls_solve_sparse(
+            lambda x: x, lambda x: torch.ones_like(x),
+            COOPattern(np.arange(3), np.arange(3), 3, 3), x0),
+        "check_derivatives": lambda: nlp.check_derivatives(f, x0),
+        "lms_setup": lambda: qn.lms_setup(3),
+        "unconstrained_nlp": lambda: unconstrained_nlp(f, x0),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()
