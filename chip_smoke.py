@@ -138,10 +138,29 @@ host reads per iteration and peak memory; (c) ``nls_solve_sparse`` at k = 316 (n
 m = 199,080) twice (bitwise equal, f <= 1e-10, rows 1a-3 launched) and at k = 100 against
 tests/nlp_oracle.json (the JAX package's iterations, f within 1e-8 relative, x's norm and 32
 entries within 1e-8); (d) the NLS menu, CHECK / FDH
-and DQP by TRB (``exact_arc=False``) against their CPU runs; the outer loops' host reads at
-most ceil(iter / 8) + 1; whether ``torch.linalg.eigh`` synchronises;
+and DQP by TRB (``exact_arc=False``) against their CPU runs; the outer loops read the host
+before each pass (reads = the slowest problem's iterations + 1, passes = its iterations);
+whether ``torch.linalg.eigh`` synchronises;
+then ``constrained``: the constrained and global solvers on the card (tools/
+constrained_problems.py, tools/sif_problems.py), their main path run with the kernels'
+counters set to 0 before and read after (row 6a launched, plain code 0), each case held to the
+port's CPU run of the same call (status, iterations, x within 1e-8 relative; the CPU runs join
+the ``nlp`` phase's pool): (e) LANCELOT at n = 400 (test_large_n_matrix_free) and at
+n = 99,856 twice (bitwise, held by its optimality conditions in float64 on the host), and
+``lancelot_simple`` on test_tr2.py's two cases; (f) QCQP through ``read_qcqp``: the ball
+problem by "al" and by "filter" from (30, 30), and a convex QCQP at n = 1,024, m = 32 written as
+QPLIB text (host KKT); (g) FILTRANE on TestFiltrane's three systems and the Broyden
+tridiagonal system at n = 1,024; (h) BGO on Rastrigin (n = 2, 256 starts; n = 8, 1,024 starts
+as one batched TRB: every start stationary on the host, the best f the CPU run's on the same
+starts, the first pass held start by start on 64 of them, passes = the slowest start's
+iterations), DGO on Hartmann-6 (1,000 splits; two runs bitwise, the splits under CUDA's
+sync debug mode set to error) and the 1-D case, UGO on test_go.py's three functions (one
+under the sync check); (i) CAMEL6, HART6 and ALLINIT decoded by ``read_nlp`` and solved by
+TRB, EXTROSNB decoded (seconds, aten ops per objective evaluation) and solved; (j) BQP,
+BLLS (2,048 x 1,024) and EQP (m = 256) at n = 1,024;
 then ``banded_path_kernels`` (both banded kernels on every block set the
 banded problems factor at their starting point, against the plain versions,
+at k = 125,000 those the CPU pool ran beside the build on the same blocks;
 and at their last iteration, by relative residual against the sequential
 solve's), then the ``kernels`` line (seven entries: the five of the
 flagship's path, measured after the ``fused`` phase, and the two banded
@@ -149,7 +168,8 @@ kernels, on the Schur-complement blocks of the banded LP at n = 20,000, with
 the library's dense Cholesky and triangular solves of the same matrix as
 their yardstick, and their critical-path steps, and the four kernels of the
 ``tr`` phase; rows 6a, 6b and 1a-3 carry ``launches_nlp``, their launches on the ``nlp``
-phase's path)
+phase's path, and every entry ``launches_constrained``, its launches on the
+``constrained`` phase's)
 and, as its last line, ``{"ok": true, "device": {...}}``.  Any failed
 phase ends the run with a non-zero exit code and no such line.  Without
 a CUDA device it exits non-zero at once; nothing here runs the port on
@@ -159,6 +179,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -1991,14 +2012,15 @@ def banded_blocks(k, b, dtype, seed, bad_block=None):
             torch.as_tensor(L, device="cuda").to(dtype).contiguous())
 
 
-def banded_errors(D, L, rhs_list, chunk=None):
+def banded_errors(D, L, rhs_list, chunk=None, plain=None):
     """Factor and solve kernels against their plain versions on the same
     inputs (the solve on the kernel's factors, its rows in chunks of
-    ``chunk``, default the wrapper's): (Ld, Lo, ok, ok of the plain version,
-    max abs error, worst error over tolerance, solutions).  Each compared
-    tensor (Ld, Lo, each solution) is held to ``TOL`` times its own largest
-    |plain value|.  Each kernel runs twice and the two runs must agree
-    bitwise."""
+    ``chunk``, default the wrapper's; ``plain``: (factors, solutions) of the
+    plain versions computed elsewhere, the solves on the plain factors):
+    (Ld, Lo, ok, ok of the plain version, max abs error, worst error over
+    tolerance, solutions).  Each compared tensor (Ld, Lo, each solution) is
+    held to ``TOL`` times its own largest |plain value|.  Each kernel runs
+    twice and the two runs must agree bitwise."""
     from galahad_tpu_torch.linalg.banded import (BlockTridiagFactors, block_tridiag_cholesky_plain,
                                                  block_tridiag_solve_plain)
 
@@ -2006,14 +2028,15 @@ def banded_errors(D, L, rhs_list, chunk=None):
     Ld2, Lo2, ok2 = banded_kernels.block_tridiag_factor(D, L)
     check(same_bits(Ld, Ld2) and same_bits(Lo, Lo2) and bool(ok) == bool(ok2),
           f"banded factor kernel: two runs differ (k={D.shape[0]}, b={D.shape[1]})")
-    fp = block_tridiag_cholesky_plain(D, L)
+    fp, plain_xs = plain if plain is not None else (block_tridiag_cholesky_plain(D, L), None)
     pairs = [(Ld, fp.Ld), (Lo, fp.Lo)]
     xs = []
-    for rhs in rhs_list:
+    for j, rhs in enumerate(rhs_list):
         x = banded_kernels.block_tridiag_solve(Ld, Lo, rhs, chunk=chunk)
         check(same_bits(x, banded_kernels.block_tridiag_solve(Ld, Lo, rhs, chunk=chunk)),
               f"banded solve kernel: two runs differ (shape {tuple(rhs.shape)}, chunk {chunk})")
-        pairs.append((x, block_tridiag_solve_plain(BlockTridiagFactors(Ld, Lo, ok), rhs)))
+        pairs.append((x, block_tridiag_solve_plain(BlockTridiagFactors(Ld, Lo, ok), rhs)
+                      if plain_xs is None else plain_xs[j]))
         xs.append(x)
     torch.cuda.synchronize()
     err, ratio = 0.0, 0.0
@@ -2251,25 +2274,26 @@ def dense_blocks(D, L):
     return A
 
 
-def banded_path_blocks(name):
-    """The (D, L) blocks that ``BandedQP.build_kkt`` of the problem
-    ``BANDED_CASES[name]`` factors at the starting point, in its order
-    (the G blocks, then the Schur complement's), recorded from one direct
-    call."""
+def banded_path_blocks(name, device="cuda"):
+    """The (D, L, factors) of each block set that ``BandedQP.build_kkt`` of
+    the problem ``BANDED_CASES[name]`` factors at the starting point, in its
+    order (the G blocks, then the Schur complement's), recorded from one
+    direct call on ``device`` (on the CPU the factors are the plain
+    version's)."""
     from galahad_tpu_torch.core.problem import classify_bounds
     from galahad_tpu_torch.qp import ipm, ipm_banded
 
     ctl = IPMControl(**BANDED_CTL)
     (n, h, m), _ = BANDED_CASES[name]
-    qp = banded_problem(n, h, m)
+    qp = banded_problem(n, h, m, device)
     masks = classify_bounds(qp, ctl.infinity)
     D_x, C_diag = ipm._barrier_diagonals(qp, masks, ipm.ipm_init(qp, masks, ctl), ctl)
     seen = []
     factor = ipm_banded.block_tridiag_cholesky
 
     def record(D, L):
-        seen.append((D, L))
-        return factor(D, L)
+        seen.append((D, L, factor(D, L)))
+        return seen[-1][2]
 
     ipm_banded.block_tridiag_cholesky = record
     try:
@@ -2323,11 +2347,36 @@ def banded_rel_residual(D, L, x, rhs) -> float:
     return float(r) / (float(rows.max()) * float(x.abs().max()))
 
 
-def phase_banded_path_kernels():
+# the banded problems whose starting-point block sets (k = 125,000) are too long for the plain
+# loop on the card (~70 s, PERF.md §4): the CPU pool runs their plain factor and solve beside
+# the build (~25 s), and the card's kernels are held to those results
+BANDED_HOST_PLAIN = ("lp_n1000000",)
+
+
+def banded_cpu_reference(name):
+    """The plain factor and solve on the CPU of every block set that
+    ``BandedQP.build_kkt`` of ``BANDED_CASES[name]`` factors at the starting
+    point (the factor is the call's own, the plain version on a CPU tensor;
+    the right-hand side from a host generator seeded with the set's index):
+    a list of dict(D, L, rhs, fac, x)."""
+    from galahad_tpu_torch.linalg.banded import block_tridiag_solve_plain
+
+    out = []
+    for i, (D, L, fac) in enumerate(banded_path_blocks(name, "cpu")):
+        rhs = torch.randn(D.shape[0], D.shape[1], dtype=D.dtype,
+                          generator=torch.Generator().manual_seed(i))
+        out.append(dict(D=D, L=L, rhs=rhs, fac=fac, x=block_tridiag_solve_plain(fac, rhs)))
+    return out
+
+
+def phase_banded_path_kernels(host):
     """Both banded kernels against their plain versions (f64, ``TOL``) on
     every block set that the banded phase's problems factor at the starting
     point: the shapes the main path gives the kernels, k = 2,500 and
-    k = 125,000 block rows of b = 8; the solve with one right-hand side.
+    k = 125,000 block rows of b = 8 (the latter, BANDED_HOST_PLAIN, on the
+    blocks, right-hand side and plain results that the CPU pool made,
+    ``host``; the card's own blocks of the same set within ``TOL`` of
+    them); the solve with one right-hand side.
     Then the sets of each problem's last iteration, held by relative
     residual: the kernels' solve (its rows in chunks) within 10 x the
     sequential solve's + 1e-15 on the same factors (the plain solve at
@@ -2342,19 +2391,33 @@ def phase_banded_path_kernels():
     t0 = time.perf_counter()
     rows, timed = [], None
     for name in BANDED_CASES:
-        for i, (D, L) in enumerate(banded_path_blocks(name)):
+        for i, (D, L, _) in enumerate(banded_path_blocks(name)):
             k, b = D.shape[0], D.shape[1]
-            gen = torch.Generator(device="cuda")
-            gen.manual_seed(i)
-            rhs = torch.randn(k, b, dtype=D.dtype, device="cuda", generator=gen)
             t1 = time.perf_counter()
-            Ld, Lo, ok, ok_plain, err, ratio, (x,) = banded_errors(D, L, [rhs])
+            plain, extra = None, {}
+            if name in BANDED_HOST_PLAIN:
+                ref = host["banded_" + name][0][i]
+                extra["blocks_off_host"] = max(
+                    float((mine - ref[key].to("cuda")).abs().max()) / float(ref[key].abs().max())
+                    for mine, key in ((D, "D"), (L, "L")))
+                check(extra["blocks_off_host"] <= TOL[D.dtype], f"banded path's blocks {i} of "
+                      f"{name}: {extra['blocks_off_host']:.3e} off the CPU's")
+                D, L, rhs = (ref[key].to("cuda") for key in ("D", "L", "rhs"))
+                fac = ref["fac"]
+                plain = (BlockTridiagFactors(fac.Ld.to("cuda"), fac.Lo.to("cuda"), fac.ok),
+                         [ref["x"].to("cuda")])
+                extra.update(plain="host", plain_cpu_s=host["banded_" + name][1])
+            else:
+                gen = torch.Generator(device="cuda")
+                gen.manual_seed(i)
+                rhs = torch.randn(k, b, dtype=D.dtype, device="cuda", generator=gen)
+            Ld, Lo, ok, ok_plain, err, ratio, (x,) = banded_errors(D, L, [rhs], plain=plain)
             check(ok and ok_plain and ratio <= 1.0,
                   f"banded kernels on {name}'s blocks {i} (k={k}, b={b}): ok {ok}/{ok_plain}, "
                   f"err {err:.3e} is {ratio:.3g} x the tolerance")
             rows.append(dict(problem=name, iteration="start", blocks=i, k=k, b=b,
                              dtype=str(D.dtype).split(".")[1], max_abs_err=err,
-                             err_over_tol=ratio, seconds=time.perf_counter() - t1))
+                             err_over_tol=ratio, seconds=time.perf_counter() - t1, **extra))
             if name == "lp_n20000":
                 timed = (D, L, rhs, Ld, Lo, ok, err, x)
             del Ld, Lo, x
@@ -3581,20 +3644,24 @@ def nlp_main_path():
                 setup_s=setup_s, sparse100=sparse100, menu=menu, counts=counts)
 
 
-def nlp_state_row(name, st, wall, launches, ref, ref_s):
+def nlp_state_row(name, st, wall, launches, ref, ref_s, maxit=100):
     """One solve's row, held to the CPU run ``ref``: status, iterations, f,
-    the outer loop's host reads (checked against ceil(iter / 8) + 1) and the
-    Krylov solvers' apart, passes of the outer loop (its subproblem solves),
-    seconds on the card and on the host."""
+    the outer loop's host reads (one before each pass: the slowest problem's
+    iterations + 1, or ``maxit`` at the cap) and the Krylov solvers' apart,
+    passes of the outer loop (its subproblem solves, one secular launch each;
+    checked equal to the slowest problem's iterations), seconds on the card
+    and on the host."""
     it = st.iter.cpu()
-    row = dict(status=int(st.status.min()), iter_max=int(it.max()), iter_min=int(it.min()),
+    it_max = int(it.max())
+    row = dict(status=int(st.status.min()), iter_max=it_max, iter_min=int(it.min()),
                f_max=float(st.f.max()), norm_g_max=float(st.norm_g.max()),
-               host_reads=st.host_reads, host_reads_bound=-(-int(it.max()) // 8) + 1,
+               host_reads=st.host_reads, host_reads_expected=min(it_max + 1, maxit),
                krylov_reads=st.krylov_reads, passes=launches, wall_s=wall,
                s_per_outer_iteration=wall / max(launches, 1), cpu_wall_s=ref_s,
                x_rel_cpu=nlp_held(name, st, ref))
-    check(st.host_reads <= row["host_reads_bound"], f"nlp, {name}: {st.host_reads} host reads "
-          f"for {row['iter_max']} iterations")
+    check(st.host_reads == row["host_reads_expected"] and launches == it_max,
+          f"nlp, {name}: {st.host_reads} host reads and {launches} passes for {it_max} "
+          f"iterations")
     return row
 
 
@@ -3609,15 +3676,32 @@ def nlp_worker_init():
     torch.set_num_threads(NLP_CPU_THREADS)
 
 
+def pool_calls() -> dict:
+    """Every call that the CPU pool runs, by name: the ``nlp`` and
+    ``constrained`` phases' CPU runs, and the plain banded factor and solve of
+    BANDED_HOST_PLAIN's starting-point block sets."""
+    return {**nlp_cpu_calls(), **con_cpu_calls(),
+            **{"banded_" + k: functools.partial(banded_cpu_reference, k)
+               for k in BANDED_HOST_PLAIN}}
+
+
 def nlp_cpu_reference(name):
-    """One call of the ``nlp`` phase on the CPU, in a worker: (result, seconds)."""
-    return _host_s(nlp_cpu_calls()[name])
+    """One call of the CPU pool, in a worker: (result, seconds)."""
+    calls = pool_calls()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(CON_CPU_THREADS.get(name, threads))
+    try:
+        return _host_s(calls[name])
+    finally:
+        torch.set_num_threads(threads)
+
 
 
 class NlpCpuReferences:
-    """Every call of the ``nlp`` phase run again on the CPU by NLP_CPU_WORKERS
-    spawned processes (the longest first), started before the build and
-    joined after it: the build's compilers leave seven of eight cores idle
+    """Every call of the ``nlp`` and ``constrained`` phases run again on the
+    CPU, and the plain banded factor and solve at k = 125,000, by
+    NLP_CPU_WORKERS spawned processes (the longest first), started before the
+    build and joined after it: the build's compilers leave seven of eight cores idle
     after their first ~13 s (banded.cu's alone takes ~45 s), and beside the
     card's host-timed runs the same checks slowed those by up to 1.9x
     (PERF.md §6).  ``join`` returns {name: (result, seconds)}; ``close`` stops
@@ -3631,7 +3715,9 @@ class NlpCpuReferences:
         self.pool = concurrent.futures.ProcessPoolExecutor(
             NLP_CPU_WORKERS, mp_context=multiprocessing.get_context("spawn"),
             initializer=nlp_worker_init)
-        names = sorted(nlp_cpu_calls(), key=lambda k: (k not in NLP_CPU_LONGEST, k))
+        longest = CON_LONGEST + NLP_CPU_LONGEST
+        names = sorted(pool_calls(),
+                       key=lambda k: (longest.index(k) if k in longest else len(longest), k))
         self.futures = {name: self.pool.submit(nlp_cpu_reference, name) for name in names}
 
     def join(self) -> dict:
@@ -3765,6 +3851,566 @@ def phase_nlp(host, host_seconds):
     return out["launches"]
 
 
+# ---------------------------------------------------------------------------
+# constrained: LANCELOT, FILTRANE, QCQP, BGO / DGO / UGO, SIF, BQP / BLLS / EQP
+# ---------------------------------------------------------------------------
+
+CON_CHAIN_N = 400                 # (e): test_large_n_matrix_free's n
+CON_WIDE_N = NLP_WIDE_N           # (e), the flagship's width
+CON_QCQP_N, CON_QCQP_M = 1024, 32  # (f)
+CON_BROYDEN_N = 1024              # (g)
+CON_BGO_ATTEMPTS, CON_BGO_N = 1024, 8   # (h): the shape of bench_batched_trs
+# (h): the starts of the 1,024 held start by start, spread with both ends
+CON_BGO_ROWS = np.linspace(0, CON_BGO_ATTEMPTS - 1, 64).round().astype(np.int64)
+CON_DGO_MAXIT = 1000              # (h): capacity 2,001 boxes
+CON_SIF_N = 40                    # (i): EXTROSNB's N, cut from 1,000 (PERF.md §4)
+CON_QP_N, CON_BLLS_M, CON_EQP_M = 1024, 2048, 256   # (j)
+CON_TOL = 1e-8                    # x against the port's CPU run, relative
+# calls whose iteration counts part between the card and the CPU by roundoff (ROADMAP queue
+# 3): at TRB's Cauchy boundary test (held in status and x within the solver's stop) or at
+# FILTRANE's singular Gauss-Newton model (the QCQP's "filter" start: x within the AL stop;
+# the inequality system, whose feasible set is not a point: status and theta <= stop_c);
+# the counts are reported
+CON_EDGE = {"e_simple_rosenbrock": 1e-6, "f_ball_filter": 1e-5, "g_inequality": None}
+CON_CPU_THREADS = {"f_qcqp_1024": 4}   # the pool's longest call: 4 threads, not 2
+CON_LONGEST = ("f_qcqp_1024", "banded_lp_n1000000", "g_broyden_1024", "h_bgo_all", "j_blls",
+               "j_bqp")
+CON_KERNELS = dict(NLP_KERNELS, banded_factor="banded_factor", banded_solve="banded_solve",
+                   tridiag_factor="tridiag_factor", tridiag_solve="tridiag_solve")
+CON_PLAIN = NLP_PLAIN + ("tridiag_factor_plain", "tridiag_solve_plain", "banded_factor_plain",
+                         "banded_solve_plain")
+
+
+def con_problems():
+    import constrained_problems  # noqa: E402  (tools/constrained_problems.py)
+    import sif_problems  # noqa: E402  (tools/sif_problems.py)
+    return constrained_problems, sif_problems
+
+
+def con_qp_arrays():
+    """(j)'s problems at n = 1,024 (tools/constrained_problems.py)."""
+    CP, _ = con_problems()
+    return dict(bqp=CP.bqp_arrays(CON_QP_N), blls=CP.blls_arrays(CON_BLLS_M, CON_QP_N),
+                eqp=CP.eqp_arrays(CON_QP_N, CON_EQP_M))
+
+
+_CON_DIR: list = []                # the temporary directory of the phase's files
+
+
+def con_file(name: str, text: str) -> str:
+    """``text`` written to a file of a temporary directory (read_qcqp and
+    read_nlp take paths), kept for the life of the process."""
+    import tempfile
+
+    if not _CON_DIR:
+        _CON_DIR.append(tempfile.TemporaryDirectory())
+    path = os.path.join(_CON_DIR[0].name, name)
+    with open(path, "w") as fh:
+        fh.write(text)
+    return path
+
+
+def con_calls(device):
+    """Every call of the ``constrained`` phase that is held against its CPU
+    run, by name, on ``device``, through the entry points a user calls."""
+    from galahad_tpu_torch import go, nlp, qp
+    from galahad_tpu_torch.io import qplib, sif
+
+    CP, S = con_problems()
+
+    def vec(a):
+        return torch.as_tensor(np.asarray(a, np.float64), device=device)
+
+    n = CON_CHAIN_N
+    calls = dict(
+        e_lancelot_400=lambda: nlp.lancelot_solve(
+            CP.chain_objective, CP.chain_constraint(n), vec(np.full(n, 0.5)), vec([0.0]),
+            vec([0.0]), ctl=nlp.LancelotControl(maxit=20)),
+        e_simple_rosenbrock=lambda: nlp.lancelot_simple(
+            lambda x: (1 - x[0]) ** 2 + 100 * (x[1] - x[0] ** 2) ** 2, vec(np.zeros(2)),
+            maxit=200),
+        e_simple_equality=lambda: nlp.lancelot_simple(
+            lambda x: (x ** 2).sum(), vec(np.zeros(2)),
+            constraints=lambda x: torch.stack([x[0] + x[1] - 1.0]), c_eq=1))
+    ball = con_file("BALL2.qplib", CP.BALL_QCQP_FILE)
+    calls["f_ball_al"] = lambda: qp.qcqp_solve(qplib.read_qcqp(ball, device=device))
+
+    def ball_far():
+        p = qplib.read_qcqp(ball, device=device)
+        return qp.qcqp_solve(dataclasses.replace(p, x=vec([30.0, 30.0])),
+                             qp.QCQPControl(method="filter"))
+
+    calls["f_ball_filter"] = ball_far
+    big = con_file("QCQP1024.qplib", CP.convex_qcqp_text(CON_QCQP_N, CON_QCQP_M))
+    calls["f_qcqp_1024"] = lambda: qp.qcqp_solve(qplib.read_qcqp(big, device=device))
+    INF = 1e19
+    for name, c, x0, cl, cu in (
+            ("g_system", lambda x: torch.stack([x[0] ** 2 + x[1] ** 2, x[0] - x[1] ** 2]),
+             [0.5, 0.5], [1.0, 0.0], [1.0, 0.0]),
+            ("g_inequality", lambda x: torch.stack([x[0] + x[1], x[0] ** 2 + x[1] ** 2]),
+             [5.0, 5.0], [1.0, -INF], [INF, 4.0]),
+            ("g_feasible", lambda x: x, [0.5], [0.0], [1.0]),
+            ("g_broyden_1024", CP.broyden_tridiagonal(torch), np.full(CON_BROYDEN_N, -1.0),
+             np.zeros(CON_BROYDEN_N), np.zeros(CON_BROYDEN_N))):
+        calls[name] = lambda c=c, x0=x0, cl=cl, cu=cu: nlp.filtrane_solve(
+            c, vec(x0), vec(cl), vec(cu))
+    calls["h_bgo_rastrigin_2"] = lambda: go.bgo_solve(
+        CP.rastrigin(torch), vec(np.full(2, -5.12)), vec(np.full(2, 5.12)),
+        ctl=go.BGOControl(attempts=256))
+    calls["h_dgo_hartmann6"] = lambda: go.dgo_solve(
+        S.hartmann6(torch, device), vec(np.zeros(6)), vec(np.ones(6)),
+        go.DGOControl(maxit=CON_DGO_MAXIT))
+    calls["h_dgo_1d"] = lambda: go.dgo_solve(
+        lambda v: torch.sin(v[0]) + torch.sin(10.0 * v[0] / 3.0), vec([2.7]), vec([7.5]),
+        go.DGOControl(maxit=150))
+    for name, f, a, b, maxit in (
+            ("h_ugo_multimodal", lambda x: torch.sin(x) + torch.sin(10.0 * x / 3.0), 2.7, 7.5, 100),
+            ("h_ugo_many_minima", lambda x: x ** 2 / 50.0 - torch.cos(x) + 1.0, -20.0, 20.0, 200),
+            ("h_ugo_monotone", lambda x: x, -1.0, 3.0, 100)):
+        calls[name] = lambda f=f, a=a, b=b, maxit=maxit: go.ugo_solve(
+            f, a, b, go.UGOControl(maxit=maxit), device=device)
+    for name in ("CAMEL6", "HART6", "ALLINIT"):
+        path = con_file(name + ".SIF", S.TEXTS[name])
+
+        def solve(path=path):
+            p = sif.read_nlp(path, device=device)
+            return nlp.trb_solve(p.objective, p.x, p.x_l, p.x_u)
+
+        calls["i_" + name.lower()] = solve
+    arrays = con_qp_arrays()
+    calls["j_bqp"] = lambda: qp.bqp_solve(*map(vec, arrays["bqp"]))
+    calls["j_blls"] = lambda: qp.blls_solve(*map(vec, arrays["blls"]))
+    calls["j_eqp"] = lambda: qp.eqp_solve(*map(vec, arrays["eqp"]))
+    return calls
+
+
+def con_bgo_starts(device, rows=None):
+    """(h): the 1,024 Latin-hypercube starts bgo_solve draws (seed 0, host
+    generator) on Rastrigin in 8 variables over [-5.12, 5.12]^8, or those at
+    ``rows``."""
+    from galahad_tpu_torch import go
+
+    lo, hi = np.full(CON_BGO_N, -5.12), np.full(CON_BGO_N, 5.12)
+    S = go.lhs_sample_box(torch.Generator().manual_seed(0), CON_BGO_ATTEMPTS, lo, hi,
+                          device="cpu")
+    return (S if rows is None else S[rows]).to(device), lo, hi
+
+
+def con_bgo_trb(device, rows=None, maxit=None):
+    """(h): the batched TRB of bgo_solve from its starts (those at ``rows``;
+    each start is independent), with its control or ``maxit`` passes."""
+    from galahad_tpu_torch import go
+    from galahad_tpu_torch.nlp import TRBControl, trb_solve
+
+    CP, _ = con_problems()
+    S, lo, hi = con_bgo_starts(device, rows)
+    ctl = go.BGOControl(attempts=CON_BGO_ATTEMPTS)
+    return trb_solve(CP.rastrigin(torch), S, lo, hi,
+                     TRBControl(maxit=maxit or ctl.maxit_local,
+                                stop_g_absolute=ctl.stop_g_absolute), device=device)
+
+
+@functools.lru_cache(maxsize=1)
+def con_cpu_calls():
+    return {**con_calls("cpu"), "h_bgo_all": lambda: con_bgo_trb("cpu"),
+            "h_bgo_rows_first": lambda: con_bgo_trb("cpu", CON_BGO_ROWS, maxit=1)}
+
+
+@contextlib.contextmanager
+def no_sync(what: str):
+    """CUDA's sync debug mode set to error: a call that synchronises with the
+    card (a host read among them) inside the block fails the phase."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    except RuntimeError as exc:
+        raise SmokeFailure(f"constrained, {what}: a synchronising call: {exc}") from exc
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def con_main_path():
+    """The ``constrained`` phase's main path on the card, as a user calls it,
+    with the secular kernels' counters set to 0 before and read after: the
+    calls of ``con_calls``, LANCELOT at n = 99,856 twice, BGO at 1,024 starts,
+    DGO's box splits and UGO with no synchronising call, and EXTROSNB decoded
+    and solved."""
+    from galahad_tpu_torch import go, nlp
+    from galahad_tpu_torch.go import dgo as dgo_module
+    from galahad_tpu_torch.io import sif
+
+    CP, S = con_problems()
+    calls = con_calls("cuda")
+    torch.cuda.synchronize()
+    reset_tr_counts()
+    start = nlp_counts()
+    runs, per_run = {}, {}
+
+    def run(name, fn):
+        before = tr_counts()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        runs[name] = synced_s(fn)
+        after = tr_counts()
+        per_run[name] = dict(trs=after["trs"] - before["trs"],
+                             peak_gib=(torch.cuda.max_memory_allocated() - base) / 2 ** 30)
+
+    for name, fn in calls.items():
+        if name == "h_dgo_hartmann6":
+            continue
+        run(name, fn)
+    # DGO twice: the second run's box splits with no synchronising call
+    run("h_dgo_hartmann6", calls["h_dgo_hartmann6"])
+    boxes = dgo_module.dgo_boxes
+
+    def boxes_checked(*args, **kw):
+        with no_sync("DGO's box splits"):
+            return boxes(*args, **kw)
+
+    dgo_module.dgo_boxes = boxes_checked
+    try:
+        run("h_dgo_hartmann6_again", calls["h_dgo_hartmann6"])
+    finally:
+        dgo_module.dgo_boxes = boxes
+    with no_sync("UGO"):
+        ugo = go.ugo_solve(lambda x: torch.sin(x) + torch.sin(10.0 * x / 3.0), 2.7, 7.5,
+                           device="cuda")
+    runs["h_ugo_no_sync"] = (ugo, 0.0)
+    # (e) at the flagship's width, twice
+    n = CON_WIDE_N
+    for k in ("e_lancelot_wide", "e_lancelot_wide_again"):
+        run(k, lambda: nlp.lancelot_solve(
+            CP.chain_objective, CP.chain_constraint(n),
+            torch.full((n,), 0.5, dtype=torch.float64, device="cuda"),
+            torch.zeros(1, dtype=torch.float64, device="cuda"),
+            torch.zeros(1, dtype=torch.float64, device="cuda")))
+    # (h) BGO at 1,024 starts
+    lo, hi = np.full(CON_BGO_N, -5.12), np.full(CON_BGO_N, 5.12)
+    run("h_bgo_rastrigin_8", lambda: go.bgo_solve(
+        CP.rastrigin(torch), torch.as_tensor(lo, device="cuda"),
+        torch.as_tensor(hi, device="cuda"), ctl=go.BGOControl(attempts=CON_BGO_ATTEMPTS)))
+    # (i) EXTROSNB: decoded, its ops per objective evaluation, solved by TRB
+    text = S.extended_rosenbrock(CON_SIF_N)
+    path = con_file("EXTROSNB.SIF", text)
+    t0 = time.perf_counter()
+    p = sif.read_nlp(path, device="cuda")
+    decode_s = time.perf_counter() - t0
+    ops = count_ops(lambda: p.objective(p.x))
+    run("i_extrosnb", lambda: nlp.trb_solve(p.objective, p.x, p.x_l, p.x_u))
+    end = nlp_counts()
+    return dict(runs=runs, per_run=per_run,
+                counts={k: end[k] - start[k] for k in end},
+                sif=dict(n=CON_SIF_N, decode_s=decode_s, ops_per_objective=ops))
+
+
+def con_x_err(got, ref) -> float:
+    return nlp_x_err(got.reshape(-1), ref.reshape(-1))
+
+
+def con_held(name, out, ref, fields=("status", "iter")):
+    """The card's result against the CPU's: ``fields`` equal, x within
+    CON_TOL relative."""
+    for k in fields:
+        a, b = getattr(out, k), getattr(ref, k)
+        a = a.cpu() if torch.is_tensor(a) else torch.as_tensor(a)
+        b = b.cpu() if torch.is_tensor(b) else torch.as_tensor(b)
+        check(torch.equal(a, b), f"constrained, {name}: {k} {a.tolist()} on the card, "
+              f"{b.tolist()} on the CPU")
+    err = con_x_err(out.x, ref.x)
+    check(err <= CON_TOL and bool(torch.isfinite(out.x).all()), f"constrained, {name}: x off "
+          f"the CPU run by {err:.3e}")
+    return err
+
+
+def con_lancelot_wide(main) -> dict:
+    """(e) at n = 99,856: two runs bitwise; converged, held by its optimality
+    conditions in float64 on the host: |sum x - n/40| <= stop_c and ||grad f +
+    y grad c|| <= 10 stop_g (no bounds: the projected gradient is the
+    gradient)."""
+    from galahad_tpu_torch.nlp import LancelotControl
+
+    (a, wa), (b, wb) = main["runs"]["e_lancelot_wide"], main["runs"]["e_lancelot_wide_again"]
+    ctl = LancelotControl()
+    x = a.x.double().cpu().numpy()
+    y = float(a.y[0])
+    n = CON_WIDE_N
+    g = 2.0 * (x - 1.0)
+    g[1:] += 0.2 * x[1:] * x[:-1] ** 2
+    g[:-1] += 0.2 * x[:-1] * x[1:] ** 2
+    infeas = abs(float(np.sum(x)) - n / 40.0)
+    grad_l = float(np.linalg.norm(g + y))
+    outer = int(a.iter)
+    row = dict(n=n, status=int(a.status), outer_iterations=outer, trb_iterations=a.inner_iter,
+               lanczos_steps=a.krylov_reads, host_reads=a.host_reads, y=y, mu=float(a.mu),
+               infeasibility=infeas, lagrangian_gradient=grad_l, wall_s=[wa, wb],
+               s_per_outer_iteration=wa / max(outer, 1),
+               peak_gib=main["per_run"]["e_lancelot_wide"]["peak_gib"],
+               secular_launches=main["per_run"]["e_lancelot_wide"]["trs"])
+    check(same_bits(a.x, b.x) and same_bits(a.y, b.y), "constrained, LANCELOT n = 99,856: two "
+          "runs differ")
+    check(int(a.status) == 0 and infeas <= ctl.stop_c and grad_l <= 10 * ctl.stop_g,
+          f"constrained, LANCELOT n = 99,856: status {int(a.status)}, |sum x - n/40| {infeas:.3e}, "
+          f"||grad L|| {grad_l:.3e}")
+    return row
+
+
+def con_qcqp_kkt(p, out) -> dict:
+    """(f): the QCQP's KKT residuals in float64 on the host with the solver's
+    sign (grad f + J'y = 0 on the variables inside their bounds, LANCELOT's
+    multiplier y = (w - s) / mu >= 0 on c <= c_u): primal infeasibility, that
+    stationarity, y's sign and complementarity."""
+    x = out.x.double().cpu().numpy()
+    y = out.y.double().cpu().numpy()
+    H, g = p.H.double().cpu().numpy(), p.g.double().cpu().numpy()
+    A, Q = p.A.double().cpu().numpy(), p.Qc.double().cpu().numpy()
+    c = A @ x + 0.5 * np.einsum("mij,i,j->m", Q, x, x)
+    J = A + np.einsum("mij,j->mi", Q, x)
+    cu, xl, xu = (v.double().cpu().numpy() for v in (p.c_u, p.x_l, p.x_u))
+    inside = (x > xl + 1e-8) & (x < xu - 1e-8)
+    return dict(primal=float(max(0.0, np.max(c - cu), np.max(xl - x), np.max(x - xu))),
+                dual=float(np.max(np.abs((H @ x + g + J.T @ y)[inside]), initial=0.0)),
+                y_min=float(y.min()), complementarity=float(np.max(np.abs(y * (cu - c)))),
+                active=int(np.sum(cu - c <= 1e-6)), at_bounds=int(np.sum(~inside)))
+
+
+def con_rows(main, host) -> dict:
+    """Every held call's row: the card's result against the CPU's, seconds on
+    both; the per-kind extras (LANCELOT's counts, the QCQP's KKT, DGO's boxes
+    and host reads, BGO's best point, EQP's Lanczos counts).  Every row is
+    checked before the phase fails, and the failures are reported together."""
+    rows, fails = {}, []
+    for name, (out, wall) in main["runs"].items():
+        if name not in host:
+            continue
+        row = rows[name] = dict(wall_s=wall, cpu_wall_s=host[name][1],
+                                secular_launches=main["per_run"][name]["trs"])
+        try:
+            con_row(name, row, out, host[name][0])
+        except SmokeFailure as exc:
+            fails.append(str(exc))
+    check(not fails, " | ".join(fails))
+    return rows
+
+
+def con_row(name, row, out, ref) -> None:
+    """``con_rows``'s checks of one call, its extras into ``row``."""
+    from galahad_tpu_torch.io import qplib
+
+    if name in CON_EDGE:
+        tol = CON_EDGE[name]
+        row.update(status=int(out.status), iter=int(out.iter), cpu_iter=int(ref.iter),
+                   x_rel_cpu=con_x_err(out.x, ref.x))
+        if tol is None:
+            from galahad_tpu_torch.nlp import FiltraneControl
+
+            row.update(theta=float(out.theta), cpu_theta=float(ref.theta))
+            ok = max(row["theta"], row["cpu_theta"]) <= FiltraneControl().stop_c
+        else:
+            ok = row["x_rel_cpu"] <= tol
+        check(int(out.status) == int(ref.status) == 0 and ok,
+              f"constrained, {name}: status {int(out.status)} / {int(ref.status)}, x off the "
+              f"CPU run by {row['x_rel_cpu']:.3e}")
+        return
+    if name.startswith(("e_", "f_", "g_", "i_")) or name in ("j_bqp", "j_blls"):
+        row.update(status=int(out.status), iter=int(out.iter),
+                   x_rel_cpu=con_held(name, out, ref))
+        check(int(out.status) == 0, f"constrained, {name}: status {int(out.status)}")
+    if name.startswith(("e_", "f_")):
+        row.update(trb_iterations=out.inner_iter, lanczos_steps=out.krylov_reads,
+                   host_reads=out.host_reads, infeas=float(out.infeas),
+                   s_per_outer_iteration=row["wall_s"] / max(int(out.iter), 1))
+    if name.startswith("g_"):
+        row.update(theta=float(out.theta), host_reads=out.host_reads)
+    if name == "f_qcqp_1024":
+        CP, _ = con_problems()
+        p = qplib.read_qcqp(con_file("QCQP1024.qplib", CP.convex_qcqp_text(
+            CON_QCQP_N, CON_QCQP_M)), device="cpu")
+        row["kkt"] = kkt = con_qcqp_kkt(p, out)
+        row["qc_bytes"] = p.Qc.numel() * p.Qc.element_size()
+        check(kkt["primal"] <= 1e-6 and kkt["dual"] <= 1e-5 and kkt["y_min"] >= -1e-10
+              and kkt["complementarity"] <= 1e-6, f"constrained, f_qcqp_1024: host KKT {kkt}")
+    if name.startswith("h_bgo"):
+        row.update(f=float(out.f), starts_converged=int(out.starts_converged),
+                   cpu_starts_converged=int(ref.starts_converged),
+                   x_rel_cpu=con_x_err(out.x, ref.x), host_reads=out.host_reads)
+        check(row["x_rel_cpu"] <= CON_TOL and abs(float(out.f) - float(ref.f)) <= 1e-10,
+              f"constrained, {name}: the best point off the CPU run's")
+    if name.startswith("h_dgo"):
+        row.update(boxes=int(out.boxes), f=float(out.f), host_reads=out.host_reads,
+                   x_rel_cpu=con_x_err(out.x, ref.x))
+        check(int(out.boxes) == int(ref.boxes) and row["x_rel_cpu"] <= 1e-10
+              and abs(float(out.f) - float(ref.f)) <= 1e-10 * max(1.0, abs(float(ref.f))),
+              f"constrained, {name}: boxes / f / x off the CPU run")
+    if name.startswith("h_ugo"):
+        row.update(x=float(out.x), f=float(out.f),
+                   x_rel_cpu=abs(float(out.x) - float(ref.x)) / max(1.0, abs(float(ref.x))))
+        check(row["x_rel_cpu"] <= 1e-10, f"constrained, {name}: x off the CPU run")
+    if name == "j_eqp":
+        row.update(iter=int(out.iter), cpu_iter=int(ref.iter),
+                   x_rel_cpu=con_x_err(out.x, ref.x), y_rel_cpu=con_x_err(out.y, ref.y))
+        check(row["x_rel_cpu"] <= CON_TOL and row["y_rel_cpu"] <= CON_TOL,
+              "constrained, j_eqp: x / y off the CPU run")
+
+
+def con_bgo_pg(x, lo, hi):
+    """||P(x - g) - x|| of every row of x on Rastrigin (g = 2 x + 20 pi
+    sin(2 pi x)), in float64 on the host."""
+    x = x.double().cpu().numpy()
+    g = 2.0 * x + 20.0 * np.pi * np.sin(2.0 * np.pi * x)
+    return np.linalg.norm(np.clip(x - g, lo, hi) - x, axis=-1)
+
+
+def con_arc_rounding() -> dict:
+    """How the card rounds TRB's Cauchy arc point x - t g (``torch.addcmul``)
+    on 4,096 triples of an arc's scale: the share of once-rounded values (a
+    fused multiply-add, as the CPU's and the JAX package's) and of values with
+    the product rounded first."""
+    from fractions import Fraction
+
+    r = np.random.default_rng(0)
+    x, t, g = r.uniform(-5.0, 5.0, 4096), r.uniform(0.0, 1.0, 4096), 10.0 * r.normal(size=4096)
+    once = np.array([float(Fraction(a) - Fraction(b) * Fraction(c)) for a, b, c in zip(x, t, g)])
+    card = torch.addcmul(*(torch.as_tensor(v, device="cuda") for v in (x, t, g)),
+                         value=-1.0).cpu().numpy()
+    return dict(once_rounded=float((card == once).mean()),
+                product_rounded_first=float((card == x - t * g).mean()))
+
+
+def con_bgo_row(main, host) -> dict:
+    """(h) at 1,024 starts.  The batched TRB of ``bgo_solve`` run again from
+    its starts (``con_bgo_trb``; its best f that of ``bgo_solve``'s run within
+    1e-12): every start in the box, and stationary, held on the host in
+    float64: converged (status 0) with its projected gradient within the
+    solver's stop, max(stop_g_absolute, stop_g_relative ||P(x0 - g0) - x0||),
+    or at max iterations with it within 10 stop_g_absolute (the trust region
+    collapsed where f's rounding hides its decrease).  The best f within 1e-10
+    of the CPU run's on the same 1,024 starts.  On CON_BGO_ROWS, start by
+    start against the CPU run: the first pass of every held start (status,
+    iterations, x within 1e-8); at the end the starts that reach the CPU
+    run's point in its iterations are counted, and the others
+    (``parted_starts``: on Rastrigin's many minima a trajectory parts by
+    roundoff).  Passes (one secular launch each) against the slowest start's
+    iterations and the loop's host reads, s per pass and the share of one
+    ``eigh`` of the batch's Hessians; how the card rounds the Cauchy arc
+    (``con_arc_rounding``)."""
+    from galahad_tpu_torch import go
+    from galahad_tpu_torch.core.status import Status
+    from galahad_tpu_torch.nlp import TRBControl
+
+    CP, _ = con_problems()
+    out, wall = main["runs"]["h_bgo_rastrigin_8"]
+    st = con_bgo_trb("cuda")
+    ref, ref_s = host["h_bgo_all"]
+    ctl = go.BGOControl(attempts=CON_BGO_ATTEMPTS)
+    X0, lo, hi = con_bgo_starts("cpu")
+    f_scale = max(1.0, abs(float(ref.f.min())))
+    check(abs(float(st.f.min()) - float(out.f)) <= 1e-12 * f_scale,
+          f"constrained, BGO 1,024: the batched TRB's best f {float(st.f.min())!r} is not "
+          f"bgo_solve's {float(out.f)!r}")
+    x = st.x.cpu()
+    status, iters = st.status.cpu().numpy(), st.iter.cpu().numpy()
+    pg = con_bgo_pg(x, lo, hi)
+    stop = np.maximum(ctl.stop_g_absolute, TRBControl().stop_g_relative * con_bgo_pg(X0, lo, hi))
+    conv = status == int(Status.OK)
+    at_cap = (status == int(Status.MAX_ITERATIONS)) & (iters == ctl.maxit_local)
+    in_box = bool(((x >= torch.as_tensor(lo)) & (x <= torch.as_tensor(hi))).all())
+    stationary = np.where(conv, pg <= stop + 1e-12, at_cap & (pg <= 10 * ctl.stop_g_absolute))
+    check(in_box and bool(stationary.all()),
+          f"constrained, BGO 1,024: starts {np.nonzero(~stationary)[0].tolist()[:8]} not "
+          f"stationary (status {status[~stationary].tolist()[:8]}, projected gradient "
+          f"{pg[~stationary].tolist()[:8]}), in the box {in_box}")
+    check(abs(float(out.f) - float(ref.f.min())) <= 1e-10 * f_scale,
+          f"constrained, BGO 1,024: best f {float(out.f)!r}, the CPU run's "
+          f"{float(ref.f.min())!r}")
+    rows = torch.as_tensor(CON_BGO_ROWS)
+    sub = dataclasses.replace(st, **{f: getattr(st, f).cpu()[rows]
+                                     for f in ("x", "status", "iter")})
+    ref_rows = dataclasses.replace(ref, **{f: getattr(ref, f)[rows]
+                                           for f in ("x", "status", "iter")})
+    # a start's trajectory on a multimodal function can part from the CPU's by
+    # roundoff (the norms, products and cos, CUDA's and the CPU's): every held
+    # start's first pass is held; at the end the starts are counted
+    first = con_bgo_trb("cuda", maxit=1)
+    first = dataclasses.replace(first, **{f: getattr(first, f)[rows.to("cuda")].cpu()
+                                          for f in ("x", "status", "iter")})
+    first_err = con_held("h_bgo_rastrigin_8, first pass", first, host["h_bgo_rows_first"][0])
+    x_err = ((sub.x - ref_rows.x).abs().max(-1).values
+             / ref_rows.x.abs().max().clamp(min=1.0))
+    same = (sub.iter == ref_rows.iter) & (sub.status == ref_rows.status) & (x_err <= CON_TOL)
+    passes = main["per_run"]["h_bgo_rastrigin_8"]["trs"]
+    it_max = int(st.iter.max())
+    X = con_bgo_starts("cuda")[0]
+    H0 = torch.func.vmap(torch.func.hessian(CP.rastrigin(torch)))(X)
+    eigh_ms = min(event_ms(lambda: torch.linalg.eigh(H0)) for _ in range(3))
+    row = dict(attempts=CON_BGO_ATTEMPTS, n=CON_BGO_N, f=float(out.f), cpu_f=float(ref.f.min()),
+               starts_converged=int(out.starts_converged),
+               cpu_starts_converged=int(ref.converged.sum()), at_max_iterations=int(at_cap.sum()),
+               cpu_at_max_iterations=int((ref.status != int(Status.OK)).sum()),
+               status_differs=int((st.status.cpu() != ref.status).sum()),
+               pg_max_converged=float(pg[conv].max()),
+               pg_max_at_max_iterations=float(pg[at_cap].max()) if at_cap.any() else None,
+               held_starts=len(CON_BGO_ROWS), first_pass_x_rel_cpu=first_err,
+               parted_starts=int((~same).sum()),
+               parted_status=[int(v) for v in sub.status[~same]],
+               cpu_parted_status=[int(v) for v in ref_rows.status[~same]],
+               x_rel_cpu_held=float(x_err[same].max()) if bool(same.any()) else None,
+               iter_max=it_max, iter_min=int(st.iter.min()), passes=passes,
+               host_reads=st.host_reads, wall_s=wall, cpu_wall_s=ref_s,
+               s_per_pass=wall / max(passes, 1), eigh_ms=eigh_ms,
+               eigh_share=eigh_ms * passes / (wall * 1e3), cauchy_arc=con_arc_rounding())
+    check(passes == it_max and st.host_reads == min(it_max + 1, ctl.maxit_local),
+          f"constrained, BGO 1,024: {passes} passes and {st.host_reads} host reads for a "
+          f"slowest start of {it_max} iterations")
+    return row
+
+
+def phase_constrained(host, host_seconds):
+    """LANCELOT, FILTRANE, QCQP, BGO / DGO / UGO, SIF and BQP / BLLS / EQP on
+    the card, held to their CPU runs ``host`` (joined with the ``nlp``
+    phase's pool, which took ``host_seconds``): one ``constrained`` line;
+    returns the path's launches of every kernel by its ``kernels`` entry's
+    name.  Where a check fails, what was measured so far goes to stderr."""
+    t0 = time.perf_counter()
+    main = con_main_path()
+    main_s = time.perf_counter() - t0
+    counts = main["counts"]
+    out = dict(seconds=dict(main_path=main_s, cpu_references=host_seconds),
+               launches={entry: counts[key] for entry, key in CON_KERNELS.items()},
+               plain={k: counts[k] for k in CON_PLAIN})
+    try:
+        check(counts["trs"] > 0, "constrained: the main path launched no trs_secular_newton")
+        check(all(v == 0 for v in out["plain"].values()), f"constrained: plain code ran on the "
+              f"card: {out['plain']}")
+        out["rows"] = con_rows(main, host)
+        out["lancelot_wide"] = con_lancelot_wide(main)
+        out["bgo_1024"] = con_bgo_row(main, host)
+        (d1, w1), (d2, w2) = main["runs"]["h_dgo_hartmann6"], main["runs"]["h_dgo_hartmann6_again"]
+        check(same_bits(d1.x, d2.x) and same_bits(d1.f, d2.f), "constrained, DGO: two runs "
+              "differ")
+        out["dgo_hartmann6"] = dict(boxes=int(d1.boxes), f=float(d1.f), wall_s=[w1, w2],
+                                    host_reads_per_solve=d1.host_reads,
+                                    box_splits_under_sync_check=True,
+                                    s_per_split=w1 / CON_DGO_MAXIT)
+        ugo = main["runs"]["h_ugo_no_sync"][0]
+        ref = host["h_ugo_multimodal"][0]
+        check(abs(float(ugo.x) - float(ref.x)) <= 1e-10, "constrained, UGO under the sync check: "
+              "x off the CPU run")
+        st, wall = main["runs"]["i_extrosnb"]
+        out["sif_extrosnb"] = dict(main["sif"], status=int(st.status), iter=int(st.iter),
+                                   f=float(st.f), wall_s=wall,
+                                   s_per_iteration=wall / max(int(st.iter), 1))
+        check(int(st.status) == 0 and float(st.f) <= 1e-8, f"constrained, EXTROSNB: status "
+              f"{int(st.status)}, f {float(st.f)!r}")
+    except SmokeFailure:
+        out["wall_s"] = {k: v[1] for k, v in main["runs"].items()}
+        print(json.dumps({"constrained_partial": out}, default=str), file=sys.stderr, flush=True)
+        raise
+    out["seconds"]["total"] = time.perf_counter() - t0
+    emit("constrained", **out)
+    return out["launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -3796,11 +4442,13 @@ def main() -> int:
         phase_frontend(flagship_solution)
         tr_entries = phase_tr()
         nlp_launches = phase_nlp(nlp_host, nlp_cpu.seconds)
-        timed = phase_banded_path_kernels()
+        con_launches = phase_constrained(nlp_host, nlp_cpu.seconds)
+        timed = phase_banded_path_kernels(nlp_host)
         line["kernels"] += banded_kernel_entries(banded_launches, timed) + tr_entries
         for entry in line["kernels"]:
             if entry["name"] in nlp_launches:
                 entry["launches_nlp"] = nlp_launches[entry["name"]]
+            entry["launches_constrained"] = con_launches[entry["name"]]
         del timed
         print(json.dumps(line), flush=True)
     except SmokeFailure as exc:

@@ -20,11 +20,14 @@ from .linalg.bsc import BSCPlan
 from .linalg.supernodal_flat import FlatGroup, FlatPlan
 from .nlp._loop import TRUState
 from .nlp.check import FDHPattern
+from .nlp.filtrane import Filter
+from .nlp.lancelot import LancelotInfo
 from .pre.presolve import PresolveTransform
 from .pre.scale import Scaling
 from .qp.dqp import DQPInfo
 from .qp.ipm import IPMState, device_state
 from .qp.ipm_banded import BandedQP, make_banded_qp
+from .qp.qcqp import QCQP
 from .qn.lms import LMSData
 from .qn.sha import SHAPattern
 from .tr.trs import TRSInfo
@@ -288,3 +291,39 @@ def bsc_plan_from_numpy(fields) -> BSCPlan:
     arr = lambda k: np.asarray(get(k), np.int64)  # noqa: E731
     return BSCPlan(int(get("m")), int(get("n")), coo_pattern_from_numpy(get("s_pat")),
                    arr("p1"), arr("p2"), arr("dcol"), arr("sout"))
+
+
+def qcqp_from_numpy(fields, dtype=None, device=None) -> QCQP:
+    """Build a QCQP from the JAX ``QCQP``'s fields as numpy arrays (a dict or
+    an object): ``g``, ``A``, ``Qc``, ``c_l``, ``c_u``, ``x_l``, ``x_u``,
+    ``H`` (None for the "zero" kind), ``f``, optionally ``x`` / ``y`` /
+    ``z``, and ``name``, ``h_kind``."""
+    get = _get(fields)
+    t = lambda k: None if get(k) is None else _tensor(get(k), dtype, device)  # noqa: E731
+    return QCQP(g=t("g"), A=t("A"), Qc=t("Qc"), c_l=t("c_l"), c_u=t("c_u"), x_l=t("x_l"),
+                x_u=t("x_u"), H=t("H"), f=float(get("f")), x=t("x"), y=t("y"), z=t("z"),
+                name=str(get("name") or ""), h_kind=str(get("h_kind") or "dense"))
+
+
+def filter_from_numpy(fields, dtype=None, device=None) -> Filter:
+    """Build a FILTER state from the JAX ``Filter``'s fields: ``theta_inf``,
+    ``theta_2`` (numpy), ``count`` and ``cap``."""
+    get = _get(fields)
+    device = resolve_device(device)
+    return Filter(theta_inf=_tensor(get("theta_inf"), dtype, device),
+                  theta_2=_tensor(get("theta_2"), dtype, device),
+                  count=torch.full((), int(get("count")), dtype=torch.int32, device=device),
+                  cap=int(get("cap")))
+
+
+def lancelot_info_from_numpy(fields, dtype=None, device=None) -> LancelotInfo:
+    """Build a LancelotInfo from the JAX ``LancelotInfo``'s fields: ``x``,
+    ``y``, ``f``, ``infeas``, ``norm_pg``, ``mu`` as tensors of ``dtype``,
+    ``iter`` / ``status`` int32, ``converged`` bool."""
+    get = _get(fields)
+    device = resolve_device(device)
+    t = lambda k, dt: torch.as_tensor(np.array(get(k)), device=device).to(dt)  # noqa: E731
+    ft = resolve_dtype(dtype)
+    return LancelotInfo(x=t("x", ft), y=t("y", ft), f=t("f", ft), infeas=t("infeas", ft),
+                        norm_pg=t("norm_pg", ft), mu=t("mu", ft), iter=t("iter", torch.int32),
+                        converged=t("converged", torch.bool), status=t("status", torch.int32))

@@ -1,2 +1,3 @@
-"""File interfaces of the port (QPLIB reader for the sparse path)."""
-from . import qplib  # noqa: F401
+"""File interfaces of the port: the QPLIB reader and writer (``qplib``) and
+the SIF decoder (``sif``)."""
+from . import qplib, sif  # noqa: F401

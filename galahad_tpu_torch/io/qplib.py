@@ -4,9 +4,10 @@ Counterpart of galahad_tpu/io/qplib.py (GALAHAD's RPD package, reference
 src/rpd/rpd.f90: RPD_read_problem_data :352, RPD_write_qp_problem_data
 :1254): the parser (``loads`` / ``load``), the raw ``QPLIBProblem``
 record, its conversion to the port's dense ``QP`` (``to_qp`` /
-``read_qp``) and ``SparseQP`` (``to_sparse_qp`` / ``read_sparse_qp``),
-and the writer (``dumps`` / ``dump`` / ``from_qp`` / ``write_qp``).  The
-QCQP reader (``read_qcqp``) is not ported yet.
+``read_qp``) and ``SparseQP`` (``to_sparse_qp`` / ``read_sparse_qp``), to
+the ``QCQP`` of qp/qcqp.py (``to_qcqp`` / ``read_qcqp``) where the file has
+quadratic constraints, and the writer (``dumps`` / ``dump`` / ``from_qp`` /
+``write_qp``).
 
 Grammar: comments start with '!'; each record is one line (extra trailing
 commentary words ignored); sparse sections are "count; count lines of
@@ -21,6 +22,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from ..core.problem import INFINITY
 
@@ -87,8 +89,7 @@ class QPLIBProblem:
 
         if self.H_c:
             raise ValueError(
-                "problem has quadratic constraints; the QCQP path is not "
-                "ported yet")
+                "problem has quadratic constraints; use to_qcqp()")
         sgn = 1.0 if self.minimize else -1.0
         quad = self.ptype[0].upper() in ("Q", "D", "C")
         return make_qp(
@@ -99,6 +100,38 @@ class QPLIBProblem:
             x=self.x0, y=self.y0, z=self.z0, name=self.name,
             dtype=dtype, device=device)
 
+    def to_qcqp(self, dtype=None, device=None):
+        """Convert to a solver-ready ``QCQP`` on ``device`` (``None``: the
+        CUDA device), the quadratic constraints kept (the RPD QCQP classes,
+        reference src/rpd/rpd.f90:20-45): the constraint Hessians' H_c
+        triples (con, i, j, val; lower triangle) assemble into the stacked
+        symmetric (m, n, n) ``Qc``, an off-diagonal term mirrored."""
+        from .._device import resolve_device
+        from ..core.problem import canonical_dtype
+        from ..qp.qcqp import QCQP
+
+        dt = canonical_dtype(dtype)
+        device = resolve_device(device)
+        sgn = 1.0 if self.minimize else -1.0
+        quad = self.ptype[0].upper() in ("Q", "D", "C")
+        Qc = np.zeros((self.m, self.n, self.n))
+        if self.H_c:
+            con, i, j, v = (np.array(a) for a in zip(*self.H_c))
+            lo, hi = np.maximum(i, j), np.minimum(i, j)
+            np.add.at(Qc, (con, lo, hi), v)
+            off = i != j
+            np.add.at(Qc, (con[off], hi[off], lo[off]), v[off])
+
+        def dev(a):
+            return torch.as_tensor(np.asarray(a, np.float64), device=device).to(dt)
+
+        return QCQP(
+            H=dev(sgn * self.H) if quad else None, g=dev(sgn * self.g), f=sgn * float(self.f),
+            A=dev(self.A), Qc=dev(Qc), c_l=dev(self._clip_inf(self.c_l)),
+            c_u=dev(self._clip_inf(self.c_u)), x_l=dev(self._clip_inf(self.x_l)),
+            x_u=dev(self._clip_inf(self.x_u)), x=dev(self.x0), y=dev(self.y0), z=dev(self.z0),
+            name=self.name, h_kind="dense" if quad else "zero")
+
     def to_sparse_qp(self, dtype=None, device=None):
         """Convert to a SparseQP (COO end-to-end, no densification) on
         ``device`` (``None``: the CUDA device)."""
@@ -106,8 +139,7 @@ class QPLIBProblem:
 
         if self.H_c:
             raise ValueError(
-                "problem has quadratic constraints; the QCQP path is not "
-                "ported yet")
+                "problem has quadratic constraints; use to_qcqp()")
 
         sgn = 1.0 if self.minimize else -1.0
         quad = self.ptype[0].upper() in ("Q", "D", "C")
@@ -276,6 +308,11 @@ def read_qp(path: str, dtype=None, device=None):
 def read_sparse_qp(path: str, dtype=None, device=None):
     """Read a QPLIB file straight into a SparseQP (never densifies)."""
     return load(path).to_sparse_qp(dtype, device)
+
+
+def read_qcqp(path: str, dtype=None, device=None):
+    """Read a QPLIB file with quadratic constraints into a ``QCQP``."""
+    return load(path).to_qcqp(dtype, device)
 
 
 # ---------------------------------------------------------------------------

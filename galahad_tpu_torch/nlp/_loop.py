@@ -7,10 +7,12 @@ batch of starts).  Here the loop is a Python loop whose decisions stay 0-d
 the problem's ``active`` flag (not converged and under ``maxit``), so an
 iteration after a problem's convergence changes none of its fields and
 ``iter`` counts what the ``while_loop`` counts.  The host reads the flags
-once before the first iteration and once every ``READ_EVERY`` iterations
-(at most ceil(iter / 8) + 1 reads per solve); nothing else in the loop
-reads the host, except the Krylov solvers, which read ``done`` once per
-Lanczos step (counted apart, in ``krylov_reads``).
+before every pass, so a batch runs as many passes as its slowest problem's
+iterations and none after it (max iter + 1 reads per solve, ``maxit`` where
+the cap is reached): every pass synchronises anyway (``eigh`` in the exact
+subproblems, GLTR's / GLRT's read of ``done`` once per Lanczos step, counted
+apart in ``krylov_reads``), so a rarer read would save no sync and only add
+masked passes.
 """
 from __future__ import annotations
 
@@ -22,8 +24,6 @@ from torch.func import grad, grad_and_value, hessian, vjp, vmap
 
 from ..core.status import Status
 from ..tr.trs import as_tensors
-
-READ_EVERY = 8           # outer iterations between two host reads of the flags
 
 
 @dataclasses.dataclass
@@ -75,17 +75,16 @@ def masked(active, new: TRUState, old: TRUState) -> TRUState:
 
 def outer_loop(carry, step: Callable, active_of: Callable, maxit: int):
     """Run ``step(carry, active) -> carry`` (masked by ``active``, the
-    batch-shaped flag ``active_of(carry)``) while any problem is active,
-    reading the flags on the host before the first iteration and then every
-    ``READ_EVERY`` iterations.  Returns (carry, host reads)."""
-    reads = k = 0
-    while k < maxit:
+    batch-shaped flag ``active_of(carry)``) while any problem is active and
+    fewer than ``maxit`` passes ran, reading the flags on the host before
+    each pass.  Returns (carry, host reads)."""
+    reads = 0
+    for _ in range(maxit):
+        active = active_of(carry)
         reads += 1
-        if not bool(active_of(carry).any()):
+        if not bool(active.any()):
             break
-        for _ in range(min(READ_EVERY, maxit - k)):
-            carry = step(carry, active_of(carry))
-            k += 1
+        carry = step(carry, active)
     return carry, reads
 
 

@@ -204,7 +204,9 @@ def trb_solve(objective: Callable, x0, x_l, x_u, ctl: TRBControl = TRBControl(),
         t0 = st.radius / torch.clamp(torch.linalg.vector_norm(st.g, dim=-1), min=1e-30)
         T = t0[:, None] * betas                                          # (B, K)
         xs = st.x[:, None, :]
-        ss = _project(xs - T[..., None] * st.g[:, None, :], XL[:, None], XU[:, None]) - xs
+        # x - t g as one fused multiply-add, as XLA contracts it
+        ss = _project(torch.addcmul(xs, T[..., None], st.g[:, None, :], value=-1.0),
+                      XL[:, None], XU[:, None]) - xs
         ok = torch.linalg.vector_norm(ss, dim=-1) <= st.radius[:, None]
         ms = torch.where(ok, model_q(ss), torch.inf)
         k = torch.argmin(ms, dim=-1, keepdim=True)

@@ -1,5 +1,8 @@
 """QP solvers of the port: the interior-point method (sparse, banded and
-dense), DQP / CCQP, the named wrappers and the ``qp_solve`` front end."""
+dense), DQP / CCQP, the named wrappers, the ``qp_solve`` front end, BQP /
+BLLS and EQP, and the QCQP."""
+from .bqp import BLLSControl, BQPControl, BQPInfo, blls_solve, bqp_solve  # noqa: F401
+from .eqp import EQPControl, EQPInfo, eqp_solve  # noqa: F401
 from .ipm import (  # noqa: F401
     IPMControl,
     IPMInform,
@@ -24,3 +27,4 @@ from .frontend import (  # noqa: F401
     l1qp_solve, lsqp_solve, qp_solve, wcp_solve,
 )
 from .wrappers import bqpb_solve, dlp_solve, lpb_solve  # noqa: F401
+from .qcqp import QCQP, QCQPControl, QCQPInfo, qcqp_solve  # noqa: F401

@@ -482,3 +482,39 @@ def f_off(ref, got, rel: float) -> float:
     got = got.detach().cpu().numpy() if hasattr(got, "detach") else np.asarray(got, np.float64)
     allowance = rel * np.abs(ref) + F_ROUNDING * np.sqrt(np.abs(ref))
     return float(np.max(np.abs(got - ref) / np.maximum(allowance, np.finfo(np.float64).tiny)))
+
+
+def loop_reads(iter_max: int, maxit: int) -> int:
+    """The host reads of the NLP outer loop (``nlp/_loop.py::outer_loop``),
+    which reads the flags before every pass: one per pass of the slowest
+    problem plus the read that finds none active, or ``maxit`` where the cap
+    ends the loop."""
+    return maxit if iter_max >= maxit else iter_max + 1
+
+
+def rel(ref, got) -> float:
+    """max |ref - got| / max(1, max |ref|): ``ref`` array-like (the JAX
+    package's value), ``got`` a tensor or array-like of the same shape."""
+    import torch
+
+    ref = np.asarray(ref, np.float64)
+    got = got.detach().cpu().numpy() if torch.is_tensor(got) else np.asarray(got)
+    assert ref.shape == got.shape, (ref.shape, got.shape)
+    return float(np.abs(ref - got).max() / max(1.0, np.abs(ref).max())) if ref.size else 0.0
+
+
+def x_minus_tg_exact(x, t, g):
+    """x - t g of float64 arrays, rounded once (exact rational arithmetic):
+    the fused multiply-add that XLA contracts x - t * g into."""
+    from fractions import Fraction
+
+    return np.array([float(Fraction(a) - Fraction(b) * Fraction(c))
+                     for a, b, c in zip(np.ravel(x), np.ravel(t), np.ravel(g))]).reshape(
+                         np.shape(x))
+
+
+def arc_inputs(size=4096, seed=0):
+    """(x, t, g) float64 triples of the scale of a Cauchy arc's."""
+    r = np.random.default_rng(seed)
+    return r.uniform(-5.0, 5.0, size), r.uniform(0.0, 1.0, size), 10.0 * r.normal(size=size)
+

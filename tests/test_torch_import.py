@@ -48,6 +48,18 @@ import galahad_tpu_torch.nlp.check
 import galahad_tpu_torch.nlp.nls
 import galahad_tpu_torch.nlp.tru
 import galahad_tpu_torch.qn
+import galahad_tpu_torch.nlp.lancelot
+import galahad_tpu_torch.nlp.lancelot_simple
+import galahad_tpu_torch.nlp.filtrane
+import galahad_tpu_torch.go
+import galahad_tpu_torch.go.bgo
+import galahad_tpu_torch.go.dgo
+import galahad_tpu_torch.go.lhs
+import galahad_tpu_torch.go.ugo
+import galahad_tpu_torch.io.sif
+import galahad_tpu_torch.qp.qcqp
+import galahad_tpu_torch.qp.bqp
+import galahad_tpu_torch.qp.eqp
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
@@ -266,3 +278,48 @@ def test_tr_kernel_wrappers_do_not_fall_back():
     assert tridiag_kernels.tridiag_counts() == dict(factor=0, solve=0, factor_plain=0,
                                                     solve_plain=0)
     assert secular_kernels.secular_counts() == dict(trs=0, rqs=0, trs_plain=0, rqs_plain=0)
+
+
+@pytest.mark.parametrize("entry", ["lancelot_solve", "lancelot_simple", "filtrane_solve",
+                                   "bgo_solve", "dgo_solve", "ugo_solve", "lhs_sample",
+                                   "lhs_sample_box", "filter_init", "read_qcqp", "read_nlp", "bqp_solve", "blls_solve",
+                                   "eqp_solve"])
+def test_constrained_entry_points_default_to_the_card(entry):
+    """LANCELOT, FILTRANE, the global solvers, the QCQP and SIF readers and
+    BQP / BLLS / EQP put numpy inputs on the CUDA device unless asked for the
+    CPU, and raise where there is none."""
+    import numpy as np
+    import torch
+
+    from galahad_tpu_torch import go, nlp, qp
+    from galahad_tpu_torch.io import qplib, sif
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device exists")
+    f = lambda x: (x * x).sum()                                     # noqa: E731
+    c = lambda x: x[:1]                                             # noqa: E731
+    x0, lo, hi = np.ones(2), -np.ones(2), np.ones(2)
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from test_qcqp import QCQP_FILE
+
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    import sif_problems
+
+    calls = {
+        "lancelot_solve": lambda: nlp.lancelot_solve(f, c, x0, np.zeros(1), np.zeros(1)),
+        "lancelot_simple": lambda: nlp.lancelot_simple(f, x0),
+        "filtrane_solve": lambda: nlp.filtrane_solve(c, x0, np.zeros(1), np.zeros(1)),
+        "bgo_solve": lambda: go.bgo_solve(f, lo, hi),
+        "dgo_solve": lambda: go.dgo_solve(f, lo, hi),
+        "ugo_solve": lambda: go.ugo_solve(lambda x: x * x, -1.0, 1.0),
+        "lhs_sample": lambda: go.lhs_sample(0, 4, 2),
+        "lhs_sample_box": lambda: go.lhs_sample_box(0, 4, lo, hi),
+        "filter_init": lambda: nlp.filter_init(4),
+        "read_qcqp": lambda: qplib.loads(QCQP_FILE).to_qcqp(),
+        "read_nlp": lambda: sif.loads(sif_problems.CAMEL6).to_nlp(),
+        "bqp_solve": lambda: qp.bqp_solve(np.eye(2), x0, lo, hi),
+        "blls_solve": lambda: qp.blls_solve(np.eye(2), x0, lo, hi),
+        "eqp_solve": lambda: qp.eqp_solve(np.eye(2), x0, np.ones((1, 2)), np.ones(1)),
+    }
+    with pytest.raises(RuntimeError, match="CUDA"):
+        calls[entry]()

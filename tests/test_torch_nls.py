@@ -14,7 +14,6 @@ the oracle's relative, and x's norm and 32 entries within 1e-10.  Found: x
 agrees to 2e-16 and f to 1e-21 or better on every case, and the counts are
 equal on every case."""
 import json
-import math
 import os
 import sys
 
@@ -30,7 +29,7 @@ from galahad_tpu.nlp.nls import nls_solve_sparse as j_sparse
 import galahad_tpu_torch.nlp as T
 from galahad_tpu_torch.core.sparse import COOPattern
 
-from _torch_port_helpers import REPO, f_off, one_torch_thread  # noqa: F401
+from _torch_port_helpers import REPO, f_off, loop_reads, one_torch_thread  # noqa: F401
 
 sys.path.insert(0, os.path.join(REPO, "tools"))
 from nlp_problems import grid_residual_arrays  # noqa: E402  (tools/nlp_problems.py)
@@ -78,7 +77,8 @@ def hold(sj, st, what):
     assert rel(sj.x, st.x) <= TOL, what
     assert rel(sj.f, st.f) <= TOL and f_off(sj.f, st.f, TOL) <= 1.0, what
     assert rel(sj.g, st.g) <= 1e-8, what
-    assert st.host_reads <= math.ceil(int(st.iter) / 8) + 1, (what, st.host_reads)
+    maxit = what.get("maxit", T.NLSControl().maxit)
+    assert st.host_reads == loop_reads(int(st.iter), maxit), (what, st.host_reads)
 
 
 def both(make, x0, **fields):
