@@ -158,6 +158,25 @@ sync debug mode set to error) and the 1-D case, UGO on test_go.py's three functi
 under the sync check); (i) CAMEL6, HART6 and ALLINIT decoded by ``read_nlp`` and solved by
 TRB, EXTROSNB decoded (seconds, aten ops per objective evaluation) and solved; (j) BQP,
 BLLS (2,048 x 1,024) and EQP (m = 256) at n = 1,024;
+then ``linalg``: the inline supernodal LDL^T, SLS, PSLS and the services on the card,
+their main path run with the factor and banded kernels' counters set to 0 before and read
+after (rows 1a, 1b, 4a, 4b launched, plain code 0): (k) the flagship's KKT system (k = 316,
+n + m = 149,784) through ``sparse_kkt_plan(backend="inline")`` / ``sparse_kkt_factorize`` and
+an sbls-style solve with two refinement sweeps: relative residual <= 1e-10, inertia (n, m, 0),
+x within 1e-10 of the flat path's, two runs bitwise, one launch of row 1a per group of fronts
+<= 128 and of row 1b per wider group, three groups of each route held to the plain version on
+the same fronts; (l) SLS potr / sytr / eigh at n = 4,096, pbtr at k = 125,000, b = 8,
+supernodal on the flagship's H, CG on H + I: residual <= 1e-10 and x within 1e-10 of the
+port's CPU run; (m) PSLS, every preconditioner, on the 64 x 64 grid Laplacian (n = 4,096:
+finite, v'Pv > 0, symmetric) and on the 32 x 32 one against the CPU run; (o) SCU at n = 4,096
+with 64 appended rows, FDC / ULS / MIQR on a 1,024 x 2,048 matrix with 24 planted dependent
+rows, SBLS's null-space mode, projected PCG and Fredholm alternative at n = 1,024, m = 512,
+each against the CPU run (the CPU runs join the ``nlp`` phase's pool);
+then ``qp_family``: ``qp_solve`` with qpa, qpb and qpc on the 12 QP sweep fixtures and with
+``crossover=True`` on all 20, on the card, and lpa on the 8 LP fixtures (in a process of its
+own that uses the card, started before the build: the simplex is minutes of host work),
+each against tests/qp_family_oracle.json (the JAX package's status, iterations, objective
+within 1e-8 relative; a QPB run whose endgame parts by rounding by its stopping tolerance);
 then ``banded_path_kernels`` (both banded kernels on every block set the
 banded problems factor at their starting point, against the plain versions,
 at k = 125,000 those the CPU pool ran beside the build on the same blocks;
@@ -168,8 +187,8 @@ kernels, on the Schur-complement blocks of the banded LP at n = 20,000, with
 the library's dense Cholesky and triangular solves of the same matrix as
 their yardstick, and their critical-path steps, and the four kernels of the
 ``tr`` phase; rows 6a, 6b and 1a-3 carry ``launches_nlp``, their launches on the ``nlp``
-phase's path, and every entry ``launches_constrained``, its launches on the
-``constrained`` phase's)
+phase's path, and every entry ``launches_constrained`` and ``launches_linalg``, its launches
+on the ``constrained`` and ``linalg`` phases' paths)
 and, as its last line, ``{"ok": true, "device": {...}}``.  Any failed
 phase ends the run with a non-zero exit code and no such line.  Without
 a CUDA device it exits non-zero at once; nothing here runs the port on
@@ -3680,7 +3699,7 @@ def pool_calls() -> dict:
     """Every call that the CPU pool runs, by name: the ``nlp`` and
     ``constrained`` phases' CPU runs, and the plain banded factor and solve of
     BANDED_HOST_PLAIN's starting-point block sets."""
-    return {**nlp_cpu_calls(), **con_cpu_calls(),
+    return {**nlp_cpu_calls(), **con_cpu_calls(), **lin_cpu_calls(),
             **{"banded_" + k: functools.partial(banded_cpu_reference, k)
                for k in BANDED_HOST_PLAIN}}
 
@@ -3715,7 +3734,7 @@ class NlpCpuReferences:
         self.pool = concurrent.futures.ProcessPoolExecutor(
             NLP_CPU_WORKERS, mp_context=multiprocessing.get_context("spawn"),
             initializer=nlp_worker_init)
-        longest = CON_LONGEST + NLP_CPU_LONGEST
+        longest = CON_LONGEST + LIN_LONGEST + NLP_CPU_LONGEST
         names = sorted(pool_calls(),
                        key=lambda k: (longest.index(k) if k in longest else len(longest), k))
         self.futures = {name: self.pool.submit(nlp_cpu_reference, name) for name in names}
@@ -4411,6 +4430,663 @@ def phase_constrained(host, host_seconds):
     return out["launches"]
 
 
+# ---------------------------------------------------------------------------
+# linalg: the inline LDL^T at full size, SLS, PSLS and the services
+# ---------------------------------------------------------------------------
+
+LIN_DEVICE = "cuda"
+LIN_DENSE_N = 4096                # (l) potr / sytr / eigh
+LIN_PSLS_K = 64                   # (m) the 64 x 64 grid Laplacian, n = 4,096
+LIN_PBTR = (125_000, 8)           # (l) pbtr: k, b (the banded LP's shape, rows 4a/4b)
+LIN_PSLS_CPU_K = 32               # (m) the grid side also held to the CPU run (n = 1,024)
+LIN_SCU = (4096, 64)              # (o) SCU: n, appended rows
+LIN_SERVICES = (1024, 2048, 24)   # (o) ULS / MIQR / FDC: m, n, planted dependent rows
+LIN_SBLS = (1024, 512)            # (o) SBLS null-space / iterative / Fredholm: n, m
+LIN_TOL = 1e-10                   # residuals, and x against the port's CPU run (relative)
+LIN_REFINE = 2                    # (k) refinement sweeps of the sbls-style solve
+LIN_PCG_RES = 1e-5                # (o) SBLS's projected CG (tests/test_linalg2.py: 1e-6 on x)
+PSLS_KINDS = ("none", "diagonal", "band", "reordered_band", "full", "full_se", "full_gmps",
+              "lin_more", "mi28", "munksgaard")
+LIN_KERNELS = ("partial_ldlt", "ldlt_wide", "banded_factor", "banded_solve")
+LIN_LONGEST = ("lin_sls_eigh", "lin_sls_pbtr", "lin_sls_supernodal", "lin_services",
+               "lin_sbls")
+
+
+def lin_counts() -> dict:
+    b = banded_kernels.banded_counts()
+    return dict(partial_ldlt=ldlt_kernels.launch_count(),
+                ldlt_wide=ldlt_kernels.wide_launch_count(),
+                ldlt_wide_plain=ldlt_kernels.wide_plain_count(),
+                banded_factor=b["factor"], banded_solve=b["solve"],
+                banded_factor_plain=b["factor_plain"], banded_solve_plain=b["solve_plain"])
+
+
+def lin_rel(got, ref) -> float:
+    got, ref = got.detach().double().cpu(), ref.detach().double().cpu()
+    return float((got - ref).abs().max()) / max(1.0, float(ref.abs().max()))
+
+
+@functools.lru_cache(maxsize=None)
+def lin_dense(n, kind, device):
+    """(A, b): SPD (``spd``: B B'/n + I) or symmetric indefinite with its
+    eigenvalues at least 2.5 from 0 (``indef``: a Wigner matrix of radius
+    ~1.4 plus 4 diag(+-1)), seeded."""
+    r = np.random.default_rng(7 if kind == "spd" else 8)
+    B = r.normal(size=(n, n))
+    if kind == "spd":
+        A = B @ B.T / n + np.eye(n)
+    else:
+        A = (B + B.T) / (2.0 * np.sqrt(n)) + np.diag(4.0 * np.sign(r.normal(size=n)))
+    return (torch.as_tensor(A, device=device), torch.as_tensor(r.normal(size=n), device=device))
+
+
+def lin_pbtr_blocks(device):
+    k, b = LIN_PBTR
+    r = np.random.default_rng(9)
+    G = r.uniform(-1.0, 1.0, (k, b, b))
+    D = G @ G.transpose(0, 2, 1) + 3.0 * b * np.eye(b)
+    L = r.uniform(-1.0, 1.0, (k - 1, b, b))
+    return (torch.as_tensor(D, device=device), torch.as_tensor(L, device=device),
+            torch.as_tensor(r.normal(size=(k, b)), device=device))
+
+
+@functools.lru_cache(maxsize=None)
+def lin_h(device):
+    """The flagship's QP (k = 316) for its H (n = 99,856) and a right-hand
+    side."""
+    qp = flagship_qp(K_FLAGSHIP, device)
+    return qp, torch.as_tensor(np.random.default_rng(10).normal(size=qp.n), device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def lin_laplacian(k, device):
+    n = k * k
+    idx = np.arange(n).reshape(k, k)
+    A = 4.0 * np.eye(n)
+    for a, b in ((idx[:, 1:], idx[:, :-1]), (idx[1:, :], idx[:-1, :])):
+        A[a.ravel(), b.ravel()] = A[b.ravel(), a.ravel()] = -1.0
+    r = np.random.default_rng(11)
+    return (torch.as_tensor(A, device=device), torch.as_tensor(r.normal(size=n), device=device),
+            torch.as_tensor(r.normal(size=n), device=device))
+
+
+def lin_sls_run(kind, device):
+    """One SLS backend of (l): (x, the right-hand side, what the residual
+    needs)."""
+    from galahad_tpu_torch.linalg.sls import SLSControl, sls_factorize
+
+    if kind in ("potr", "sytr", "eigh"):
+        A, b = lin_dense(LIN_DENSE_N, "spd" if kind == "potr" else "indef", device)
+        f = sls_factorize(A, SLSControl(solver=kind))
+        return dict(x=f.solve(b), b=b, inertia=f.inertia.tolist())
+    if kind == "pbtr":
+        D, L, rhs = lin_pbtr_blocks(device)
+        f = sls_factorize((D, L), SLSControl(solver="pbtr"))
+        return dict(x=f.solve(rhs), b=rhs, ok=bool(f.ok))
+    qp, b = lin_h(device)
+    if kind == "supernodal":
+        from galahad_tpu_torch.linalg.supernodal import supernodal_analyse
+
+        sym = supernodal_analyse(qp.h_pat.rows, qp.h_pat.cols, qp.n)
+        f = sls_factorize((sym, qp.h_vals), SLSControl(solver="supernodal"))
+        return dict(x=f.solve(b), b=b)
+    f = sls_factorize(lambda v: qp.Hx(v) + v, SLSControl(solver="cg"), device=device)
+    return dict(x=f.solve(b), b=b, host_reads=f.host_reads)
+
+
+def lin_sls_residual(kind, out) -> float:
+    """max |A x - b| / max |b| of an (l) run, on the card."""
+    from galahad_tpu_torch.linalg.banded import block_tridiag_matvec
+
+    x, b = out["x"], out["b"]
+    if kind in ("potr", "sytr", "eigh"):
+        A, _ = lin_dense(LIN_DENSE_N, "spd" if kind == "potr" else "indef", x.device.type)
+        r = A @ x - b
+    elif kind == "pbtr":
+        D, L, _ = lin_pbtr_blocks(x.device.type)
+        r = block_tridiag_matvec(D, L, x) - b
+    else:
+        qp, _ = lin_h(x.device.type)
+        r = qp.Hx(x) + (x if kind == "cg" else 0.0) - b
+    return float(r.abs().max()) / float(b.abs().max())
+
+
+def lin_psls_apply(k, kind, device):
+    from galahad_tpu_torch.linalg.psls import PSLSControl, psls_build
+
+    H, u, v = lin_laplacian(k, device)
+    apply = psls_build(H, PSLSControl(preconditioner=kind))
+    return dict(w=apply(v), uPv=float(u @ apply(v)), vPu=float(v @ apply(u)),
+                vPv=float(v @ apply(v)))
+
+
+def lin_scu_run(device):
+    """SCU at n = 4,096: 64 borders appended, a solve, 4 deleted, a refresh,
+    a solve; (x1, x2) of both solves."""
+    from galahad_tpu_torch.linalg.cholesky import chol_factor, chol_solve
+    from galahad_tpu_torch.linalg.scu import (scu_append, scu_delete, scu_refresh, scu_setup,
+                                              scu_solve)
+
+    n, cap = LIN_SCU
+    A, _ = lin_dense(n, "spd", device)
+    L, _ = chol_factor(A)
+    a_solve = lambda b: chol_solve(L, b)     # noqa: E731
+    r = np.random.default_rng(12)
+    Bc = torch.as_tensor(r.normal(size=(cap, n)), device=device)
+    Cr = torch.as_tensor(r.normal(size=(cap, n)), device=device)
+    st = scu_setup(n, cap, device=device)
+    for j in range(cap):
+        st = scu_append(st, a_solve, Bc[j], Cr[j], float(n))
+    b1 = torch.as_tensor(r.normal(size=n), device=device)
+    b2 = torch.as_tensor(r.normal(size=cap), device=device)
+    first = scu_solve(st, a_solve, b1, b2)
+    for idx in (cap // 12, cap // 4, cap * 5 // 8, 0):
+        st = scu_delete(st, a_solve, idx)
+    st = scu_refresh(st, a_solve)
+    second = scu_solve(st, a_solve, b1, b2)
+    return dict(first=first, second=second, count=int(st.count))
+
+
+def lin_services_matrix(device):
+    m, n, dep = LIN_SERVICES
+    r = np.random.default_rng(13)
+    A = r.normal(size=(m, n))
+    for i in range(m - dep, m):
+        A[i] = A[i - (m - dep)] - 0.5 * A[i - (m - dep) + 1]
+    x = r.normal(size=n)
+    return torch.as_tensor(A, device=device), torch.as_tensor(A @ x, device=device)
+
+
+def lin_services_run(device):
+    """FDC, ULS (on the independent rows' basis) and MIQR (on A') of a
+    1,024 x 2,048 matrix with 24 planted dependent rows."""
+    from galahad_tpu_torch.linalg.miqr import miqr_apply, miqr_apply_transpose, miqr_form
+    from galahad_tpu_torch.linalg.uls import uls_factorize, uls_solve
+    from galahad_tpu_torch.pre.fdc import fdc_find_dependent
+
+    m, _, dep = LIN_SERVICES
+    A, b = lin_services_matrix(device)
+    fdc = fdc_find_dependent(A, b)
+    # ULS: the rank of the leading square (the planted rows make it m - dep),
+    # and a refined solve on the independent rows' leading square
+    rank = int(uls_factorize(A[:, :m]).rank)
+    S = A[:m - dep, :m - dep]
+    f = uls_factorize(S)
+    rhs = b[:m - dep]
+    xs = uls_solve(f, rhs, S)
+    mq = miqr_form(A.T)
+    y = torch.as_tensor(np.random.default_rng(14).normal(size=m), device=device)
+    return dict(independent=fdc.independent.cpu(), n_dependent=int(fdc.n_dependent),
+                inconsistent=bool(fdc.inconsistent), uls_rank_square=rank, uls_x=xs,
+                uls_res=float((S @ xs - rhs).abs().max() / rhs.abs().max()),
+                miqr_x=miqr_apply(mq, y), miqr_y=miqr_apply_transpose(mq, y),
+                miqr_levels=len(mq.levels))
+
+
+def lin_sbls_run(device):
+    """SBLS at n = 1,024, m = 512: the null-space mode, the projected PCG
+    (diag_h preconditioner) and the Fredholm alternative (A with a zero row:
+    a consistent and an inconsistent right-hand side)."""
+    from galahad_tpu_torch.linalg.sbls import (sbls_factorize, sbls_factorize_nullspace,
+                                               sbls_fredholm_alternative, sbls_preconditioner,
+                                               sbls_solve_iterative, sbls_solve_nullspace)
+
+    n, m = LIN_SBLS
+    G, _ = lin_dense(n, "spd", device)
+    r = np.random.default_rng(15)
+    A = torch.as_tensor(r.normal(size=(m, n)) / np.sqrt(n), device=device)
+    b = torch.as_tensor(r.normal(size=n + m), device=device)
+    fn = sbls_factorize_nullspace(G, A)
+    x_ns, y_ns = sbls_solve_nullspace(fn, b[:n], b[n:])
+    Gp, is_diag = sbls_preconditioner(G, "diag_h")
+    f = sbls_factorize(Gp, A, torch.zeros(m, dtype=G.dtype, device=device), g_is_diag=is_diag,
+                       delta=1e-12)
+    x_it, y_it, k_it = sbls_solve_iterative(f, lambda v: G @ v, b[:n], b[n:], stop_rel=1e-12)
+    A0 = A.clone()
+    A0[-1] = 0.0
+    K = torch.zeros((n + m, n + m), dtype=G.dtype, device=device)
+    K[:n, :n], K[n:, :n], K[:n, n:] = G, A0, A0.T
+    b_ok = K @ b
+    ok, (x_f, y_f) = sbls_fredholm_alternative(G, A0, torch.zeros(m, dtype=G.dtype,
+                                                                  device=device), b_ok[:n], b_ok[n:])
+    b_bad = b_ok.clone()
+    b_bad[-1] += 1.0
+    bad, (v1, v2) = sbls_fredholm_alternative(G, A0, torch.zeros(m, dtype=G.dtype,
+                                                                 device=device), b_bad[:n],
+                                              b_bad[n:])
+    kkt = lambda x, y, AA: torch.cat([G @ x + AA.T @ y, AA @ x])   # noqa: E731
+    return dict(x_ns=x_ns, y_ns=y_ns, x_it=x_it, y_it=y_it, k_it=int(k_it),
+                res_ns=float((kkt(x_ns, y_ns, A) - b).abs().max() / b.abs().max()),
+                res_it=float((kkt(x_it, y_it, A) - b).abs().max() / b.abs().max()),
+                fredholm_ok=bool(ok), fredholm_bad=bool(bad), x_f=x_f, y_f=y_f,
+                res_f=float((kkt(x_f, y_f, A0) - b_ok).abs().max() / b_ok.abs().max()),
+                cert=float((kkt(v1, v2, A0)).abs().max()),
+                cert_b=float(v1 @ b_bad[:n] + v2 @ b_bad[n:]))
+
+
+def lin_cpu_calls():
+    """The (l), (m) and (o) runs again on the CPU: the CPU pool's calls."""
+    calls = {f"lin_sls_{k}": functools.partial(lin_sls_run, k, "cpu")
+             for k in ("potr", "sytr", "eigh", "pbtr", "supernodal", "cg")}
+    calls["lin_psls_1024"] = lambda: {k: lin_psls_apply(LIN_PSLS_CPU_K, k, "cpu")
+                                      for k in PSLS_KINDS}
+    calls["lin_scu"] = lambda: lin_scu_run("cpu")
+    calls["lin_services"] = lambda: lin_services_run("cpu")
+    calls["lin_sbls"] = lambda: lin_sbls_run("cpu")
+    return calls
+
+
+class KeepGroups(list):
+    """The ``capture`` list of ``supernodal_factorize`` keeping only the
+    groups named."""
+
+    def __init__(self, wanted):
+        super().__init__()
+        self.wanted = set(wanted)
+
+    def append(self, item):
+        if item[2] in self.wanted:
+            super().append(item)
+
+
+def lin_inline_checks(sym, fac, captured) -> list:
+    """(k): the kernels' output on the captured groups against their plain
+    versions on the same fronts (the contract's entries, TOL x max |plain|)."""
+    from galahad_tpu_torch.linalg.supernodal import kernel_size
+
+    rows = []
+    for route, F, l in captured:
+        plan = sym.levels[l]
+        nb, K = F.shape[0], F.shape[1]
+        ncols = torch.as_tensor(plan.ncols.astype(np.int32), device=F.device)
+        if route == "small":
+            ref = ldlt_kernels.partial_ldlt_plain(F, ncols)
+        else:
+            store = F.reshape(-1).clone()
+            lvl = ldlt_kernels.build_wide_level(
+                [(i * K * K, K, int(plan.ncols[i]), int(plan.nrows[i])) for i in range(nb)],
+                F.device)
+            ldlt_kernels.partial_ldlt_wide_plain(store, lvl)
+            ref = store.view(nb, K, K)
+        Fp = plan.Fpad
+        mask = contract_mask(ncols, Fp)
+        got = fac.levels[l][:, :Fp, :Fp]
+        err = float(torch.where(mask, got - ref[:, :Fp, :Fp], 0.0).abs().max())
+        scale = max(1.0, float(ref[:, :Fp, :Fp].abs().max()))
+        rows.append(dict(group=l, route=route, nb=nb, Fpad=Fp, kernel_size=K,
+                         err_over_tol=err / (TOL[torch.float64] * scale)))
+        check(kernel_size(Fp) == K and err <= TOL[torch.float64] * scale,
+              f"linalg (k): the {route} kernel on group {l} (Fpad {Fp}) is {err} off its plain "
+              f"version")
+    return rows
+
+
+def lin_inline(flat_x) -> dict:
+    """(k): the inline LDL^T on the flagship's KKT (D_x = C = 1, rho = delta =
+    1e-8, Jacobi-scaled as sparse_kkt_factorize does), an sbls-style solve
+    with LIN_REFINE sweeps against the unregularized K, two runs bitwise, the
+    solution against the flat path's ``flat_x``."""
+    from galahad_tpu_torch.linalg import supernodal as SN
+
+    qp = flagship_qp(K_FLAGSHIP, LIN_DEVICE)
+    n, m = qp.n, qp.m
+    D_x = torch.ones(n, dtype=torch.float64, device=LIN_DEVICE)
+    C_diag = torch.ones(m, dtype=torch.float64, device=LIN_DEVICE)
+    b = lin_kkt_rhs(n + m)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    plan = sparse_kkt_plan(qp.h_pat, qp.a_pat, n, backend="inline")
+    analyse_s = time.perf_counter() - t0
+    sym = plan.sym
+    routes = [SN.kernel_size(p.Fpad) > ldlt_kernels.MAX_KERNEL_FRONT for p in sym.levels]
+    small = [l for l, w in enumerate(routes) if not w]
+    wide = [l for l, w in enumerate(routes) if w]
+    pick = lambda ls: sorted({ls[0], ls[len(ls) // 2], ls[-1]} if ls else set())  # noqa: E731
+    _, upload_s = synced_s(lambda: SN._device_plan(sym, qp.g.device))
+    c0 = lin_counts()
+    captured = KeepGroups(pick(small) + pick(wide))
+
+    def factorize(capture=None):
+        return sparse_kkt_factorize(plan, qp.h_vals, qp.a_vals, D_x, C_diag, 1e-8, 1e-8) \
+            if capture is None else _inline_factorize_captured(plan, qp, D_x, C_diag, capture)
+
+    fac1, fac1_s = synced_s(lambda: factorize(captured))
+    c1 = lin_counts()
+    per_factorization = {k: c1[k] - c0[k] for k in c1}
+
+    def solve(fac):
+        x = plan.solve(fac, b)
+        for _ in range(LIN_REFINE):
+            x = x + plan.solve(fac, b - kkt_matvec(qp, D_x, C_diag, x))
+        return x
+
+    x1, solve_s = synced_s(lambda: solve(fac1))
+    fac2, fac2_s = synced_s(factorize)
+    x2 = solve(fac2)
+    bitwise = (all(same_bits(a, c) for a, c in zip(fac1[0].levels, fac2[0].levels))
+               and same_bits(x1, x2))
+    res = float((kkt_matvec(qp, D_x, C_diag, x1) - b).abs().max()) / float(b.abs().max())
+    inertia = fac1[0].inertia.tolist()
+    out = dict(n=n, m=m, groups=len(sym.levels), small_groups=len(small), wide_groups=len(wide),
+               fpad_max=max(p.Fpad for p in sym.levels),
+               store_gib=sum(f.numel() for f in fac1[0].levels) * 8 / 2 ** 30,
+               analyse_s=analyse_s, plan_upload_s=upload_s, factorize_s=[fac1_s, fac2_s],
+               solve_s=solve_s, refine=LIN_REFINE, rel_residual=res, inertia=inertia,
+               x_rel_flat=lin_rel(x1, flat_x), bitwise=bitwise,
+               launches_per_factorization=per_factorization,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    check(res <= LIN_TOL, f"linalg (k): relative residual {res}")
+    check(inertia == [n, m, 0], f"linalg (k): inertia {inertia}, not ({n}, {m}, 0)")
+    check(out["x_rel_flat"] <= LIN_TOL, f"linalg (k): x {out['x_rel_flat']} off the flat path's")
+    check(bitwise, "linalg (k): two factorizations or solves differ")
+    check(per_factorization["partial_ldlt"] == len(small)
+          and per_factorization["ldlt_wide"] == len(wide)
+          and per_factorization["ldlt_wide_plain"] == 0,
+          f"linalg (k): launches {per_factorization} for {len(small)} small and {len(wide)} "
+          "wide groups")
+    # the kernels against their plain versions run after the path's counts are read
+    out["kernel_checks"] = functools.partial(lin_inline_checks, sym, fac1[0], captured)
+    return out
+
+
+def lin_kkt_rhs(N):
+    return torch.as_tensor(np.random.default_rng(16).normal(size=N), device=LIN_DEVICE)
+
+
+def _inline_factorize_captured(plan, qp, D_x, C_diag, capture):
+    """sparse_kkt_factorize's scaling, then supernodal_factorize with a
+    capture list (the same call on the same values)."""
+    from galahad_tpu_torch.linalg import sbls
+    from galahad_tpu_torch.linalg.supernodal import supernodal_factorize
+
+    real = sbls.supernodal_factorize
+    sbls.supernodal_factorize = lambda sym, vals: supernodal_factorize(sym, vals,
+                                                                       capture=capture)
+    try:
+        return sparse_kkt_factorize(plan, qp.h_vals, qp.a_vals, D_x, C_diag, 1e-8, 1e-8)
+    finally:
+        sbls.supernodal_factorize = real
+
+
+def lin_flat_reference(qp, plan):
+    """The flat path's solution of (k)'s system (same D_x, C, rho, delta,
+    right-hand side and refinement), on the host: (k) holds the inline
+    path to it."""
+    n, m = qp.n, qp.m
+    D_x = torch.ones(n, dtype=torch.float64, device=LIN_DEVICE)
+    C_diag = torch.ones(m, dtype=torch.float64, device=LIN_DEVICE)
+    b = lin_kkt_rhs(n + m)
+    fac = sparse_kkt_factorize(plan, qp.h_vals, qp.a_vals, D_x, C_diag, 1e-8, 1e-8)
+    x = plan.solve(fac, b)
+    for _ in range(LIN_REFINE):
+        x = x + plan.solve(fac, b - kkt_matvec(qp, D_x, C_diag, x))
+    return x.cpu()
+
+
+def lin_main_path(flat_x) -> dict:
+    """The ``linalg`` phase's main path on the card, with the factor and
+    banded kernels' counters set to 0 before and read after."""
+    ldlt_kernels.reset_launch_count()
+    banded_kernels.reset_banded_counts()
+    p0 = ldlt_kernels.wide_plain_count()
+    out = dict(runs={}, seconds={})
+    out["inline"] = lin_inline(flat_x)
+    for kind in ("potr", "sytr", "eigh", "pbtr", "supernodal", "cg"):
+        out["runs"][kind], out["seconds"][kind] = synced_s(lambda: lin_sls_run(kind, LIN_DEVICE))
+    out["psls"] = {}
+    for k in (LIN_PSLS_K, LIN_PSLS_CPU_K):
+        for kind in PSLS_KINDS:
+            out["psls"][(k, kind)], out["seconds"][f"psls_{k}_{kind}"] = synced_s(
+                lambda: lin_psls_apply(k, kind, LIN_DEVICE))
+    out["scu"], out["seconds"]["scu"] = synced_s(lambda: lin_scu_run(LIN_DEVICE))
+    out["services"], out["seconds"]["services"] = synced_s(lambda: lin_services_run(LIN_DEVICE))
+    out["sbls"], out["seconds"]["sbls"] = synced_s(lambda: lin_sbls_run(LIN_DEVICE))
+    counts = lin_counts()
+    counts["ldlt_wide_plain"] -= p0
+    out["counts"] = counts
+    out["inline"]["kernel_checks"] = out["inline"]["kernel_checks"]()
+    return out
+
+
+def lin_rows(main, host) -> dict:
+    """(l), (m), (o): each card run by its residual and against its CPU run."""
+    rows = dict(sls={}, psls={})
+    for kind, run in main["runs"].items():
+        ref, ref_s = host[f"lin_sls_{kind}"]
+        res = lin_sls_residual(kind, run)
+        row = dict(rel_residual=res, x_rel_cpu=lin_rel(run["x"], ref["x"]),
+                   seconds=main["seconds"][kind], cpu_s=ref_s)
+        for k in ("inertia", "host_reads", "ok"):
+            if k in run:
+                row[k] = run[k]
+        rows["sls"][kind] = row
+        check(res <= LIN_TOL and row["x_rel_cpu"] <= LIN_TOL,
+              f"linalg (l), sls {kind}: residual {res}, x {row['x_rel_cpu']} off the CPU run")
+        if "inertia" in run:
+            check(run["inertia"] == ref["inertia"], f"linalg (l), sls {kind}: inertia "
+                  f"{run['inertia']} against the CPU run's {ref['inertia']}")
+    check(rows["sls"]["potr"]["inertia"] == [LIN_DENSE_N, 0, 0], "linalg (l): potr's inertia")
+    cpu_psls, _ = host["lin_psls_1024"]
+    for (k, kind), run in main["psls"].items():
+        w = run["w"]
+        sym_err = abs(run["uPv"] - run["vPu"]) / max(abs(run["uPv"]), 1e-300)
+        row = dict(positive=run["vPv"] > 0, symmetry=sym_err,
+                   seconds=main["seconds"][f"psls_{k}_{kind}"])
+        check(bool(torch.isfinite(w).all()) and run["vPv"] > 0 and sym_err <= 1e-8,
+              f"linalg (m), psls {kind} at n = {k * k}: v'Pv {run['vPv']}, symmetry {sym_err}")
+        if k == LIN_PSLS_CPU_K:
+            row["x_rel_cpu"] = lin_rel(w, cpu_psls[kind]["w"])
+            check(row["x_rel_cpu"] <= LIN_TOL, f"linalg (m), psls {kind}: {row['x_rel_cpu']} "
+                  "off the CPU run")
+        rows["psls"][f"{kind}_n{k * k}"] = row
+    scu, (scu_ref, scu_s) = main["scu"], host["lin_scu"]
+    rows["scu"] = dict(count=scu["count"], seconds=main["seconds"]["scu"], cpu_s=scu_s,
+                       x_rel_cpu=max(lin_rel(a, c) for a, c in zip(
+                           scu["first"] + scu["second"], scu_ref["first"] + scu_ref["second"])))
+    check(rows["scu"]["x_rel_cpu"] <= LIN_TOL and scu["count"] == LIN_SCU[1] - 4,
+          f"linalg (o), scu: {rows['scu']}")
+    sv, (sv_ref, sv_s) = main["services"], host["lin_services"]
+    rows["services"] = dict(
+        n_dependent=sv["n_dependent"], inconsistent=sv["inconsistent"],
+        uls_rank_square=sv["uls_rank_square"], uls_rel_residual=sv["uls_res"],
+        uls_x_rel_cpu=lin_rel(sv["uls_x"], sv_ref["uls_x"]), miqr_levels=sv["miqr_levels"],
+        miqr_rel_cpu=max(lin_rel(sv["miqr_x"], sv_ref["miqr_x"]),
+                         lin_rel(sv["miqr_y"], sv_ref["miqr_y"])),
+        seconds=main["seconds"]["services"], cpu_s=sv_s)
+    m_dep = LIN_SERVICES[2]
+    check(sv["n_dependent"] == m_dep and torch.equal(sv["independent"], sv_ref["independent"])
+          and not sv["inconsistent"]
+          and sv["uls_rank_square"] == sv_ref["uls_rank_square"] == LIN_SERVICES[0] - m_dep,
+          f"linalg (o): FDC's dependent set or ULS's rank off: {rows['services']}")
+    check(sv["uls_res"] <= LIN_TOL and rows["services"]["uls_x_rel_cpu"] <= LIN_TOL
+          and rows["services"]["miqr_rel_cpu"] <= LIN_TOL,
+          f"linalg (o): ULS / MIQR off: {rows['services']}")
+    sb, (sb_ref, sb_s) = main["sbls"], host["lin_sbls"]
+    rows["sbls"] = dict(
+        nullspace_rel_residual=sb["res_ns"], iterative_rel_residual=sb["res_it"],
+        iterative_iters=sb["k_it"], iterative_iters_cpu=sb_ref["k_it"],
+        fredholm=[sb["fredholm_ok"], sb["fredholm_bad"]], fredholm_rel_residual=sb["res_f"],
+        certificate=[sb["cert"], sb["cert_b"]],
+        x_rel_cpu=max(lin_rel(sb[k], sb_ref[k]) for k in ("x_ns", "y_ns", "x_it", "y_it")),
+        fredholm_rel_cpu=max(lin_rel(sb[k].abs(), sb_ref[k].abs()) for k in ("x_f", "y_f")),
+        seconds=main["seconds"]["sbls"], cpu_s=sb_s)
+    # the projected CG stops where its energy stagnates (sbls_solve_iterative):
+    # its residual is held to LIN_PCG_RES, its count and x to the CPU run's
+    check(sb["res_ns"] <= LIN_TOL and sb["res_it"] <= LIN_PCG_RES and sb["res_f"] <= 1e-8
+          and sb["fredholm_ok"] and not sb["fredholm_bad"] and sb["cert"] <= 1e-8
+          and abs(sb["cert_b"]) > 1e-3 and rows["sbls"]["x_rel_cpu"] <= 1e-8
+          and sb["k_it"] == sb_ref["k_it"], f"linalg (o), sbls: {rows['sbls']}")
+    return rows
+
+
+def phase_linalg(host, flat_x):
+    """The inline LDL^T, SLS, PSLS and the services on the card: one ``linalg``
+    line; returns the path's launches of every kernel by its ``kernels``
+    entry's name."""
+    t0 = time.perf_counter()
+    main = lin_main_path(flat_x)
+    main_s = time.perf_counter() - t0
+    counts = main["counts"]
+    out = dict(inline=main["inline"], launches={k: counts[k] for k in LIN_KERNELS},
+               plain={k: counts[k] for k in ("ldlt_wide_plain", "banded_factor_plain",
+                                              "banded_solve_plain")},
+               seconds=dict(main_path=main_s))
+    try:
+        check(all(counts[k] > 0 for k in LIN_KERNELS),
+              f"linalg: a kernel of the path was not launched: {counts}")
+        check(all(v == 0 for v in out["plain"].values()), f"linalg: plain code ran on the "
+              f"card: {out['plain']}")
+        out.update(lin_rows(main, host))
+    except SmokeFailure:
+        print(json.dumps({"linalg_partial": out}, default=str), file=sys.stderr, flush=True)
+        raise
+    out["seconds"]["total"] = time.perf_counter() - t0
+    emit("linalg", **out)
+    return out["launches"]
+
+
+# ---------------------------------------------------------------------------
+# qp_family: qpa / qpb / qpc / lpa / crossover through qp_solve on the card
+# ---------------------------------------------------------------------------
+
+FAMILY_LPA_WORKER_THREADS = "2"
+# QPB's barrier endgame decides its Armijo and mu tests below the merit's
+# rounding: on the CPU its passes part from the JAX package's on 6 of the 14 QP
+# fixtures (tests/test_torch_qp_active.py: PARTS, QPB1000 here), and the card
+# rounds differently again.  A QPB run is held to the oracle where its status
+# and count agree, else by its stopping tolerance: status 0, -13 or -18 and the
+# objective within FAMILY_QPB_OBJ; the runs that parted are listed in the line.
+# QPC on QPMIXB starts QPA from the IPM's capped iterate (-18 after 200 iterations in
+# both packages, 6e-3 apart): held to the oracle's -18 at QPA's cap of 500.
+FAMILY_PARTS = {("QPMIXB", "qpc")}
+FAMILY_QPB_OBJ = 1e-6
+FAMILY_TOL = 1e-8
+
+
+def family_oracle():
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                           "qp_family_oracle.json")) as fh:
+        return json.load(fh)["fixtures"]
+
+
+def family_path(name):
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", "sweep",
+                        name + ".qplib")
+
+
+def family_solve(name, key):
+    """One fixture read onto the card and solved by ``qp_solve``: a row of
+    status, iterations, objective, seconds, host reads, and x on the host."""
+    from galahad_tpu_torch.io.qplib import read_qp
+    from galahad_tpu_torch.qp.frontend import QPControl, qp_solve
+
+    qp = read_qp(family_path(name))
+    ctl = (QPControl(crossover=True) if key == "crossover"
+           else QPControl(quadratic_programming_solver=key))
+    (x, _, _, info), wall = synced_s(lambda: qp_solve(qp, ctl))
+    res = info.result
+    return dict(status=info.status, iter=info.iter, obj=float(qp.objective(x)), wall_s=wall,
+                s_per_iteration=wall / max(info.iter, 1), solver=info.solver,
+                host_reads=getattr(res, "host_reads", None),
+                cro_status=info.cro.status if info.cro is not None else None,
+                x=x.cpu(), device=str(x.device))
+
+
+def family_lpa_worker(name):
+    """The LPA fixtures, in a process of their own started before the build:
+    the simplex is host work of minutes (LPB800: 2,315 pivots of three
+    798 x 798 solves), the problem and the answer on the card."""
+    return family_solve(name, "lpa")
+
+
+class FamilyLpa:
+    """``family_lpa_worker`` on every LP fixture, in one spawned process that
+    uses the card, longest first; ``join`` returns {name: row}."""
+
+    def __init__(self):
+        import concurrent.futures
+        import multiprocessing
+
+        oracle = family_oracle()
+        names = sorted((n for n in oracle if "lpa" in oracle[n]),
+                       key=lambda n: -oracle[n]["lpa"]["seconds"])
+        saved = os.environ.get("OPENBLAS_NUM_THREADS")
+        os.environ["OPENBLAS_NUM_THREADS"] = FAMILY_LPA_WORKER_THREADS
+        try:
+            self.pool = concurrent.futures.ProcessPoolExecutor(
+                1, mp_context=multiprocessing.get_context("spawn"))
+            self.futures = {n: self.pool.submit(family_lpa_worker, n) for n in names}
+        finally:
+            if saved is None:
+                os.environ.pop("OPENBLAS_NUM_THREADS", None)
+            else:
+                os.environ["OPENBLAS_NUM_THREADS"] = saved
+
+    def join(self) -> dict:
+        return {n: f.result() for n, f in self.futures.items()}
+
+    def close(self) -> None:
+        self.pool.shutdown(cancel_futures=True)
+
+
+def family_held(name, key, row, ref) -> None:
+    """A run against the oracle: status, iterations and objective (1e-8
+    relative); a run of FAMILY_PARTS by its solver's stopping tolerance."""
+    obj_rel = abs(row["obj"] - ref["obj"]) / max(1.0, abs(ref["obj"]))
+    row["obj_rel_oracle"] = obj_rel
+    row["oracle"] = [ref["status"], ref["iter"]]
+    same = (row["status"], row["iter"]) == (ref["status"], ref["iter"])
+    if key == "qpb" and not same:
+        row["parts_by_rounding"] = True
+        check(row["status"] in (0, -13, -18) and obj_rel <= FAMILY_QPB_OBJ,
+              f"qp_family, {name} qpb: status {row['status']}, objective {obj_rel} off the "
+              "oracle")
+        return
+    if (name, key) in FAMILY_PARTS:
+        row["parts_by_rounding"] = True
+        check(same, f"qp_family, {name} {key}: {row['status']} / {row['iter']}")
+        return
+    check((row["status"], row["iter"]) == (ref["status"], ref["iter"]) and obj_rel <= FAMILY_TOL,
+          f"qp_family, {name} {key}: status {row['status']}, {row['iter']} iterations, "
+          f"objective {obj_rel} off; the oracle {ref['status']}, {ref['iter']}")
+    if key == "crossover":
+        check(row["cro_status"] == ref["cro_status"], f"qp_family, {name}: CRO status "
+              f"{row['cro_status']}, the oracle's {ref['cro_status']}")
+
+
+def phase_qp_family(lpa_rows):
+    """qpa / qpb / qpc on every QP fixture and crossover on every fixture,
+    through ``qp_solve`` on the card, and the LPA rows the spawned process
+    ran: one ``qp_family`` line."""
+    t0 = time.perf_counter()
+    oracle = family_oracle()
+    check(len(oracle) == 20, "qp_family: the oracle does not cover the 20 sweep fixtures")
+    rows = {}
+    for name in sorted(oracle):
+        for key in oracle[name]:
+            if key == "lpa":
+                row = lpa_rows[name]
+                check(row["device"].startswith("cuda"), f"qp_family, {name}: lpa ran on "
+                      f"{row['device']}")
+            else:
+                row = family_solve(name, key)
+            family_held(name, key, row, oracle[name][key])
+            row.pop("x")
+            rows[f"{name}/{key}"] = row
+    per_solver = {}
+    for key in ("qpa", "qpb", "qpc", "lpa", "crossover"):
+        sel = [r for k, r in rows.items() if k.endswith("/" + key)]
+        its = sum(r["iter"] for r in sel)
+        per_solver[key] = dict(runs=len(sel), iterations=its,
+                               wall_s=sum(r["wall_s"] for r in sel),
+                               s_per_iteration=sum(r["wall_s"] for r in sel) / max(its, 1),
+                               host_reads=sum(r["host_reads"] or 0 for r in sel))
+    emit("qp_family", headline=rows["QPB1000/qpa"] | dict(n=1000, m=500),
+         per_solver=per_solver,
+         parted_by_rounding=sorted(k for k, r in rows.items() if r.get("parts_by_rounding")),
+         rows=rows, seconds=time.perf_counter() - t0)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -4419,37 +5095,11 @@ def main() -> int:
     t_all = time.perf_counter()
     try:
         card = phase_device()
-        nlp_cpu = NlpCpuReferences()
+        family_lpa = FamilyLpa()
         try:
-            phase_build()
-            nlp_host = nlp_cpu.join()
+            line = main_phases(family_lpa)
         finally:
-            nlp_cpu.close()
-        phase_kernel()
-        qp = flagship_qp(K_FLAGSHIP, "cuda")
-        plan, D_x, C_diag, b, per_factorization = phase_kkt(qp)
-        phase_repeat(qp, plan, D_x, C_diag, b)
-        launches, solution = phase_flagship(qp, per_factorization)
-        phase_fused(qp, solution)
-        flagship_solution = tuple(v.cpu() for v in solution[:3]) + (solution[3],)
-        del solution
-        line = phase_kernels(qp, plan, D_x, C_diag, b, launches)
-        del plan, D_x, C_diag, b
-        phase_arcs(qp)
-        del qp
-        phase_dense()
-        banded_launches = phase_banded()
-        phase_frontend(flagship_solution)
-        tr_entries = phase_tr()
-        nlp_launches = phase_nlp(nlp_host, nlp_cpu.seconds)
-        con_launches = phase_constrained(nlp_host, nlp_cpu.seconds)
-        timed = phase_banded_path_kernels(nlp_host)
-        line["kernels"] += banded_kernel_entries(banded_launches, timed) + tr_entries
-        for entry in line["kernels"]:
-            if entry["name"] in nlp_launches:
-                entry["launches_nlp"] = nlp_launches[entry["name"]]
-            entry["launches_constrained"] = con_launches[entry["name"]]
-        del timed
+            family_lpa.close()
         print(json.dumps(line), flush=True)
     except SmokeFailure as exc:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr)
@@ -4460,6 +5110,45 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def main_phases(family_lpa) -> dict:
+    """Every phase after ``device``; returns the ``kernels`` line."""
+    nlp_cpu = NlpCpuReferences()
+    try:
+        phase_build()
+        nlp_host = nlp_cpu.join()
+    finally:
+        nlp_cpu.close()
+    phase_kernel()
+    qp = flagship_qp(K_FLAGSHIP, "cuda")
+    plan, D_x, C_diag, b, per_factorization = phase_kkt(qp)
+    phase_repeat(qp, plan, D_x, C_diag, b)
+    launches, solution = phase_flagship(qp, per_factorization)
+    phase_fused(qp, solution)
+    flagship_solution = tuple(v.cpu() for v in solution[:3]) + (solution[3],)
+    del solution
+    line = phase_kernels(qp, plan, D_x, C_diag, b, launches)
+    flat_x = lin_flat_reference(qp, plan)
+    del plan, D_x, C_diag, b
+    phase_arcs(qp)
+    del qp
+    phase_dense()
+    banded_launches = phase_banded()
+    phase_frontend(flagship_solution)
+    tr_entries = phase_tr()
+    nlp_launches = phase_nlp(nlp_host, nlp_cpu.seconds)
+    con_launches = phase_constrained(nlp_host, nlp_cpu.seconds)
+    lin_launches = phase_linalg(nlp_host, flat_x)
+    phase_qp_family(family_lpa.join())
+    timed = phase_banded_path_kernels(nlp_host)
+    line["kernels"] += banded_kernel_entries(banded_launches, timed) + tr_entries
+    for entry in line["kernels"]:
+        if entry["name"] in nlp_launches:
+            entry["launches_nlp"] = nlp_launches[entry["name"]]
+        entry["launches_constrained"] = con_launches[entry["name"]]
+        entry["launches_linalg"] = lin_launches.get(entry["name"], 0)
+    return line
 
 
 if __name__ == "__main__":

@@ -48,3 +48,13 @@ def tiny16(dtype: torch.dtype) -> float:
     """Pivot guard shared by the factor kernel, its plain version and the
     solves: 16 x the smallest normal number of the working type."""
     return float(torch.finfo(dtype).tiny) * 16.0
+
+
+def as_device_tensor(a, device=None, dtype=None) -> torch.Tensor:
+    """A tensor stays on its device (cast to ``dtype`` if one is given);
+    anything else (numpy, lists, numbers) goes to ``device`` (``None``: the
+    card) as ``dtype`` (``None``: float64)."""
+    if torch.is_tensor(a):
+        return a if dtype is None else a.to(resolve_dtype(dtype))
+    return torch.as_tensor(np.asarray(a, np.float64),
+                           device=resolve_device(device)).to(resolve_dtype(dtype))

@@ -17,6 +17,8 @@ from .core.problem import QP, make_qp
 from .core.sparse import COOPattern, SparseQP
 from .linalg.band_ops import BandMatrix
 from .linalg.bsc import BSCPlan
+from .linalg.scu import SCUState
+from .linalg.supernodal import LevelPlan, SupernodalSymbolic
 from .linalg.supernodal_flat import FlatGroup, FlatPlan
 from .nlp._loop import TRUState
 from .nlp.check import FDHPattern
@@ -327,3 +329,41 @@ def lancelot_info_from_numpy(fields, dtype=None, device=None) -> LancelotInfo:
     return LancelotInfo(x=t("x", ft), y=t("y", ft), f=t("f", ft), infeas=t("infeas", ft),
                         norm_pg=t("norm_pg", ft), mu=t("mu", ft), iter=t("iter", torch.int32),
                         converged=t("converged", torch.bool), status=t("status", torch.int32))
+
+
+def supernodal_symbolic_from_numpy(fields) -> SupernodalSymbolic:
+    """Build the inline supernodal plan from the JAX ``SupernodalSymbolic``'s
+    fields (numpy; a dict or an object): ``n``, ``perm``, ``iperm``,
+    ``nnz_L``, ``flops``, ``ns`` and ``levels``, each with ``frows``,
+    ``ncols``, ``nrows``, ``Cmax``, ``Fpad``, ``B``, ``a_node``, ``a_fi``,
+    ``a_fj``, ``a_src`` and ``ea`` (dicts of ``src_level``, ``src_nodes``,
+    ``dst_nodes``, ``cpos``, ``ppos``, ``uvalid``)."""
+    get = _get(fields)
+    levels = []
+    for lv in get("levels"):
+        g = _get(lv)
+        levels.append(LevelPlan(
+            frows=np.asarray(g("frows"), np.int32), ncols=np.asarray(g("ncols"), np.int32),
+            nrows=np.asarray(g("nrows"), np.int32), Cmax=int(g("Cmax")), Fpad=int(g("Fpad")),
+            B=int(g("B")), a_node=np.asarray(g("a_node"), np.int32),
+            a_fi=np.asarray(g("a_fi"), np.int32), a_fj=np.asarray(g("a_fj"), np.int32),
+            a_src=np.asarray(g("a_src"), np.int32),
+            ea=[dict(src_level=int(e["src_level"]),
+                     src_nodes=np.asarray(e["src_nodes"], np.int32),
+                     dst_nodes=np.asarray(e["dst_nodes"], np.int32),
+                     cpos=np.asarray(e["cpos"], np.int32), ppos=np.asarray(e["ppos"], np.int32),
+                     uvalid=np.asarray(e["uvalid"], bool)) for e in g("ea")]))
+    return SupernodalSymbolic(n=int(get("n")), perm=np.asarray(get("perm"), np.int64),
+                              iperm=np.asarray(get("iperm"), np.int64), levels=levels,
+                              nnz_L=int(get("nnz_L")), flops=float(get("flops")),
+                              ns=int(get("ns")))
+
+
+def scu_state_from_numpy(fields, dtype=None, device=None) -> SCUState:
+    """Build an SCUState from the JAX ``SCUState``'s fields: ``B``, ``C``,
+    ``D``, ``S``, ``W`` (numpy), ``count``, ``cap`` and ``n``."""
+    get = _get(fields)
+    device = resolve_device(device)
+    return SCUState(**{k: _tensor(get(k), dtype, device) for k in ("B", "C", "D", "S", "W")},
+                    count=torch.full((), int(get("count")), dtype=torch.int64, device=device),
+                    cap=int(get("cap")), n=int(get("n")))

@@ -9,9 +9,10 @@ Counterpart of galahad_tpu/qp/frontend.py:
   * L1QP (src/l1qp/l1qp.f90 with the src/lpqp reformulation)
     -> :func:`l1qp_solve`.
 
-Ported solvers of ``qp_solve``: ``cqp`` (the IPM, with the DQP rescue),
-``dqp``, ``ccqp`` and ``lpb``.  ``qpa``, ``qpb``, ``qpc``, ``lpa`` and the
-crossover (``crossover=True``) raise ``NotImplementedError``.
+Solvers of ``qp_solve``: ``cqp`` (the IPM, with the DQP rescue), ``dqp``,
+``ccqp``, ``qpa`` (active set), ``qpb`` (interior-point trust region),
+``qpc`` (IPM then active set), ``lpa`` (simplex) and ``lpb``; with
+``crossover=True`` CRO purifies the answer.
 
 Two departures from the JAX package, both in how results are reported:
 the fourth value of ``qp_solve`` is a :class:`QPInfo` on every branch (the
@@ -27,15 +28,18 @@ from typing import Any
 import torch
 
 from ..core.config import control as control_dc
-from ..core.problem import INFINITY, QP
+from ..core.problem import INFINITY, QP, require_dense
 from ..pre import (PresolveControl, ScaleControl, presolve_apply, presolve_reduce,
                    presolve_restore, scale_apply, scale_get, scale_recover)
+from .cro import cro_crossover
 from .dqp import DQPControl, ccqp_solve, dqp_solve
 from .ipm import IPMControl, ipm_solve
+from .lpa import lpa_solve
+from .qpa import qpa_solve, qpc_solve
+from .qpb import qpb_solve
 from .wrappers import lpb_solve
 
 SOLVERS = ("cqp", "dqp", "ccqp", "qpa", "qpb", "qpc", "lpa", "lpb")
-NOT_PORTED = ("qpa", "qpb", "qpc", "lpa")
 STALLED = (-13, -18)      # TINY_STEP, MAX_ITERATIONS: the IPM states the rescue takes
 
 
@@ -64,10 +68,13 @@ class QPInfo:
     """What ``qp_solve`` reports, the same on every branch: ``status``,
     ``iter`` and ``obj`` of the solver that produced x (``solver``: "cqp" or
     "lpb" where the IPM answered, "dqp" for the dqp and ccqp branches and
-    after a rescue).  ``inform`` is the IPM's ``IPMInform`` where the IPM
-    answered, else None; ``ipm`` the IPM's state wherever it ran on the
-    ``cqp`` / ``lpb`` branches (also when DQP rescued it); ``dqp`` the
-    ``DQPInfo`` where DQP answered."""
+    after a rescue, else the branch's own name: "qpa", "qpb", "qpc",
+    "lpa").  ``inform`` is the IPM's ``IPMInform`` where the IPM answered,
+    else None; ``ipm`` the IPM's state wherever it ran on the ``cqp`` /
+    ``lpb`` branches (also when DQP rescued it); ``dqp`` the ``DQPInfo``
+    where DQP answered; ``result`` the ``QPAInfo`` / ``QPBInfo`` /
+    ``LPAInfo`` of the other branches; ``cro`` the ``CROInfo`` where the
+    crossover ran (x, y and z are then its)."""
 
     status: int
     iter: int
@@ -76,11 +83,8 @@ class QPInfo:
     inform: Any = None
     ipm: Any = None
     dqp: Any = None
-
-
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue 1 item 7: the rest of the QP family)")
+    result: Any = None
+    cro: Any = None
 
 
 def _from_ipm(solver, st) -> QPInfo:
@@ -100,12 +104,10 @@ def qp_solve(qp, ctl: QPControl = QPControl()):
     Returns (x, y, z, info) in the original problem's variables, ``info`` a
     :class:`QPInfo`."""
     name = ctl.quadratic_programming_solver
-    if name in NOT_PORTED:
-        raise _not_ported(f"quadratic_programming_solver={name!r}")
     if name not in SOLVERS:
         raise ValueError(f"unknown QP solver {name!r}")
-    if ctl.crossover:
-        raise _not_ported("QPControl(crossover=True) (CRO, qp/cro.py)")
+    if name in ("qpa", "qpb", "qpc", "lpa") or ctl.crossover:
+        require_dense(qp, f"qp_solve with {name!r}" + (" and crossover" if ctl.crossover else ""))
     if ctl.generate_qplib_file:
         from ..io.qplib import write_qp
 
@@ -140,9 +142,25 @@ def qp_solve(qp, ctl: QPControl = QPControl()):
     elif name == "ccqp":
         d = ccqp_solve(work, ipm_ctl=ctl.ipm, dqp_ctl=ctl.dqp)
         x, y, z, info = d.x, d.y, d.z, _from_dqp(d)
+    elif name in ("qpa", "qpb", "qpc", "lpa"):
+        if name == "qpa":
+            d = qpa_solve(work)
+        elif name == "qpb":
+            d = qpb_solve(work)
+        elif name == "qpc":
+            d = qpc_solve(work, ipm_ctl=ctl.ipm)
+        else:
+            d = lpa_solve(work)
+        x, y, z = d.x, d.y, d.z
+        info = QPInfo(status=int(d.status), iter=int(d.iter), obj=float(d.obj), solver=name,
+                      result=d)
     else:   # lpb
         x, y, z, st = lpb_solve(work, ctl.ipm)
         info = _from_ipm(name, st)
+
+    if ctl.crossover:
+        info.cro = cro_crossover(work, x, y, z)
+        x, y, z = info.cro.x, info.cro.y, info.cro.z
 
     if reduction is not None:
         like = dict(dtype=qp.g.dtype, device=qp.g.device)

@@ -272,8 +272,8 @@ def _trs_from_eigen(lam, ct, radius, back, ctl: TRSControl):
     # stand-in (lam + 1, ct2 = 1, lam_lo = 1) has poles inside the bracket
     # when lam_min < -2: there the loop wanders for all its iterations, and
     # its s is set by the last bit of a step below an ulp.
-    e1 = torch.zeros_like(ct2)
-    e1[..., 0] = 1.0
+    # e_1 made on the device (a written Python number would be a host copy)
+    e1 = (torch.arange(ct2.shape[-1], device=ct2.device) == 0).to(ct2.dtype).expand_as(ct2)
     s_b = _secular_newton(
         torch.where(hard[..., None], 0.0, lam),
         torch.where(hard[..., None], (radius * radius)[..., None] * e1, ct2),

@@ -1563,3 +1563,167 @@ def test_lancelot_hvp_path_on_the_card(cuda):
                              ctl=nlp.LancelotControl(maxit=20), device="cpu")
     assert (int(st.status), int(st.iter)) == (int(ref.status), int(ref.iter)) == (0, int(ref.iter))
     assert float((st.x.cpu() - ref.x).abs().max()) <= 1e-8
+
+
+# ---------------------------------------------------------------------------
+# The inline supernodal LDL^T, SLS "pbtr", PSLS's band preconditioner, TRS's e_1
+# ---------------------------------------------------------------------------
+
+
+def test_trs_from_eigen_reads_nothing_on_the_card(cuda):
+    """``trs_solve`` on the card with CUDA's sync debug mode set to error
+    everywhere but the eigendecomposition: no host copy (e_1 is made on the
+    device); the result is the CPU run's (1e-12; x where the problem is not a
+    hard case, where it is defined up to the eigenvector's sign) and two runs
+    are bitwise."""
+    from galahad_tpu_torch.tr import trs as TR
+
+    r = np.random.default_rng(0)
+    B = r.normal(size=(64, 12, 12))
+    H = torch.as_tensor((B + B.transpose(0, 2, 1)) / 2, device=cuda)
+    c = torch.as_tensor(r.normal(size=(64, 12)), device=cuda)
+    c[::4] = 0.0                                  # hard cases among them
+    radius = torch.full((64,), 1.5, dtype=torch.float64, device=cuda)
+    ctl = TR.TRSControl()
+
+    def run():
+        lam, ct, back = TR._eigh_M(H, c, None)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return TR._trs_from_eigen(lam, ct, radius, back, ctl)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    a, b = run(), run()
+    ref = TR.trs_solve(H.cpu(), c.cpu(), radius.cpu())
+    assert torch.equal(a.x, b.x) and torch.equal(a.obj, b.obj)
+    assert torch.equal(a.hard_case.cpu(), ref.hard_case) and bool(ref.hard_case.any())
+    easy = ~ref.hard_case
+    for got, want in ((a.x.cpu()[easy], ref.x[easy]), (a.obj.cpu(), ref.obj),
+                      (a.multiplier.cpu(), ref.multiplier)):
+        assert float((got - want).abs().max()) <= 1e-12 * max(1.0, float(want.abs().max()))
+
+
+@pytest.mark.parametrize("Fpad", [8, 24, 40, 64, 72, 104, 128, 136, 200])
+def test_inline_padded_level_matches_plain_on_the_unpadded_fronts(cuda, Fpad):
+    """A group of the inline LDL^T as ``supernodal_factorize`` lays it out: fronts
+    of Fpad (a multiple of 8) padded with zeros to the kernel's size (the next
+    of 8..128, or Fpad rounded up to 32 for the wide route), factored by the
+    kernel; its leading Fpad block against ``partial_ldlt_plain`` on the
+    unpadded fronts (TOL x max |plain|, float64)."""
+    from galahad_tpu_torch.linalg import supernodal as S
+
+    nb = 7
+    F, ncols = fronts(nb, Fpad, torch.float64, cuda, seed=Fpad)
+    K = S.kernel_size(Fpad)
+    buf = torch.zeros(nb * K * K + 1, dtype=torch.float64, device=cuda)
+    P = buf[:nb * K * K].view(nb, K, K)
+    P[:, :Fpad, :Fpad] = F
+    if Fpad <= ldlt_kernels.MAX_KERNEL_FRONT:
+        n0 = ldlt_kernels.launch_count()
+        ldlt_kernels.partial_ldlt(P, ncols, inplace=True)
+        assert ldlt_kernels.launch_count() == n0 + 1
+    else:
+        n0, p0 = ldlt_kernels.wide_launch_count(), ldlt_kernels.wide_plain_count()
+        lvl = ldlt_kernels.build_wide_level(
+            [(i * K * K, K, int(ncols[i]), Fpad) for i in range(nb)], cuda)
+        ldlt_kernels.partial_ldlt_wide(buf, lvl)
+        assert ldlt_kernels.wide_launch_count() == n0 + 1
+        assert ldlt_kernels.wide_plain_count() == p0
+    ref = ldlt_kernels.partial_ldlt_plain(F, ncols)
+    r = torch.arange(Fpad, device=cuda)
+    nc = ncols.long()[:, None, None]
+    spec = (((r[None, None, :] < nc) & (r[None, :, None] >= r[None, None, :]))
+            | ((r[None, :, None] >= nc) & (r[None, None, :] >= nc)))
+    err = torch.where(spec, P[:, :Fpad, :Fpad] - ref, 0.0).abs().max()
+    assert float(err) <= 1e-11 * max(1.0, float(ref.abs().max()))
+    if K > Fpad:                 # the padded rows stay zero
+        assert not bool(P[:, Fpad:, :].any())
+
+
+def inline_kkt(k, device):
+    """The KKT matrix of the grid QP at k (lower COO) with D_x = 0.1,
+    C = 0.1, as the inline tests factor it."""
+    from galahad_tpu_torch.linalg import supernodal as S
+
+    q = grid_qp(k, "cpu")
+    n, m = q.n, q.m
+    h, a = q.h_pat, q.a_pat
+    rows = np.concatenate([h.rows, a.rows + n, np.arange(n), n + np.arange(m)])
+    cols = np.concatenate([h.cols, a.cols, np.arange(n), n + np.arange(m)])
+    vals = torch.cat([q.h_vals, q.a_vals, torch.full((n,), 0.1, dtype=torch.float64),
+                      torch.full((m,), -0.1, dtype=torch.float64)])
+    sym = S.supernodal_analyse(rows, cols, n + m)
+    return sym, vals.to(device), (n, m)
+
+
+def test_inline_factorize_on_the_card_is_bitwise_repeatable(cuda):
+    """The inline LDL^T on the card (grid QP k = 40: small groups and one wide
+    group): two runs bitwise equal, the small and wide kernels launched once
+    per group of their route and no plain code, the inertia (n, m, 0), and the
+    solve within 1e-10 of the CPU path's."""
+    from galahad_tpu_torch.linalg import supernodal as S
+
+    sym, vals, (n, m) = inline_kkt(40, cuda)
+    routes = [S.kernel_size(p.Fpad) > ldlt_kernels.MAX_KERNEL_FRONT for p in sym.levels]
+    assert any(routes) and not all(routes)
+    ldlt_kernels.reset_launch_count()
+    p0 = ldlt_kernels.wide_plain_count()
+    f1 = S.supernodal_factorize(sym, vals)
+    assert ldlt_kernels.launch_count() == routes.count(False)
+    assert ldlt_kernels.wide_launch_count() == routes.count(True)
+    assert ldlt_kernels.wide_plain_count() == p0
+    f2 = S.supernodal_factorize(sym, vals)
+    assert all(torch.equal(a, b) for a, b in zip(f1.levels, f2.levels))
+    assert f1.inertia.tolist() == [n, m, 0]
+    b = torch.as_tensor(np.random.default_rng(1).normal(size=n + m), device=cuda)
+    x1, x2 = S.supernodal_solve(sym, f1, b), S.supernodal_solve(sym, f2, b)
+    assert torch.equal(x1, x2)
+    fc = S.supernodal_factorize(sym, vals.cpu())
+    xc = S.supernodal_solve(sym, fc, b.cpu())
+    assert float((x1.cpu() - xc).abs().max()) <= 1e-10 * max(1.0, float(xc.abs().max()))
+
+
+def test_sls_pbtr_on_the_card_runs_the_banded_kernels(cuda):
+    """SLS "pbtr" (rows 4a/4b): the CPU path's solve (1e-11), one factor and
+    one solve launch, no plain call."""
+    from galahad_tpu_torch.linalg.sls import SLSControl, sls_factorize
+
+    r = np.random.default_rng(2)
+    k, b = 300, 8
+    G = r.normal(size=(k, b, b))
+    D = G @ G.transpose(0, 2, 1) + 3 * b * np.eye(b)
+    L = r.normal(size=(k - 1, b, b))
+    rhs = r.normal(size=(k, b))
+    banded_kernels.reset_banded_counts()
+    f = sls_factorize((D, L), SLSControl(solver="pbtr"), device=cuda)
+    x = f.solve(torch.as_tensor(rhs, device=cuda))
+    counts = banded_kernels.banded_counts()
+    assert counts["factor"] == 1 and counts["solve"] == 1, counts
+    assert counts["factor_plain"] == 0 and counts["solve_plain"] == 0, counts
+    ref = sls_factorize((D, L), SLSControl(solver="pbtr"), device="cpu").solve(
+        torch.as_tensor(rhs))
+    assert float((x.cpu() - ref).abs().max()) <= 1e-11 * max(1.0, float(ref.abs().max()))
+
+
+def test_psls_band_on_the_card_matches_its_plain_version(cuda):
+    """PSLS "band" and "reordered_band" at the default semi-bandwidth 5 (blocks
+    of 5, rows 4a/4b): the CPU path's apply (1e-11); two factor and two solve
+    launches per build and apply, no plain call."""
+    from galahad_tpu_torch.linalg.psls import PSLSControl, psls_build
+
+    r = np.random.default_rng(3)
+    n = 400
+    B = r.normal(size=(n, n)) * (np.abs(np.subtract.outer(np.arange(n), np.arange(n))) <= 7)
+    H = B @ B.T + n * np.eye(n)
+    v = r.normal(size=n)
+    for kind in ("band", "reordered_band"):
+        banded_kernels.reset_banded_counts()
+        apply = psls_build(torch.as_tensor(H, device=cuda), PSLSControl(preconditioner=kind))
+        w = apply(torch.as_tensor(v, device=cuda))
+        counts = banded_kernels.banded_counts()
+        assert counts["factor"] == 2 and counts["solve"] == 2, (kind, counts)
+        assert counts["factor_plain"] == 0 and counts["solve_plain"] == 0, (kind, counts)
+        ref = psls_build(H, PSLSControl(preconditioner=kind), device="cpu")(torch.as_tensor(v))
+        assert float((w.cpu() - ref).abs().max()) <= 1e-11 * max(1.0, float(ref.abs().max()))

@@ -10,9 +10,10 @@ cqp with scaling, with the masking presolve and with the reducing presolve
 (and all three on DQP), a small ``SparseQP`` (solved and stalled: the rescue
 is skipped and the result is ``ipm_solve``'s, bit for bit), a ``BandedQP``
 (``ipm_solve``'s bits), LSQP, WCP and
-L1QP (tests/test_constrained.py's feasible and infeasible cases).  The
-unported branches raise ``NotImplementedError`` naming their ROADMAP item,
-and ``QPInfo`` reads the same on every branch."""
+L1QP (tests/test_constrained.py's feasible and infeasible cases), and the
+qpa, qpb, qpc, lpa and crossover branches (status, iterations, objective).
+Only dense QPs take those branches, and ``QPInfo`` reads the same on every
+branch."""
 import dataclasses
 
 import jax.numpy as jnp
@@ -117,17 +118,42 @@ def test_banded_qp_is_ipm_solve():
     assert info.status == 0
 
 
+@pytest.mark.parametrize("name", ["qpa", "qpb", "qpc", "lpa", "crossover"])
+def test_active_set_branches_route_and_answer(name):
+    """The branches that raised before the rest of the QP family was ported:
+    each routes as the JAX package's ``qp_solve`` does and gives its status,
+    iterations and objective (1e-8 relative) on a sweep fixture (QPMAX, the LP
+    LPB100 for lpa; on this module's random QP QPB's count parts through
+    rounding, tests/test_torch_qp_active.py); ``QPInfo.solver`` names the
+    solver that answered."""
+    from galahad_tpu.io.qplib import read_qp as j_read_qp
+
+    from _torch_port_helpers import sweep_path
+
+    path = sweep_path("LPB100" if name == "lpa" else "QPMAX")
+    jq, tq = j_read_qp(path), read_qp(path, device="cpu")
+    ctl = dict(crossover=True) if name == "crossover" else dict(
+        quadratic_programming_solver=name)
+    xj, _, _, ij = j_fe.qp_solve(jq, j_fe.QPControl(**ctl))
+    x, _, _, info = t_fe.qp_solve(tq, t_fe.QPControl(**ctl))
+    assert info.solver == ("cqp" if name == "crossover" else name)
+    assert (info.status, info.iter) == (int(ij.status), int(ij.iter))
+    objj = float(jq.objective(xj))
+    assert abs(float(tq.objective(x)) - objj) <= 1e-8 * max(1.0, abs(objj))
+    assert (info.cro is not None) == (name == "crossover")
+
+
 def test_refusals():
     _, tq = pair("qp")
-    for name in t_fe.NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-            t_fe.qp_solve(tq, t_fe.QPControl(quadratic_programming_solver=name))
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        t_fe.qp_solve(tq, t_fe.QPControl(crossover=True))
-    with pytest.raises(ValueError, match="unknown QP solver"):
-        t_fe.qp_solve(tq, t_fe.QPControl(quadratic_programming_solver="nope"))
     n, m, kw = grid_qp_arrays(4)
     sq = make_sparse_qp(n, m, device="cpu", **kw)
+    for name in ("qpa", "qpb", "qpc", "lpa"):
+        with pytest.raises(TypeError, match="dense QP"):
+            t_fe.qp_solve(sq, t_fe.QPControl(quadratic_programming_solver=name))
+    with pytest.raises(TypeError, match="dense QP"):
+        t_fe.qp_solve(sq, t_fe.QPControl(crossover=True))
+    with pytest.raises(ValueError, match="unknown QP solver"):
+        t_fe.qp_solve(tq, t_fe.QPControl(quadratic_programming_solver="nope"))
     with pytest.raises(TypeError, match="dense QP"):
         t_fe.qp_solve(sq, t_fe.QPControl(scale=1))
     with pytest.raises(TypeError, match="dense QP"):
@@ -190,4 +216,4 @@ def test_l1qp_feasible_and_infeasible():
 
 def test_qpinfo_fields():
     assert [f.name for f in dataclasses.fields(t_fe.QPInfo)] == [
-        "status", "iter", "obj", "solver", "inform", "ipm", "dqp"]
+        "status", "iter", "obj", "solver", "inform", "ipm", "dqp", "result", "cro"]

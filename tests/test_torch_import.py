@@ -60,6 +60,21 @@ import galahad_tpu_torch.io.sif
 import galahad_tpu_torch.qp.qcqp
 import galahad_tpu_torch.qp.bqp
 import galahad_tpu_torch.qp.eqp
+import galahad_tpu_torch.linalg.convert
+import galahad_tpu_torch.linalg.ir
+import galahad_tpu_torch.linalg.miqr
+import galahad_tpu_torch.linalg.mop
+import galahad_tpu_torch.linalg.psls
+import galahad_tpu_torch.linalg.scu
+import galahad_tpu_torch.linalg.sls
+import galahad_tpu_torch.linalg.supernodal
+import galahad_tpu_torch.linalg.uls
+import galahad_tpu_torch.pre.fdc
+import galahad_tpu_torch.qp.cro
+import galahad_tpu_torch.qp.lpa
+import galahad_tpu_torch.qp.lpqp
+import galahad_tpu_torch.qp.qpa
+import galahad_tpu_torch.qp.qpb
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
@@ -323,3 +338,65 @@ def test_constrained_entry_points_default_to_the_card(entry):
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()
+
+
+@pytest.mark.parametrize("entry", ["sls_factorize", "sls_factorize_cg", "psls_build",
+                                   "psls_remove", "scu_setup", "uls_factorize", "miqr_form",
+                                   "fdc_find_dependent", "sbls_preconditioner",
+                                   "sbls_factorize_nullspace", "sbls_fredholm_alternative"])
+def test_linalg_service_entry_points_default_to_the_card(entry):
+    """The linear-algebra services put numpy inputs on the CUDA device unless
+    asked for the CPU, and raise where there is none."""
+    import numpy as np
+    import torch
+
+    from galahad_tpu_torch.linalg import miqr, psls, sbls, scu, sls, uls
+    from galahad_tpu_torch.pre import fdc
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device exists")
+    A = np.eye(4) * 2.0
+    calls = {
+        "sls_factorize": lambda: sls.sls_factorize(A),
+        "sls_factorize_cg": lambda: sls.sls_factorize(lambda v: v, sls.SLSControl(solver="cg")),
+        "psls_build": lambda: psls.psls_build(A),
+        "psls_remove": lambda: psls.psls_remove(lambda v: v, 4, [1]),
+        "scu_setup": lambda: scu.scu_setup(4, 2),
+        "uls_factorize": lambda: uls.uls_factorize(A),
+        "miqr_form": lambda: miqr.miqr_form(A),
+        "fdc_find_dependent": lambda: fdc.fdc_find_dependent(A, np.ones(4)),
+        "sbls_preconditioner": lambda: sbls.sbls_preconditioner(A),
+        "sbls_factorize_nullspace": lambda: sbls.sbls_factorize_nullspace(A, np.ones((1, 4))),
+        "sbls_fredholm_alternative": lambda: sbls.sbls_fredholm_alternative(
+            A, np.ones((1, 4)), np.zeros(1), np.ones(4), np.ones(1)),
+    }
+    with pytest.raises(RuntimeError, match="CUDA"):
+        calls[entry]()
+
+
+def test_inline_factor_does_not_fall_back(monkeypatch):
+    """A group of the inline LDL^T on a tensor that claims a CUDA device
+    reaches the kernels' wrappers, never their plain versions."""
+    import numpy as np
+    import torch
+
+    from galahad_tpu_torch.linalg import ldlt_kernels, supernodal
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    called = []
+    monkeypatch.setattr(ldlt_kernels, "partial_ldlt_plain", lambda *a, **k: called.append(1))
+    monkeypatch.setattr(ldlt_kernels, "partial_ldlt_wide_plain",
+                        lambda *a, **k: called.append(1))
+    for Fpad in (40, 160):
+        F = torch.zeros(1, supernodal.kernel_size(Fpad), supernodal.kernel_size(Fpad),
+                        device="meta")
+        with pytest.raises(ValueError, match="unsupported device"):
+            if Fpad <= 128:
+                ldlt_kernels.partial_ldlt(F, torch.zeros(1, dtype=torch.int32, device="meta"),
+                                          inplace=True)
+            else:
+                K = supernodal.kernel_size(Fpad)
+                lvl = ldlt_kernels.build_wide_level([(0, K, 1, Fpad)], "meta")
+                ldlt_kernels.partial_ldlt_wide(F.reshape(-1), lvl)
+    assert called == []

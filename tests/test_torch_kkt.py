@@ -93,9 +93,15 @@ def test_factorize_scaling_inertia_and_dmin(case):
 
 
 def test_unported_backend_raises():
+    """Both backends of the JAX package are ported ("flat" and, since the
+    inline supernodal LDL^T, "inline"); a name that is neither raises."""
+    from galahad_tpu_torch.linalg.supernodal import SupernodalSymbolic
+
     _, tq = problems("grid6")
-    with pytest.raises(NotImplementedError):
-        sparse_kkt_plan(tq.h_pat, tq.a_pat, tq.n, backend="inline")
+    with pytest.raises(ValueError, match="unknown sparse KKT backend"):
+        sparse_kkt_plan(tq.h_pat, tq.a_pat, tq.n, backend="multifrontal")
+    assert isinstance(sparse_kkt_plan(tq.h_pat, tq.a_pat, tq.n, backend="inline").sym,
+                      SupernodalSymbolic)
 
 
 @pytest.mark.parametrize("case", ["grid6", "QPB100", "LPB100"])
