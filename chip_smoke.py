@@ -177,6 +177,25 @@ then ``qp_family``: ``qp_solve`` with qpa, qpb and qpc on the 12 QP sweep fixtur
 own that uses the card, started before the build: the simplex is minutes of host work),
 each against tests/qp_family_oracle.json (the JAX package's status, iterations, objective
 within 1e-8 relative; a QPB run whose endgame parts by rounding by its stopping tolerance);
+then ``parallel``: the mesh layer (galahad_tpu_torch/parallel/) on ``make_mesh(devices=
+[cuda:0] * 4)``, one card (``cards_in_mesh`` 1: each shard's work and the fixed-order sums are
+checked, traffic between cards is not): (p1) ``batch_ipm_solve`` on 256 seeded convex dense QPs
+of n = 128, m = 64 over the batch axis (one vmapped step per shard, captured once; steps per
+shard = its slowest problem's iterations), 16 of them held to the single
+``ipm_solve_compiled`` of each (status, iterations, x within 1e-8 relative); (p2)
+``model_sharded_step`` at n = 4,096, m = 2,048 over the model axis within 1e-12 relative of
+``ipm_step`` on the whole QP; (p3) ``block_angular_solve`` with 64 scenarios of n = 256 and 64
+linking rows (residual and x, y against a dense solve of the 16,448-row system within 1e-10);
+(p4) ``sharded_kkt_solve`` on the strip grid at the flagship's width (D = 4 strips of w = 78
+columns, R = 316 rows: N = 198,765) twice (bitwise), residual against scipy's monolithic K <=
+1e-10 and x within 1e-8 of ``spsolve`` (run by the CPU pool beside the build), rows 1a, 1b, 2a,
+2b and 3 launched (the column solves' replays counted), plain code 0;
+then ``capi``: the port's C library built (tools: ``gcc``) and one C program, started as a
+process on the card before the ``parallel`` phase and joined after it, running
+tests/test_capi.py's two programs, ``galahad_tpu_cqp_solve`` on a dense QP of n = 1,024, m =
+512 (x printed with ``%.17g``: bitwise the same solver's called from Python here) and
+``galahad_tpu_sls_*`` on the flagship's H (n = 99,856: residual <= 1e-10, inertia (n, 0, 0),
+rows 1a / 1b launched in that process, by its own counters);
 then ``banded_path_kernels`` (both banded kernels on every block set the
 banded problems factor at their starting point, against the plain versions,
 at k = 125,000 those the CPU pool ran beside the build on the same blocks;
@@ -187,8 +206,9 @@ kernels, on the Schur-complement blocks of the banded LP at n = 20,000, with
 the library's dense Cholesky and triangular solves of the same matrix as
 their yardstick, and their critical-path steps, and the four kernels of the
 ``tr`` phase; rows 6a, 6b and 1a-3 carry ``launches_nlp``, their launches on the ``nlp``
-phase's path, and every entry ``launches_constrained`` and ``launches_linalg``, its launches
-on the ``constrained`` and ``linalg`` phases' paths)
+phase's path, and every entry ``launches_constrained``, ``launches_linalg``,
+``launches_parallel`` and ``launches_capi``, its launches on the ``constrained``, ``linalg``,
+``parallel`` (p4) and ``capi`` (the C process's) paths)
 and, as its last line, ``{"ok": true, "device": {...}}``.  Any failed
 phase ends the run with a non-zero exit code and no such line.  Without
 a CUDA device it exits non-zero at once; nothing here runs the port on
@@ -3701,7 +3721,7 @@ def pool_calls() -> dict:
     BANDED_HOST_PLAIN's starting-point block sets."""
     return {**nlp_cpu_calls(), **con_cpu_calls(), **lin_cpu_calls(),
             **{"banded_" + k: functools.partial(banded_cpu_reference, k)
-               for k in BANDED_HOST_PLAIN}}
+               for k in BANDED_HOST_PLAIN}, "parallel_spsolve": par_strip_reference}
 
 
 def nlp_cpu_reference(name):
@@ -5087,6 +5107,412 @@ def phase_qp_family(lpa_rows):
          rows=rows, seconds=time.perf_counter() - t0)
 
 
+# ---------------------------------------------------------------------------
+# parallel: the mesh layer with its slots on the one card; capi: the C library
+# ---------------------------------------------------------------------------
+
+PAR_SLOTS = 4                      # slots of each mesh, all on cuda:0 (cards_in_mesh 1)
+PAR_BATCH = (256, 128, 64)         # (p1) problems, n, m
+PAR_HELD = np.linspace(0, PAR_BATCH[0] - 1, 16).round().astype(np.int64)
+PAR_MODEL = (DENSE_N, DENSE_M)     # (p2) the dense line's size
+PAR_ANGULAR = (64, 256, 64)        # (p3) K scenarios of n, m linking rows
+PAR_STRIPS = (4, 78, K_FLAGSHIP)   # (p4) D, w, R: C = 315 grid columns, the flagship's width
+PAR_KERNELS = ("partial_ldlt", "ldlt_wide", "sweep_fwd", "sweep_bwd", "extend_add")
+PAR_TOL = dict(batch_x=1e-8, model=1e-12, angular=1e-10, strips_res=1e-10, strips_x=1e-8)
+
+
+def par_counts() -> dict:
+    c = launch_counts()
+    return {k: c[k] for k in PAR_KERNELS + FLAGSHIP_PLAIN}
+
+
+def par_rel(got, ref) -> float:
+    got, ref = (torch.as_tensor(v).double().cpu() for v in (got, ref))
+    return float((got - ref).abs().max() / max(1.0, float(ref.abs().max())))
+
+
+def par_strip_reference():
+    """(p4)'s monolithic solution by scipy's ``spsolve`` (the CPU pool runs it
+    beside the build)."""
+    from galahad_tpu_torch.parallel.supernodal_mesh import strip_grid_reference
+
+    return strip_grid_reference(*PAR_STRIPS)["x_ref"]
+
+
+def par_batch(mesh) -> dict:
+    """(p1): ``batch_ipm_solve`` on PAR_BATCH's problems over the batch axis,
+    16 of them held to the single ``ipm_solve_compiled`` of each."""
+    from galahad_tpu_torch.parallel import batch_ipm_solve
+
+    B, n, m = PAR_BATCH
+    arrays = [convex_qp_arrays(n, m, 1000 + s) for s in range(B)]
+    cols = [torch.as_tensor(np.stack([a[k] for a in arrays]), device="cuda")
+            for k in ("H", "g", "A", "c_l", "c_u", "x_l", "x_u")]
+    ctl = IPMControl()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    xs, _, _, st = batch_ipm_solve(*cols, ctl=ctl, mesh=mesh)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    status, iters = st.status.tolist(), st.iter.tolist()
+    check(all(s == 0 for s in status), f"parallel (p1): statuses {sorted(set(status))}")
+    per = B // PAR_SLOTS
+    shards = []
+    for k, run in enumerate(st.run):
+        slowest = max(iters[k * per:(k + 1) * per])
+        check(run.path == "graph", f"parallel (p1): shard {k} ran the {run.path} path")
+        check(run.direct_steps + run.replays == slowest,
+              f"parallel (p1): shard {k} made {run.direct_steps} + {run.replays} steps for a "
+              f"slowest problem of {slowest} iterations")
+        shards.append(dict(replays=run.replays, direct_steps=run.direct_steps,
+                           slowest_iterations=slowest, escalations=run.escalations,
+                           capture_s=run.capture_s))
+    t0 = time.perf_counter()
+    held = []
+    for i in PAR_HELD.tolist():
+        x, _, _, one = ipm_solve_compiled(make_qp(**arrays[i]), ctl)
+        err = par_rel(xs[i], x)
+        check((one.status, one.iter) == (status[i], iters[i]) and err <= PAR_TOL["batch_x"],
+              f"parallel (p1), problem {i}: batched {status[i]} / {iters[i]}, single "
+              f"{one.status} / {one.iter}, x {err:.3e} apart")
+        held.append(dict(problem=i, iterations=one.iter, x_rel=err))
+    torch.cuda.synchronize()
+    return dict(problems=B, n=n, m=m, slots=PAR_SLOTS, batch_s=batch_s,
+                single_s=time.perf_counter() - t0, held=len(held),
+                x_rel_max=max(h["x_rel"] for h in held),
+                iterations=dict(min=min(iters), max=max(iters)), shards=shards)
+
+
+def par_model(mesh) -> dict:
+    """(p2): ``model_sharded_step`` against ``ipm_step`` on the whole QP."""
+    from galahad_tpu_torch.core.problem import classify_bounds
+    from galahad_tpu_torch.parallel import model_sharded_step
+    from galahad_tpu_torch.qp.ipm import TENSOR_FIELDS, ipm_init, ipm_step
+
+    n, m = PAR_MODEL
+    a = convex_qp_arrays(n, m, 2, equalities=DENSE_EQ)
+    args = tuple(torch.as_tensor(a[k], device="cuda")
+                 for k in ("H", "g", "A", "c_l", "c_u", "x_l", "x_u"))
+    ctl = IPMControl()
+    st, sharded_s = synced_s(lambda: model_sharded_step(args, mesh, ctl))
+    qp = make_qp(**dict(zip(("H", "g", "A", "c_l", "c_u", "x_l", "x_u"), args)))
+    masks = classify_bounds(qp, ctl.infinity)
+    whole, whole_s = synced_s(lambda: ipm_step(qp, masks, ipm_init(qp, masks, ctl), ctl))
+    errs = {f: par_rel(getattr(st, f), getattr(whole, f)) for f in TENSOR_FIELDS}
+    worst = max(errs, key=errs.get)
+    check(errs[worst] <= PAR_TOL["model"], f"parallel (p2): {worst} {errs[worst]:.3e} off the "
+          f"unsharded step")
+    check(bool(torch.isfinite(st.x).all()), "parallel (p2): x is not finite")
+    return dict(n=n, m=m, slots=PAR_SLOTS, rel_max=errs[worst], worst_field=worst,
+                sharded_s=sharded_s, whole_s=whole_s)
+
+
+def par_angular(mesh) -> dict:
+    """(p3): ``block_angular_solve`` against a dense solve of the assembled
+    system."""
+    from galahad_tpu_torch.parallel import block_angular_residual, block_angular_solve
+
+    K, n, m = PAR_ANGULAR
+    rng = np.random.default_rng(3)
+    Bs = rng.normal(size=(K, n, n))
+    G = Bs @ np.swapaxes(Bs, -1, -2) / n + 4 * np.eye(n)
+    A = rng.normal(size=(K, m, n))
+    b = rng.normal(size=(K, n))
+    Cb = rng.normal(size=(m, m))
+    G, A, b, C, d = (torch.as_tensor(v, device="cuda")
+                     for v in (G, A, b, Cb @ Cb.T / m + np.eye(m), rng.normal(size=m)))
+    (x, y), solve_s = synced_s(lambda: block_angular_solve(mesh, G, A, b, C, d))
+    res = float(block_angular_residual(G, A, b, C, d, x, y))
+    N = K * n + m
+    M = torch.zeros((N, N), dtype=torch.float64, device="cuda")
+    for k in range(K):
+        M[k * n:(k + 1) * n, k * n:(k + 1) * n] = G[k]
+        M[k * n:(k + 1) * n, K * n:] = A[k].T
+        M[K * n:, k * n:(k + 1) * n] = A[k]
+    M[K * n:, K * n:] = -C
+    sol, dense_s = synced_s(lambda: torch.linalg.solve(M, torch.cat([b.reshape(-1), d])))
+    x_err, y_err = par_rel(x.reshape(-1), sol[:K * n]), par_rel(y, sol[K * n:])
+    check(res <= PAR_TOL["angular"] and max(x_err, y_err) <= PAR_TOL["angular"],
+          f"parallel (p3): residual {res:.3e}, x {x_err:.3e} and y {y_err:.3e} off the dense "
+          f"solve")
+    return dict(K=K, n=n, m=m, N=N, residual=res, x_rel=x_err, y_rel=y_err, solve_s=solve_s,
+                dense_solve_s=dense_s)
+
+
+def par_strips(mesh, x_ref) -> dict:
+    """(p4): ``sharded_kkt_solve`` on the strip grid at the flagship's width,
+    twice (bitwise), against scipy's monolithic K and ``spsolve``; the flat
+    kernels' launches as the card made them."""
+    from galahad_tpu_torch.parallel.supernodal_mesh import (build_strip_grid_kkt,
+                                                            sharded_kkt_residual,
+                                                            sharded_kkt_solve,
+                                                            strip_grid_reference)
+
+    (plan, parts), build_s = synced_s(lambda: build_strip_grid_kkt(*PAR_STRIPS,
+                                                                   reference=False))
+    parts.update(strip_grid_reference(*PAR_STRIPS, solve=False))
+    args = (parts["vals"], parts["B"], parts["Kss"], parts["b"], parts["bs"])
+    runs, stats = [], []
+    for _ in range(2):
+        before = par_counts()
+        stat = {}
+        out, s = synced_s(lambda: sharded_kkt_solve(mesh, plan, *args, stats=stat))
+        after = par_counts()
+        made = {k: after[k] - before[k] - stat["launches_in_captures"].get(k, 0)
+                + stat["launches_in_replays"].get(k, 0) for k in after}
+        runs.append((out, s, made))
+        stats.append(stat)
+    (xs, xsep), solve_s, made = runs[0]
+    check(torch.equal(xs, runs[1][0][0]) and torch.equal(xsep, runs[1][0][1]),
+          "parallel (p4): two runs are not bitwise equal")
+    res = sharded_kkt_residual(parts, xs, xsep)
+    x = np.concatenate([xs.cpu().numpy().ravel(), xsep.cpu().numpy()])
+    ref = np.concatenate([x_ref[I] for I in parts["interior"]] + [x_ref[parts["sep"]]])
+    x_err = float(np.max(np.abs(x - ref)) / max(1.0, np.max(np.abs(ref))))
+    check(res <= PAR_TOL["strips_res"] and x_err <= PAR_TOL["strips_x"],
+          f"parallel (p4): residual {res:.3e}, x {x_err:.3e} off spsolve")
+    return dict(D=PAR_STRIPS[0], w=PAR_STRIPS[1], R=PAR_STRIPS[2], N=parts["Kfull"].shape[0],
+                nd=parts["nd"], ns=parts["ns"], supernodes=plan.ns, build_s=build_s,
+                solve_s=[r[1] for r in runs], residual=res, x_rel_spsolve=x_err, bitwise=True,
+                column_replays=stats[0]["replays"], launches=made)
+
+
+def phase_parallel(host) -> dict:
+    """The mesh layer on one card (PAR_SLOTS slots on cuda:0): one
+    ``parallel`` line; returns (p4)'s launches of rows 1a-3 by kernel entry
+    name."""
+    from galahad_tpu_torch.parallel import make_mesh
+
+    t0 = time.perf_counter()
+    slots = [torch.device("cuda", 0)] * PAR_SLOTS
+    out = dict(cards_in_mesh=len({str(d) for d in slots}), slots=PAR_SLOTS)
+    out["p1_batch"], out["seconds_p1"] = synced_s(lambda: par_batch(make_mesh(devices=slots)))
+    out["p2_model"], out["seconds_p2"] = synced_s(
+        lambda: par_model(make_mesh(devices=slots, batch=1)))
+    out["p3_angular"], out["seconds_p3"] = synced_s(lambda: par_angular(make_mesh(devices=slots)))
+    x_ref, ref_s = host["parallel_spsolve"]
+    out["p4_strips"], out["seconds_p4"] = synced_s(
+        lambda: par_strips(make_mesh(devices=slots), x_ref))
+    out["p4_strips"]["spsolve_cpu_s"] = ref_s
+    made = out["p4_strips"]["launches"]
+    out["launches"] = {k: made[k] for k in PAR_KERNELS}
+    out["plain"] = {k: made[k] for k in FLAGSHIP_PLAIN}
+    check(all(v > 0 for v in out["launches"].values()),
+          f"parallel: a kernel of the strips' path was not launched: {out['launches']}")
+    check(all(v == 0 for v in out["plain"].values()),
+          f"parallel: plain code ran on the card: {out['plain']}")
+    out["seconds"] = time.perf_counter() - t0
+    emit("parallel", **out)
+    return out["launches"]
+
+
+CAPI_CQP = (1024, 512)             # the C program's cqp: n, m
+CAPI_COUNTS = "galahad_tpu_torch counts "
+
+
+def capi_test_programs(root) -> str:
+    """tests/test_capi.py's two C programs (``C_SRC``, ``C_SRC_PKG``, read
+    from the file, not imported) as the functions ``c_src`` and ``c_src_pkg``."""
+    import ast
+
+    with open(os.path.join(root, "tests", "test_capi.py")) as fh:
+        tree = ast.parse(fh.read())
+    src = {t.id: node.value.value for node in tree.body if isinstance(node, ast.Assign)
+           for t in node.targets if isinstance(t, ast.Name) and t.id in ("C_SRC", "C_SRC_PKG")}
+    return (src["C_SRC"].replace("int main(void)", "static int c_src(void)")
+            + src["C_SRC_PKG"].replace("int main(void)", "static int c_src_pkg(void)"))
+
+
+CAPI_MAIN = r"""
+static double *load(FILE *f, long n) {
+    double *v = malloc(n * sizeof(double));
+    if (fread(v, sizeof(double), n, f) != (size_t)n) exit(90);
+    return v;
+}
+
+static struct timespec t_last;
+
+static void lap(const char *what) {
+    struct timespec now;
+    clock_gettime(CLOCK_MONOTONIC, &now);
+    printf("t_%s %.6f\n", what,
+           (now.tv_sec - t_last.tv_sec) + 1e-9 * (now.tv_nsec - t_last.tv_nsec));
+    t_last = now;
+}
+
+int main(int argc, char **argv) {
+    setvbuf(stdout, NULL, _IOLBF, 0);
+    clock_gettime(CLOCK_MONOTONIC, &t_last);
+    int rc = c_src();
+    lap("c_src");
+    printf("c_src %d\n", rc);
+    if (rc) return 10 + rc;
+    rc = c_src_pkg();
+    printf("c_src_pkg %d\n", rc);
+    if (rc) return 40 + rc;
+    lap("c_src_pkg");
+
+    FILE *f = fopen(argv[1], "rb");
+    int32_t nm[2];
+    if (fread(nm, sizeof(int32_t), 2, f) != 2) return 91;
+    int n = nm[0], m = nm[1];
+    double *H = load(f, (long)n * n), *g = load(f, n), *A = load(f, (long)m * n);
+    double *cl = load(f, m), *cu = load(f, m), *xl = load(f, n), *xu = load(f, n);
+    fclose(f);
+    double *x = malloc(n * sizeof(double)), *y = malloc(m * sizeof(double));
+    double *z = malloc(n * sizeof(double));
+    galahad_tpu_inform inform;
+    int st = galahad_tpu_cqp_solve(NULL, n, m, H, g, 0.0, A, cl, cu, xl, xu, x, y, z, &inform);
+    lap("cqp");
+    printf("cqp %d %d %.17g\n", st, inform.iter, inform.obj);
+    FILE *o = fopen(argv[2], "w");
+    for (int i = 0; i < n; ++i) fprintf(o, "%.17g\n", x[i]);
+    fclose(o);
+    if (st != 0) return 70;
+
+    f = fopen(argv[3], "rb");
+    int64_t hdr[2];
+    if (fread(hdr, sizeof(int64_t), 2, f) != 2) return 92;
+    int32_t *rows = malloc(hdr[1] * sizeof(int32_t)), *cols = malloc(hdr[1] * sizeof(int32_t));
+    if (fread(rows, sizeof(int32_t), hdr[1], f) != (size_t)hdr[1]) return 93;
+    if (fread(cols, sizeof(int32_t), hdr[1], f) != (size_t)hdr[1]) return 94;
+    double *vals = load(f, hdr[1]), *b = load(f, hdr[0]);
+    fclose(f);
+    double *xs = malloc(hdr[0] * sizeof(double));
+    lap("cqp_write");
+    int64_t h = galahad_tpu_sls_analyse((int32_t)hdr[0], hdr[1], rows, cols, 0);
+    lap("sls_analyse");
+    int sf = galahad_tpu_sls_factorize(h, vals, 0.0);
+    lap("sls_factorize");
+    int ss = galahad_tpu_sls_solve(h, b, xs);
+    lap("sls_solve");
+    int32_t inertia[3] = {-1, -1, -1};
+    int si = galahad_tpu_sls_inertia(h, inertia);
+    printf("sls %lld %d %d %d %d %d %d\n", (long long)h, sf, ss, si, inertia[0], inertia[1],
+           inertia[2]);
+    o = fopen(argv[4], "w");
+    for (long i = 0; i < hdr[0]; ++i) fprintf(o, "%.17g\n", xs[i]);
+    fclose(o);
+    galahad_tpu_sls_free(h);
+    galahad_tpu_terminate();
+    return (h > 0 && sf == 0 && ss == 0 && si == 0) ? 0 : 80;
+}
+"""
+
+
+def capi_files(work):
+    """The C program's inputs: the cqp's dense QP and the flagship's H with
+    a right-hand side, as raw binary files; returns them and the arrays."""
+    n, m = CAPI_CQP
+    a = convex_qp_arrays(n, m, 4)
+    qp_path = os.path.join(work, "cqp.bin")
+    with open(qp_path, "wb") as fh:
+        fh.write(np.array([n, m], np.int32).tobytes())
+        for k in ("H", "g", "A", "c_l", "c_u", "x_l", "x_u"):
+            fh.write(np.ascontiguousarray(a[k], np.float64).tobytes())
+    nh, _, (hr, hc, hv), _ = grid_qp_coo(K_FLAGSHIP)
+    b = np.random.default_rng(10).normal(size=nh)
+    sls_path = os.path.join(work, "sls.bin")
+    with open(sls_path, "wb") as fh:
+        fh.write(np.array([nh, len(hr)], np.int64).tobytes())
+        fh.write(hr.astype(np.int32).tobytes() + hc.astype(np.int32).tobytes())
+        fh.write(hv.astype(np.float64).tobytes() + b.tobytes())
+    return qp_path, sls_path, a, (nh, hr, hc, hv, b)
+
+
+class CapiProcess:
+    """The ``capi`` phase's C program, run as a process on the card: the port's
+    C library built, the program compiled and its inputs written, then the
+    process started (before the ``parallel`` phase, beside which it runs: it
+    is host work most of its time, the interpreter's start and SLS's symbolic
+    analysis); :func:`phase_capi` joins it."""
+
+    def __init__(self):
+        import tempfile
+
+        from galahad_tpu_torch import capi_impl
+        from galahad_tpu_torch.interfaces.c.build import HERE, build_capi
+
+        self.t0 = time.perf_counter()
+        root = os.path.dirname(os.path.abspath(__file__))
+        self.so, self.build_s = _host_s(build_capi)
+        self.work = tempfile.mkdtemp(prefix="capi_")
+        src = os.path.join(self.work, "smoke.c")
+        with open(src, "w") as fh:
+            fh.write("#include <stdlib.h>\n#include <time.h>\n" + capi_test_programs(root)
+                     + CAPI_MAIN)
+        exe = os.path.join(self.work, "smoke")
+        cc = subprocess.run(["gcc", "-O2", "-o", exe, src, f"-I{HERE}", self.so,
+                             f"-Wl,-rpath,{os.path.dirname(self.so)}"],
+                            capture_output=True, text=True)
+        check(cc.returncode == 0, f"capi: the C program does not compile: {cc.stderr[-2000:]}")
+        qp_path, sls_path, self.a, self.sls = capi_files(self.work)
+        self.x_path = os.path.join(self.work, "x.txt")
+        self.xs_path = os.path.join(self.work, "xs.txt")
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join([root] + [p for p in sys.path if p]))
+        env[capi_impl.COUNTS_VARIABLE] = "1"
+        env.pop(capi_impl.DEVICE_VARIABLE, None)
+        self.t_start = time.perf_counter()
+        self.proc = subprocess.Popen([exe, qp_path, self.x_path, sls_path, self.xs_path],
+                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                     env=env, cwd=self.work)
+
+    def join(self):
+        """(stdout, stderr, return code, wall seconds) of the process."""
+        out, err = self.proc.communicate(timeout=300)
+        return out, err, self.proc.returncode, time.perf_counter() - self.t_start
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def phase_capi(capi: CapiProcess) -> dict:
+    """The C program's results held: one ``capi`` line; returns the C
+    process's launches of rows 1a and 1b by kernel entry name."""
+    import scipy.sparse as sp
+
+    from galahad_tpu_torch import capi_impl
+
+    t_join = time.perf_counter()
+    out, err, rc, process_s = capi.join()
+    waited_s = time.perf_counter() - t_join
+    check(rc == 0, f"capi: the C program exited {rc}: {out[-1500:]} {err[-2500:]}")
+    lines = out.splitlines()
+    counts = json.loads([ln for ln in lines if ln.startswith(CAPI_COUNTS)][-1][len(CAPI_COUNTS):])
+    fields = {ln.split()[0]: ln.split()[1:] for ln in lines if not ln.startswith(CAPI_COUNTS)}
+    cqp, sls = fields["cqp"], fields["sls"]
+    x_c = np.loadtxt(capi.x_path)
+    x_py, _, _, st = ipm_solve(make_qp(**capi.a),
+                               capi_impl.cqp_control(200, 0, 2, 0, 1e-6, 1e-6, 1e-6))
+    x_py = x_py.cpu().numpy()
+    check((int(cqp[0]), int(cqp[1])) == (st.status, st.iter) and np.array_equal(x_c, x_py),
+          f"capi: the C program's cqp ({cqp[0]}, {cqp[1]}) is not the Python call's "
+          f"({st.status}, {st.iter}) bit for bit: {np.max(np.abs(x_c - x_py)):.3e} apart")
+    nh, hr, hc, hv, b = capi.sls
+    H = sp.coo_matrix((hv, (hr, hc)), shape=(nh, nh))
+    H = (H + sp.tril(H, -1).T).tocsr()
+    xs = np.loadtxt(capi.xs_path)
+    res = float(np.linalg.norm(H @ xs - b) / np.linalg.norm(b))
+    inertia = [int(v) for v in sls[4:7]]
+    check(res <= 1e-10 and inertia == [nh, 0, 0],
+          f"capi: SLS residual {res:.3e}, inertia {inertia}")
+    launches = dict(partial_ldlt=counts["partial_ldlt"], ldlt_wide=counts["ldlt_wide"])
+    check(all(v > 0 for v in launches.values()) and counts["ldlt_wide_plain"] == 0,
+          f"capi: rows 1a / 1b in the C process: {counts}")
+    out = dict(library=os.path.basename(capi.so), build_s=capi.build_s,
+               process_wall_s=process_s, waited_after_parallel_s=waited_s,
+               c_seconds={k[2:]: float(v[0]) for k, v in fields.items() if k.startswith("t_")},
+               c_src=" ".join(["status"] + fields["status"]),
+               cqp=dict(n=CAPI_CQP[0], m=CAPI_CQP[1], status=st.status, iterations=st.iter,
+                        bitwise_python=True),
+               sls=dict(n=nh, residual=res, inertia=inertia), launches=launches,
+               plain=dict(ldlt_wide_plain=counts["ldlt_wide_plain"]),
+               seconds=time.perf_counter() - capi.t0)
+    emit("capi", **out)
+    return launches
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -5141,6 +5567,12 @@ def main_phases(family_lpa) -> dict:
     con_launches = phase_constrained(nlp_host, nlp_cpu.seconds)
     lin_launches = phase_linalg(nlp_host, flat_x)
     phase_qp_family(family_lpa.join())
+    capi = CapiProcess()
+    try:
+        par_launches = phase_parallel(nlp_host)
+        capi_launches = phase_capi(capi)
+    finally:
+        capi.close()
     timed = phase_banded_path_kernels(nlp_host)
     line["kernels"] += banded_kernel_entries(banded_launches, timed) + tr_entries
     for entry in line["kernels"]:
@@ -5148,6 +5580,8 @@ def main_phases(family_lpa) -> dict:
             entry["launches_nlp"] = nlp_launches[entry["name"]]
         entry["launches_constrained"] = con_launches[entry["name"]]
         entry["launches_linalg"] = lin_launches.get(entry["name"], 0)
+        entry["launches_parallel"] = par_launches.get(entry["name"], 0)
+        entry["launches_capi"] = capi_launches.get(entry["name"], 0)
     return line
 
 

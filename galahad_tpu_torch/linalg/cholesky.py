@@ -62,7 +62,7 @@ def chol_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def chol_factor_shifted(M: torch.Tensor, shift0=0.0, growth: float = 100.0,
-                        max_tries: int = 12):
+                        max_tries: int = 12, masked: bool = False):
     """Factorize M + shift I, escalating the shift by ``growth`` on failure.
 
     Returns (L, shift, ok) with ``shift`` and ``ok`` 0-d tensors.
@@ -70,7 +70,10 @@ def chol_factor_shifted(M: torch.Tensor, shift0=0.0, growth: float = 100.0,
     uses ``eps * max(max|M|, 1)``, then each try multiplies by ``growth``,
     at most ``max_tries`` fallbacks (the JAX package's sequence).  With
     ``max_tries=0`` only the first try is made and nothing is read on the
-    host; each fallback reads ``ok`` once."""
+    host; each fallback reads ``ok`` once.  ``masked=True`` reads nothing:
+    all ``max_tries`` fallbacks are made and a select keeps the first that
+    succeeds (the same bits; the form a batched step under ``torch.func.vmap``
+    takes, as the JAX package's vmapped ``while_loop`` does)."""
     n = M.shape[-1]
     eye = torch.eye(n, dtype=M.dtype, device=M.device)
     shift = scalar_like(shift0, M)
@@ -84,6 +87,14 @@ def chol_factor_shifted(M: torch.Tensor, shift0=0.0, growth: float = 100.0,
         return L, shift, ok
     eps = torch.finfo(M.dtype).eps
     base = eps * torch.clamp(M.abs().max(), min=1.0)
+    if masked:
+        for _ in range(max_tries):
+            s_try = torch.where(shift == 0, base, shift * growth)
+            L_try, ok_try = try_factor(s_try)
+            L = torch.where(ok, L, L_try)
+            shift = torch.where(ok, shift, s_try)
+            ok = ok | ok_try
+        return L, shift, ok
     tries = 0
     while not bool(ok) and tries < max_tries:
         shift = torch.where(shift == 0, base, shift * growth)

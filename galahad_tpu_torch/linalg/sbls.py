@@ -71,7 +71,7 @@ def _g_solve(f: SBLSFactors, b):
 
 
 def sbls_factorize(G, A, C_diag, *, g_is_diag: bool = False, rho=0.0, delta=0.0,
-                   max_tries: int = 12) -> SBLSFactors:
+                   max_tries: int = 12, masked: bool = False) -> SBLSFactors:
     """Factorize K = [[G, A'], [A, -C]] via the SPD Schur complement.
 
     G is (n, n) dense, or (n,) diagonal when ``g_is_diag`` (the LP /
@@ -79,7 +79,7 @@ def sbls_factorize(G, A, C_diag, *, g_is_diag: bool = False, rho=0.0, delta=0.0,
     here merely an optimization).  C_diag is (m,); zero entries are
     equality rows.  ``max_tries``: the shift escalations of each Cholesky
     factorization (:func:`cholesky.chol_factor_shifted`); 0 makes the first
-    try only, with no host read."""
+    try only, with no host read; ``masked`` makes them all, with none."""
     m = A.shape[-2]
     dt = A.dtype
     rho = scalar_like(rho, A)
@@ -92,7 +92,7 @@ def sbls_factorize(G, A, C_diag, *, g_is_diag: bool = False, rho=0.0, delta=0.0,
         ok_g = (g_diag > 0).all()
         chol_g = torch.ones((), dtype=torch.bool, device=A.device)
     else:
-        L_G, rho, ok_g = chol_factor_shifted(G, rho, max_tries=max_tries)
+        L_G, rho, ok_g = chol_factor_shifted(G, rho, max_tries=max_tries, masked=masked)
         chol_g = ok_g
         g_diag = None
         W = chol_solve(L_G, A.mT)          # G^-1 A'
@@ -100,7 +100,8 @@ def sbls_factorize(G, A, C_diag, *, g_is_diag: bool = False, rho=0.0, delta=0.0,
 
     S = AGiAt + torch.eye(m, dtype=dt, device=A.device) * delta
     S.diagonal(dim1=-2, dim2=-1).add_(C_diag)
-    L_S, delta_extra, ok_s = chol_factor_shifted(S, 0.0, max_tries=max_tries)
+    L_S, delta_extra, ok_s = chol_factor_shifted(S, 0.0, max_tries=max_tries,
+                                                masked=masked)
     return SBLSFactors(L_G=L_G, g_diag=g_diag, L_S=L_S, A=A, C_diag=C_diag, rho=rho,
                        delta=delta + delta_extra, ok=ok_g & ok_s, chol_ok=chol_g & ok_s,
                        g_is_diag=g_is_diag)

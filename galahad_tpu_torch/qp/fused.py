@@ -98,9 +98,10 @@ class Stepper:
     ``graph=True`` (a state on the card) the first step runs directly and
     every later one is a replay of one capture.  ``sweep_levels``: the sweep
     tables of the solve, whose wait status is checked at every fetch.
-    ``escalate``: None, or (index of the needs-shift flag in the monitor,
-    the step that takes a flagged iteration again with the escalating
-    shift)."""
+    ``escalate``: None, or (a test of the monitor's values that is true
+    where a step set the needs-shift flag, the step that takes a flagged
+    iteration again with the escalating shift).  The state may be a batch
+    (its monitor a row per problem): the step then maps over it."""
 
     def __init__(self, step, st, fields, monitor, graph: bool, sweep_levels=(),
                  escalate=None):
@@ -193,7 +194,7 @@ class Stepper:
         the needs-shift flag, those after the escalated step that takes the
         flagged iteration again (run directly; on the graph path its result
         is copied into the static buffers)."""
-        if self.escalate is None or not values[self.escalate[0]]:
+        if self.escalate is None or not self.escalate[0](values):
             return values
         new = self.escalate[1](self.state)
         self.stats.escalations += 1
@@ -250,7 +251,7 @@ class Stepper:
             enqueue(1 - slot)
             done[slot].synchronize()
             values = host[slot].tolist()
-            flagged = self.escalate is not None and values[self.escalate[0]]
+            flagged = self.escalate is not None and self.escalate[0](values)
             if flagged:
                 done[1 - slot].synchronize()
                 values = self._settle(values)

@@ -45,6 +45,7 @@ What differs from the JAX module, and why:
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Any
 
@@ -53,7 +54,7 @@ import torch
 
 from ..core.checkpoint import checkpoint_init, checkpoint_update
 from ..core.config import control as control_dc
-from ..core.problem import H_KINDS, INFINITY, BoundMasks, check_qp, classify_bounds, make_qp
+from ..core.problem import H_KINDS, INFINITY, QP, BoundMasks, check_qp, classify_bounds, make_qp
 from ..core.sparse import make_sparse_qp
 from ..core.status import Status
 from ..linalg import supernodal_flat as _flat
@@ -171,8 +172,9 @@ def device_state(st: IPMState) -> IPMState:
 
 
 def monitor(st: IPMState):
-    """The monitor tensor of ``st`` (fields ``MONITOR``)."""
-    return torch.stack([getattr(st, f).to(st.x.dtype) for f in MONITOR])
+    """The monitor tensor of ``st`` (fields ``MONITOR``; of a batched state a
+    row per problem)."""
+    return torch.stack([getattr(st, f).to(st.x.dtype) for f in MONITOR], dim=-1)
 
 
 def host_state(st: IPMState, values) -> IPMState:
@@ -682,18 +684,20 @@ def _series_arc(qp, masks, st: IPMState, ctl, solve, sigma, mu_now):
     return d, alpha
 
 
-def _dense_kkt(qp, D_x, C_diag, ctl, escalate: bool):
+def _dense_kkt(qp, D_x, C_diag, ctl, escalate):
     """The KKT solve of a dense ``QP`` (the JAX ``ipm_step``'s dense
     branch): SBLS's Schur complement when there are constraints, else a
     Cholesky factorization of G (or a division by a diagonal G).  Returns
     (kkt_solve, chol_ok): ``chol_ok`` is a 0-d flag, False when a Cholesky
     factorization failed at its first try (None where there is none).
     ``escalate`` runs the JAX package's shift escalation instead, with one
-    host read per try."""
+    host read per try; ``escalate="masked"`` makes every try with no host
+    read and keeps the first that succeeds (the batched step's form)."""
     from ..linalg.cholesky import chol_factor_shifted, chol_solve
     from ..linalg.sbls import sbls_factorize, sbls_solve
 
     tries = CHOL_MAX_TRIES if escalate else 0
+    masked = escalate == "masked"
     diag_G = qp.h_kind != "dense"
     if diag_G:
         G = qp.H_diag() + D_x
@@ -703,7 +707,7 @@ def _dense_kkt(qp, D_x, C_diag, ctl, escalate: bool):
         apply_G = lambda v: G @ v          # noqa: E731
     if qp.m > 0:
         f = sbls_factorize(G, qp.A, C_diag, g_is_diag=diag_G, rho=ctl.rho,
-                           delta=ctl.delta, max_tries=tries)
+                           delta=ctl.delta, max_tries=tries, masked=masked)
 
         def kkt_solve(b1, b2):
             dx, v = sbls_solve(f, b1, b2, apply_G=apply_G, refine=ctl.refine)
@@ -712,11 +716,11 @@ def _dense_kkt(qp, D_x, C_diag, ctl, escalate: bool):
         return kkt_solve, f.chol_ok
     if diag_G:
         return (lambda b1, b2: (b1 / G, b2)), None
-    L, _, ok = chol_factor_shifted(G, ctl.rho, max_tries=tries)
+    L, _, ok = chol_factor_shifted(G, ctl.rho, max_tries=tries, masked=masked)
     return (lambda b1, b2: (chol_solve(L, b1), b2)), ok
 
 
-def ipm_step(qp, masks, st: IPMState, ctl: IPMControl, escalate: bool = False) -> IPMState:
+def ipm_step(qp, masks, st: IPMState, ctl: IPMControl, escalate=False) -> IPMState:
     """One iteration on a ``SparseQP``, a ``BandedQP`` or a dense ``QP``:
     barrier diagonals -> KKT factorize -> predictor solve -> corrector
     solve(s) or a series arc on the same factors -> step -> update (the body
@@ -733,7 +737,8 @@ def ipm_step(qp, masks, st: IPMState, ctl: IPMControl, escalate: bool = False) -
     factorization failed at its first try: it sets ``needs_shift``
     instead, and the driver (qp/fused.py) takes that iteration again with
     ``escalate=True``, the JAX package's escalating shift, which reads the
-    host once per try."""
+    host once per try (``escalate="masked"``: every try, no host read, the
+    form :class:`BatchedSolve` maps over a batch)."""
     st = device_state(st)
     D_x, C_diag = _barrier_diagonals(qp, masks, st, ctl)
     if hasattr(qp, "build_kkt"):
@@ -895,8 +900,9 @@ def _stepper(qp, masks, st: IPMState, ctl: IPMControl) -> Stepper:
 
         plan = sparse_kkt_plan(qp.h_pat, qp.a_pat, qp.n)
         levels = [lvp["sweep"] for lvp in _flat._device_plan(plan.sym, qp.g.device)["levels"]]
+    flag = MONITOR.index("needs_shift")
     escalate = None if hasattr(qp, "build_kkt") else (
-        MONITOR.index("needs_shift"), lambda s: ipm_step(qp, masks, s, ctl, escalate=True))
+        lambda v: bool(v[flag]), lambda s: ipm_step(qp, masks, s, ctl, escalate=True))
     return Stepper(lambda s: ipm_step(qp, masks, s, ctl), st, TENSOR_FIELDS,
                    monitor, graph=on_card and fused_enabled(), sweep_levels=levels,
                    escalate=escalate)
@@ -1043,14 +1049,135 @@ def ipm_solve(qp, ctl: IPMControl = IPMControl()):
     return x, y, z, st
 
 
+# the tensors of a dense QP that a batch stacks (those that are not None)
+QP_TENSORS = ("H", "g", "A", "c_l", "c_u", "x_l", "x_u", "x", "y")
+MASK_FIELDS = tuple(f.name for f in dataclasses.fields(BoundMasks))
+
+
+def _fields(obj, names) -> tuple:
+    return tuple(getattr(obj, f) for f in names)
+
+
+def _rows_where(flag, a: tuple, b: tuple) -> tuple:
+    """Per problem of a batch (``flag`` (B,)), the fields of ``a`` where it
+    holds, else those of ``b``."""
+    return tuple(torch.where(flag.view((-1,) + (1,) * (x.dim() - 1)), x, y)
+                 for x, y in zip(a, b))
+
+
+def is_batch(qp) -> bool:
+    """True for a stack of same-shape dense QPs (``g`` of shape (B, n))."""
+    return isinstance(qp, QP) and qp.g.dim() == 2
+
+
+class BatchedSolve:
+    """The compiled solve of a stack of same-shape dense QPs (``qp.g`` (B,
+    n), ``qp.A`` (B, m, n), ...; ``h_kind`` and ``f`` shared): the JAX
+    package's ``vmap`` of ``ipm_solve_compiled``.  One step is
+    ``torch.func.vmap`` of :func:`ipm_step` over the batch, run by one
+    :class:`~.fused.Stepper` (on the card captured once as a CUDA graph and
+    replayed); a halted problem's step changes none of its bits, as the
+    vmapped ``while_loop`` freezes it.  A step whose first Cholesky try
+    failed on some problems is taken again at the fetch that reads their
+    flags, by the vmapped step with every shift try made and the first that
+    succeeds kept (``escalate="masked"``), and the result is kept for those
+    problems only: no host read per problem.
+
+    ``stepper.advance`` / ``stepper.fetch`` with :meth:`stop` run it a fetch
+    at a time (parallel/mesh.py interleaves the shards of a mesh so);
+    :meth:`run` runs it to the end.  :meth:`finish` gives (xs, ys, zs,
+    state), the state's fields stacked per problem as tensors on the
+    batch's device, and ``state.run`` the stepper's ``RunStats``."""
+
+    def __init__(self, qp, ctl: IPMControl = IPMControl()):
+        _check_control(ctl)
+        if qp.g.device.type == "cuda":
+            torch.backends.cuda.matmul.allow_tf32 = False
+        self.ctl = ctl
+        names = tuple(f for f in QP_TENSORS if getattr(qp, f) is not None)
+        self.qts = _fields(qp, names)
+
+        def one(qt):
+            return dataclasses.replace(qp, **dict(zip(names, qt)))
+
+        def init(qt):
+            q = one(qt)
+            masks = classify_bounds(q, ctl.infinity)
+            return _fields(masks, MASK_FIELDS), _fields(ipm_init(q, masks, ctl), TENSOR_FIELDS)
+
+        def step(qt, mt, sf, escalate):
+            q = one(qt)
+            st = ipm_step(q, BoundMasks(*mt), IPMState(**dict(zip(TENSOR_FIELDS, sf))), ctl,
+                          escalate=escalate)
+            return _fields(st, TENSOR_FIELDS)
+
+        def extract(qt, mt, sf):
+            return extract_solution(one(qt), BoundMasks(*mt),
+                                    IPMState(**dict(zip(TENSOR_FIELDS, sf))))
+
+        vmap = torch.func.vmap
+        self.mts, sf = vmap(init)(self.qts)
+        self._step = vmap(functools.partial(step, escalate=False))
+        self._escalated = vmap(functools.partial(step, escalate="masked"))
+        self._extract = vmap(extract)
+        st = IPMState(**{f: v.contiguous() for f, v in zip(TENSOR_FIELDS, sf)})
+        self.stepper = None
+        self.state = st
+        if ctl.maxit > 0:
+            flag = MONITOR.index("needs_shift")
+            self.stepper = Stepper(
+                self.step, st, TENSOR_FIELDS, monitor,
+                graph=qp.g.device.type == "cuda" and fused_enabled(),
+                escalate=(lambda rows: any(r[flag] for r in rows), self.escalated_step))
+
+    def _with(self, st: IPMState, fields: tuple) -> IPMState:
+        return dataclasses.replace(st, **dict(zip(TENSOR_FIELDS, fields)))
+
+    def step(self, st: IPMState) -> IPMState:
+        """One vmapped iteration of the whole batch."""
+        return self._with(st, self._step(self.qts, self.mts, _fields(st, TENSOR_FIELDS)))
+
+    def escalated_step(self, st: IPMState) -> IPMState:
+        """The flagged problems' iteration taken again with the escalating
+        shift; every other problem keeps its bits."""
+        cur = _fields(st, TENSOR_FIELDS)
+        esc = self._escalated(self.qts, self.mts, cur)
+        return self._with(st, _rows_where(st.needs_shift, esc, cur))
+
+    def stop(self, rows) -> bool:
+        """True when every problem of the batch has halted or reached maxit."""
+        halt, it = MONITOR.index("halt"), MONITOR.index("iter")
+        return all(r[halt] != 0 or r[it] >= self.ctl.maxit for r in rows)
+
+    def run(self):
+        if self.stepper is not None:
+            self.stepper.run_to_halt(self.stop)
+        return self.finish()
+
+    def finish(self):
+        if self.stepper is None:
+            return self._extract(self.qts, self.mts, _fields(self.state, TENSOR_FIELDS)) + (
+                self.state,)
+        st = self.stepper.snapshot()
+        st.run = _finish_stats(self.stepper, int(st.iter.max()))
+        xs, ys, zs = self._extract(self.qts, self.mts, _fields(st, TENSOR_FIELDS))
+        return xs, ys, zs, st
+
+
 def ipm_solve_compiled(qp, ctl: IPMControl = IPMControl()):
     """The whole solve with no decision on the host: iterations until the
     state halts or reaches ``ctl.maxit`` (counterpart of the JAX package's
     ``ipm_solve_compiled``, a ``lax.while_loop``).  On the card it replays
     the same captured step as :func:`ipm_solve`, one replay ahead of the
     host's read of the halt flag.  Returns (x, y, z, state) without an
-    inform; the state's scalar fields are Python values.  Batches of
-    same-pattern problems (the JAX version's ``vmap`` use) are not ported."""
+    inform; the state's scalar fields are Python values.
+
+    A stack of same-shape dense QPs (``qp.g`` (B, n), the JAX version's
+    ``vmap`` use; parallel/mesh.py ``batch_ipm_solve``) runs as one
+    :class:`BatchedSolve`: one vmapped step for the batch, captured once, and
+    stacked (xs, ys, zs, state) whose scalar fields are (B,) tensors."""
+    if is_batch(qp):
+        return BatchedSolve(qp, ctl).run()
     _check_kind(qp, "ipm_solve_compiled")
     _check_control(ctl)
     if qp.g.device.type == "cuda":

@@ -1727,3 +1727,131 @@ def test_psls_band_on_the_card_matches_its_plain_version(cuda):
         assert counts["factor_plain"] == 0 and counts["solve_plain"] == 0, (kind, counts)
         ref = psls_build(H, PSLSControl(preconditioner=kind), device="cpu")(torch.as_tensor(v))
         assert float((w.cpu() - ref).abs().max()) <= 1e-11 * max(1.0, float(ref.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# The multi-device layer with its slots on the one card, and the C interface
+# ---------------------------------------------------------------------------
+
+
+def _stacked(arrays):
+    return {k: np.stack([a[k] for a in arrays]) for k in arrays[0] if k != "h_kind"}
+
+
+@pytest.mark.parametrize("singular", [False, True], ids=["plain", "escalating"])
+def test_batched_ipm_on_the_card_matches_each_single_solve(cuda, singular):
+    """``ipm_solve_compiled`` of a stack on the card: one captured vmapped
+    step, every problem the status and iterations of its single solve, x
+    within 1e-8; with a free variable on a zero row of H and a zero column of
+    A in every other problem, the flagged problems' steps taken again with the
+    masked shift (escalations counted) and the others untouched."""
+    from galahad_tpu_torch import make_qp
+    from galahad_tpu_torch.qp.ipm import IPMControl, ipm_solve_compiled
+
+    from _torch_port_helpers import random_convex_qp_arrays
+
+    arrays = [random_convex_qp_arrays(24, 10, 40 + s) for s in range(8)]
+    if singular:
+        for a in arrays[::2]:
+            a["H"][0, :] = a["H"][:, 0] = 0.0
+            a["A"][:, 0] = 0.0
+            a["x_l"][0], a["x_u"][0], a["g"][0] = -1e20, 1e20, 0.0
+    ctl = IPMControl(maxit=80)
+    xs, _, _, st = ipm_solve_compiled(make_qp(**_stacked(arrays), device=cuda), ctl)
+    assert st.run.path == "graph" and st.run.replays > 0
+    assert (st.run.escalations > 0) == singular
+    for i, a in enumerate(arrays):
+        x, _, _, one = ipm_solve_compiled(make_qp(**a, device=cuda), ctl)
+        assert (int(st.status[i]), int(st.iter[i])) == (one.status, one.iter), i
+        assert float((xs[i] - x).abs().max()) <= 1e-8 * max(1.0, float(x.abs().max())), i
+
+
+def test_mesh_layer_on_one_card_matches_the_cpu(cuda):
+    """``batch_ipm_solve`` over four slots of cuda:0, ``model_sharded_step``
+    and ``block_angular_solve`` against the same calls on eight CPU slots."""
+    from galahad_tpu_torch.parallel import (batch_ipm_solve, block_angular_solve, make_mesh,
+                                            model_sharded_step)
+    from galahad_tpu_torch.qp.ipm import TENSOR_FIELDS, IPMControl
+
+    from _torch_port_helpers import random_convex_qp_arrays
+
+    card, cpu = make_mesh(devices=[cuda] * 4), make_mesh(devices=["cpu"] * 8)
+    s = _stacked([random_convex_qp_arrays(16, 6, 7 + i) for i in range(8)])
+    cols = [s[k] for k in ("H", "g", "A", "c_l", "c_u", "x_l", "x_u")]
+    xg, _, _, sg = batch_ipm_solve(*cols, ctl=IPMControl(), mesh=card)
+    xc, _, _, sc = batch_ipm_solve(*cols, ctl=IPMControl(), mesh=cpu)
+    assert sg.iter.tolist() == sc.iter.tolist() and sg.status.tolist() == [0] * 8
+    assert all(r.path == "graph" for r in sg.run)
+    assert float((xg.cpu() - xc).abs().max()) <= 1e-8
+
+    a = random_convex_qp_arrays(64, 24, 3)
+    args = tuple(a[k] for k in ("H", "g", "A", "c_l", "c_u", "x_l", "x_u"))
+    stg = model_sharded_step(args, make_mesh(devices=[cuda] * 4, batch=1))
+    stc = model_sharded_step(args, make_mesh(devices=["cpu"] * 8, batch=1))
+    for f in TENSOR_FIELDS:
+        ref = getattr(stc, f).double()
+        err = float((getattr(stg, f).double().cpu() - ref).abs().max())
+        assert err <= 1e-12 * max(1.0, float(ref.abs().max())), f
+
+    r = np.random.default_rng(1)
+    K, n, m = 16, 12, 5
+    Bs = r.normal(size=(K, n, n))
+    G = Bs @ np.swapaxes(Bs, -1, -2) + 4 * np.eye(n)
+    arrays = (G, r.normal(size=(K, m, n)), r.normal(size=(K, n)), np.eye(m), r.normal(size=m))
+    xg, yg = block_angular_solve(card, *(torch.as_tensor(v, device=cuda) for v in arrays))
+    xc, yc = block_angular_solve(cpu, *(torch.as_tensor(v) for v in arrays))
+    assert float((xg.cpu() - xc).abs().max()) <= 1e-10
+    assert float((yg.cpu() - yc).abs().max()) <= 1e-10
+
+
+def test_sharded_kkt_solve_on_the_card_replays_one_graph_per_strip(cuda):
+    """The strip grid on four slots of cuda:0: the CPU run's x within 1e-12,
+    two runs bitwise, each strip's column solves replays of one captured
+    solve, rows 1a-3 launched and no plain call."""
+    from galahad_tpu_torch.parallel import make_mesh
+    from galahad_tpu_torch.parallel.supernodal_mesh import (build_strip_grid_kkt,
+                                                            sharded_kkt_residual,
+                                                            sharded_kkt_solve)
+    from galahad_tpu_torch.qp.fused import launch_counts
+
+    plan, parts = build_strip_grid_kkt(4, 5, 12)
+    args = (parts["vals"], parts["B"], parts["Kss"], parts["b"], parts["bs"])
+    xc, sc = sharded_kkt_solve(make_mesh(devices=["cpu"] * 4), plan, *args)
+    mesh = make_mesh(devices=[cuda] * 4)
+    before = launch_counts()
+    stats = {}
+    xg, sg = sharded_kkt_solve(mesh, plan, *args, stats=stats)
+    after = launch_counts()
+    assert stats["replays"] == 4 * (parts["ns"] + 2)
+    for k in ("partial_ldlt", "extend_add", "sweep_fwd", "sweep_bwd"):
+        assert after[k] > before[k], k
+    for k in ("ldlt_wide_plain", "extend_add_plain", "sweep_plain"):
+        assert after[k] == before[k], k
+    assert sharded_kkt_residual(parts, xg, sg) < 1e-10
+    assert float((xg.cpu() - xc).abs().max()) <= 1e-12
+    assert float((sg.cpu() - sc).abs().max()) <= 1e-12
+    xg2, sg2 = sharded_kkt_solve(mesh, plan, *args)
+    assert torch.equal(xg, xg2) and torch.equal(sg, sg2)
+
+
+def test_c_interface_on_the_card_matches_its_cpu_run(cuda, tmp_path):
+    """tests/test_torch_capi.py's C program with every entry, run on the card
+    (no GALAHAD_TPU_TORCH_DEVICE) and on the CPU: every printed number within
+    1e-10 (relative to max(1, |value|))."""
+    import shutil
+
+    from test_torch_capi import C_FULL, _parse, _run_c
+
+    from galahad_tpu_torch.interfaces.c.build import build_capi
+
+    if shutil.which("gcc") is None:
+        pytest.skip("no C compiler")
+    lib = build_capi()
+    card = _run_c(tmp_path, lib, C_FULL, "full_card", device=None)
+    host = _run_c(tmp_path, lib, C_FULL, "full_cpu", device="cpu")
+    assert card.returncode == 0 and host.returncode == 0, (card.stderr[-1500:], host.stderr[-1500:])
+    got, ref = _parse(card.stdout), _parse(host.stdout)
+    assert sorted(got) == sorted(ref)
+    for k in ref:
+        g, r = np.asarray(got[k]), np.asarray(ref[k])
+        assert np.all(np.abs(g - r) <= 1e-10 * np.maximum(1.0, np.abs(r))), (k, g, r)

@@ -75,6 +75,12 @@ import galahad_tpu_torch.qp.lpa
 import galahad_tpu_torch.qp.lpqp
 import galahad_tpu_torch.qp.qpa
 import galahad_tpu_torch.qp.qpb
+import galahad_tpu_torch.parallel
+import galahad_tpu_torch.parallel.mesh
+import galahad_tpu_torch.parallel.schur
+import galahad_tpu_torch.parallel.supernodal_mesh
+import galahad_tpu_torch.capi_impl
+import galahad_tpu_torch.interfaces.c.build
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
@@ -400,3 +406,34 @@ def test_inline_factor_does_not_fall_back(monkeypatch):
                 lvl = ldlt_kernels.build_wide_level([(0, K, 1, Fpad)], "meta")
                 ldlt_kernels.partial_ldlt_wide(F.reshape(-1), lvl)
     assert called == []
+
+
+@pytest.mark.parametrize("entry", ["make_mesh", "batch_ipm_solve", "capi_device",
+                                   "capi_qp_solve_raw"])
+def test_parallel_and_capi_entry_points_default_to_the_card(entry, monkeypatch):
+    """The mesh is laid over the CUDA devices and a batch goes to the card
+    unless the CPU is asked for; the C interface's Python side runs on the
+    card unless GALAHAD_TPU_TORCH_DEVICE asks for the CPU.  Each raises where
+    there is no card: no CPU fallback."""
+    import numpy as np
+    import torch
+
+    from galahad_tpu_torch import capi_impl
+    from galahad_tpu_torch.parallel import batch_ipm_solve, make_mesh
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device exists")
+    monkeypatch.delenv(capi_impl.DEVICE_VARIABLE, raising=False)
+    H, g, x = np.eye(2)[None], np.ones((1, 2)), np.zeros(2)
+    calls = {
+        "make_mesh": lambda: make_mesh(),
+        "batch_ipm_solve": lambda: batch_ipm_solve(H, g, np.zeros((1, 0, 2)), np.zeros((1, 0)),
+                                                   np.zeros((1, 0)), np.zeros((1, 2)),
+                                                   np.ones((1, 2))),
+        "capi_device": capi_impl.device,
+        "capi_qp_solve_raw": lambda: capi_impl.qp_solve_raw(
+            "cqp", 2, 0, H.ctypes.data, g.ctypes.data, 0.0, 0, 0, 0, x.ctypes.data,
+            x.ctypes.data, x.ctypes.data, 0, x.ctypes.data),
+    }
+    with pytest.raises(RuntimeError, match="CUDA"):
+        calls[entry]()
