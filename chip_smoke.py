@@ -44,7 +44,7 @@ JSON line per phase:
   6. flagship   ``ipm_solve`` on the flagship QP in float64, default
                 control (the iteration captured once as a CUDA graph and
                 replayed), checked on the host in float64 with scipy; the
-                split of three profiled iterations on the direct path
+                span recorder's calls and host seconds per span of it
   7. fused      the flagship through the direct path (GALAHAD_TPU_FUSED=0)
                 and the graph path in turns (direct, graph, graph, direct),
                 then ``steps_per_fetch=4`` and ``ipm_solve_compiled`` on the
@@ -229,6 +229,7 @@ import numpy as np
 import torch
 
 from galahad_tpu_torch import make_qp, make_sparse_qp
+from galahad_tpu_torch.core import trace
 from galahad_tpu_torch.core.status import Status
 from galahad_tpu_torch.linalg import (banded_kernels, ea_kernels, ldlt_kernels, supernodal_flat,
                                      sweep_kernels)
@@ -1234,12 +1235,23 @@ def counted_solve(qp, ctl, solver=ipm_solve):
     return x, y, z, st, wall, torch.cuda.max_memory_allocated(), device
 
 
+# the spans a graph-path solve of the flagship opens at least once
+SOLVE_SPANS = ("ipm.solve", "ipm.prepare", "ipm.analyse", "stepper.direct",
+               "stepper.capture", "stepper.instantiate", "stepper.replays", "stepper.fetch",
+               "stepper.release", "ipm.finish", "kkt.assemble", "kkt.factor", "kkt.solve",
+               "coo.matvec")
+
+
 def phase_flagship(qp, launches_per_factorization: int):
     """The main path: ``ipm_solve`` with the default control, on its default
     path on the card (the captured iteration).  The launch counts are set to 0
     just before and read just after."""
     ctl = IPMControl()
+    spans_before = trace.totals()
     x, y, z, st, wall, peak_bytes, counts = counted_solve(qp, ctl)
+    spans = {name: [calls - spans_before.get(name, (0, 0.0))[0],
+                    sec - spans_before.get(name, (0, 0.0))[1]]
+             for name, (calls, sec) in trace.totals().items()}
     launches = counts["partial_ldlt"]
     wide_calls = counts["ldlt_wide"]                    # one launch per call
     wide_plain = counts["ldlt_wide_plain"]
@@ -1270,15 +1282,8 @@ def phase_flagship(qp, launches_per_factorization: int):
     check(ea["plain"] == 0, "the main path entered the plain extend-add on the card")
     check(ea["calls"] <= MAX_EA_CALLS_PER_FACTORIZATION * factorizations,
           f"{ea['calls']} extend-add calls in {factorizations:g} factorizations")
-    # per-phase split of three iterations, with a device synchronisation at
-    # every phase boundary (so these iterations run slower than the above);
-    # a synchronisation cannot be captured, so they take the direct path
-    with fused_path(False):
-        supernodal_flat.profile_start()
-        t0 = time.perf_counter()
-        _, _, _, st3 = ipm_solve(qp, IPMControl(maxit=3))
-        split = supernodal_flat.profile_stop()
-        t3 = time.perf_counter() - t0
+    missing = [k for k in SOLVE_SPANS if spans.get(k, [0])[0] == 0]
+    check(not missing, f"the solve recorded no span {missing}")
     emit("flagship", status=st.status, iterations=st.iter, maxit_cut=None, path=st.run.path,
          host_kkt=kkt, host_r_p=r_p, host_r_d=r_d, host_comp=comp,
          objective=st.inform.obj, wall_s=wall, s_per_iteration=wall / max(st.iter, 1),
@@ -1296,14 +1301,7 @@ def phase_flagship(qp, launches_per_factorization: int):
          ea_calls_per_factorization=ea["calls"] / factorizations,
          ea_kernel_launches_per_factorization=ea["kernels"] / factorizations,
          peak_device_memory_bytes=peak_bytes,
-         split_of_3_profiled_iterations_s=dict(
-             path=st3.run.path,
-             assembly=split.get("assembly", 0.0),
-             extend_add=split.get("extend_add", 0.0),
-             factor=split.get("factor", 0.0), sweeps=split.get("sweeps", 0.0),
-             refinement_matvecs=split.get("matvec", 0.0),
-             fetch=split.get("fetch", 0.0), rest=split.get("rest", 0.0),
-             total=t3, iterations=st3.iter))
+         spans_of_the_solve=spans)
     out = {k: counts[k] for k in KERNEL_COUNTS}
     out["per_replay"] = st.run.launches_per_replay
     return out, (x, y, z, kkt)

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device, resolve_dtype
+from . import trace
 from .problem import INFINITY
 from .segsum import SegmentSum
 
@@ -149,19 +150,22 @@ class SparseQP:
 
     # --- matrix actions (mop_Ax role, reference src/mop/mop.f90:40) ---
     def Ax(self, v: torch.Tensor) -> torch.Tensor:
-        seg, src, _ = self.a_pat._dev("row", v.device)
-        return seg(self.a_vals * v.index_select(0, src))
+        with trace.span("coo.matvec"):
+            seg, src, _ = self.a_pat._dev("row", v.device)
+            return seg(self.a_vals * v.index_select(0, src))
 
     def Aty(self, y: torch.Tensor) -> torch.Tensor:
-        seg, src, _ = self.a_pat._dev("col", y.device)
-        return seg(self.a_vals * y.index_select(0, src))
+        with trace.span("coo.matvec"):
+            seg, src, _ = self.a_pat._dev("col", y.device)
+            return seg(self.a_vals * y.index_select(0, src))
 
     def Hx(self, v: torch.Tensor) -> torch.Tensor:
         if self.h_pat is None or self.h_pat.nnz == 0:
             return torch.zeros_like(v)
-        seg, src, vsel = self.h_pat._dev("sym", v.device)
-        return seg(self.h_vals.index_select(0, vsel)
-                   * v.index_select(0, src))
+        with trace.span("coo.matvec"):
+            seg, src, vsel = self.h_pat._dev("sym", v.device)
+            return seg(self.h_vals.index_select(0, vsel)
+                       * v.index_select(0, src))
 
     def H_diag(self) -> torch.Tensor:
         if self.h_pat is None or self.h_pat.nnz == 0:
@@ -180,7 +184,6 @@ class SparseQP:
         solver closure with ``ctl.refine`` sweeps of iterative refinement
         against the UNregularized K (the IR role, reference
         src/ir/ir.f90:334), in the working precision."""
-        from ..linalg import supernodal_flat as _flat
         from ..linalg.sbls import sparse_kkt_factorize, sparse_kkt_plan
 
         plan = sparse_kkt_plan(self.h_pat, self.a_pat, self.n)
@@ -192,19 +195,18 @@ class SparseQP:
 
         def Kmul(u):
             u1, u2 = u[:n], u[n:]
-            out = torch.cat([
+            return torch.cat([
                 self.Hx(u1) + D_x * u1 + self.Aty(u2),
                 self.Ax(u1) - C_diag * u2,
             ])
-            _flat._tick("matvec")
-            return out
 
         def kkt_solve(b1, b2):
-            b = torch.cat([b1, b2])
-            u = plan.solve(fac, b)
-            for _ in range(ctl.refine):
-                u = u + plan.solve(fac, b - Kmul(u))
-            return u[:n], -u[n:]
+            with trace.span("kkt.solve"):
+                b = torch.cat([b1, b2])
+                u = plan.solve(fac, b)
+                for _ in range(ctl.refine):
+                    u = u + plan.solve(fac, b - Kmul(u))
+                return u[:n], -u[n:]
 
         return kkt_solve
 

@@ -30,18 +30,18 @@ preconditioned CG (``sbls_solve_iterative``) and the Fredholm alternative
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Any
 
 import numpy as np
 import torch
 
 from .._device import as_device_tensor
+from ..core import trace
 from ..core.segsum import SegmentSum
 from .cholesky import chol_factor_shifted, chol_solve, scalar_like
 from .supernodal import (SupernodalSymbolic, supernodal_analyse, supernodal_factorize,
                          supernodal_solve)
-from .supernodal_flat import _tick, flat_analyse, flat_factorize, flat_solve
+from .supernodal_flat import flat_analyse, flat_factorize, flat_solve
 
 
 # ---------------------------------------------------------------------------
@@ -149,7 +149,7 @@ class SparseKKTPlan:
     factorizations of the same pattern)."""
 
     __slots__ = ("sym", "n", "m", "rows", "cols", "dsel", "dpos",
-                 "analyse_seconds", "_diag", "_dev")
+                 "_diag", "_dev")
 
     def __init__(self, sym, n: int, m: int, rows, cols):
         self.sym = sym
@@ -160,7 +160,6 @@ class SparseKKTPlan:
         dsel = np.flatnonzero(rows == cols)
         self.dsel = dsel            # positions of diagonal entries
         self.dpos = rows[dsel]
-        self.analyse_seconds = 0.0
         # every diagonal position is listed twice where H has a diagonal
         # entry: sum them in a fixed order
         self._diag = SegmentSum(self.dpos, n + m)
@@ -208,30 +207,29 @@ def sparse_kkt_plan(h_pat, a_pat, n: int,
     plan = _sparse_plan_cache.get(key)
     if plan is not None:
         return plan
-    t0 = time.perf_counter()
-    m = a_pat.m
-    rows = np.concatenate([
-        np.asarray(h_pat.rows, np.int64),
-        np.asarray(a_pat.rows, np.int64) + n,
-        np.arange(n, dtype=np.int64),
-        n + np.arange(m, dtype=np.int64),
-    ])
-    cols = np.concatenate([
-        np.asarray(h_pat.cols, np.int64),
-        np.asarray(a_pat.cols, np.int64),
-        np.arange(n, dtype=np.int64),
-        n + np.arange(m, dtype=np.int64),
-    ])
-    # aggressive supernode amalgamation: fewer/larger fronts cut the
-    # group/chunk count at ~20-40% extra fill (the SSIDS amalgamation
-    # tradeoff, src/ssids/anal.f90); the value is the JAX package's so
-    # that both analyse the same plan
-    if backend == "flat":
-        sym = flat_analyse(rows, cols, n + m, order="amd", relax_cols=16)
-    else:
-        sym = supernodal_analyse(rows, cols, n + m, order="amd")
-    plan = SparseKKTPlan(sym, n, m, rows, cols)
-    plan.analyse_seconds = time.perf_counter() - t0
+    with trace.span("sbls.analyse"):
+        m = a_pat.m
+        rows = np.concatenate([
+            np.asarray(h_pat.rows, np.int64),
+            np.asarray(a_pat.rows, np.int64) + n,
+            np.arange(n, dtype=np.int64),
+            n + np.arange(m, dtype=np.int64),
+        ])
+        cols = np.concatenate([
+            np.asarray(h_pat.cols, np.int64),
+            np.asarray(a_pat.cols, np.int64),
+            np.arange(n, dtype=np.int64),
+            n + np.arange(m, dtype=np.int64),
+        ])
+        # aggressive supernode amalgamation: fewer/larger fronts cut the
+        # group/chunk count at ~20-40% extra fill (the SSIDS amalgamation
+        # tradeoff, src/ssids/anal.f90); the value is the JAX package's so
+        # that both analyse the same plan
+        if backend == "flat":
+            sym = flat_analyse(rows, cols, n + m, order="amd", relax_cols=16)
+        else:
+            sym = supernodal_analyse(rows, cols, n + m, order="amd")
+        plan = SparseKKTPlan(sym, n, m, rows, cols)
     _sparse_plan_cache[key] = plan
     return plan
 
@@ -247,17 +245,16 @@ def sparse_kkt_factorize(plan: SparseKKTPlan, h_vals, a_vals, D_x, C_diag,
     many decades near convergence and the scaling collapses that spread.
     Returns (factors, S); plan.solve applies both."""
     dt = D_x.dtype
-    _tick("rest")
-    vals = torch.cat([
-        h_vals.to(dt), a_vals.to(dt),
-        D_x + rho,
-        -(C_diag.to(dt) + delta),
-    ])
-    rows_d, cols_d, dsel_d = plan.device_indices(D_x.device)
-    diag = plan._diag(vals.index_select(0, dsel_d))
-    S = 1.0 / torch.sqrt(torch.clamp(diag.abs(), min=1e-30))
-    vals_s = vals * S.index_select(0, rows_d) * S.index_select(0, cols_d)
-    _tick("assembly")
+    with trace.span("kkt.assemble"):
+        vals = torch.cat([
+            h_vals.to(dt), a_vals.to(dt),
+            D_x + rho,
+            -(C_diag.to(dt) + delta),
+        ])
+        rows_d, cols_d, dsel_d = plan.device_indices(D_x.device)
+        diag = plan._diag(vals.index_select(0, dsel_d))
+        S = 1.0 / torch.sqrt(torch.clamp(diag.abs(), min=1e-30))
+        vals_s = vals * S.index_select(0, rows_d) * S.index_select(0, cols_d)
     if isinstance(plan.sym, SupernodalSymbolic):
         return supernodal_factorize(plan.sym, vals_s), S
     return flat_factorize(plan.sym, vals_s), S

@@ -48,12 +48,12 @@ a-posteriori |d|_min and inertia (SLS_enquire role).
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Any
 
 import numpy as np
 import torch
 
+from ..core import trace
 from ..core.segsum import SegmentSum
 from .ea_kernels import build_ea_level, extend_add
 from .ldlt_kernels import (
@@ -377,47 +377,6 @@ def flat_analyse(rows, cols, n, order: str = "amd",
 
 
 # ---------------------------------------------------------------------------
-# Optional phase clock.  Off by default (no synchronisation anywhere on the
-# numeric path).  When started, every _tick(name) synchronises the device and
-# charges the time since the previous tick to ``name``.  A synchronisation
-# cannot be captured in a CUDA graph, so a tick raises while the current
-# stream is capturing: profile the direct path (GALAHAD_TPU_FUSED=0).
-# ---------------------------------------------------------------------------
-
-_PROF = None
-
-
-def profile_start() -> None:
-    global _PROF
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
-    _PROF = {"_t": time.perf_counter()}
-
-
-def profile_stop() -> dict:
-    """Stop the phase clock and return {phase: seconds}."""
-    global _PROF
-    out = dict(_PROF or {})
-    out.pop("_t", None)
-    _PROF = None
-    return out
-
-
-def _tick(name: str) -> None:
-    if _PROF is None:
-        return
-    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
-        raise RuntimeError(
-            "the phase clock synchronises the card and cannot run while a CUDA "
-            "graph is captured: profile the direct path (GALAHAD_TPU_FUSED=0)")
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
-    t = time.perf_counter()
-    _PROF[name] = _PROF.get(name, 0.0) + t - _PROF["_t"]
-    _PROF["_t"] = t
-
-
-# ---------------------------------------------------------------------------
 # Device-resident plan data (uploaded once per plan and device)
 # ---------------------------------------------------------------------------
 
@@ -509,47 +468,44 @@ def flat_factorize(plan: FlatPlan, vals, shift=0.0,
         torch.backends.cuda.matmul.allow_tf32 = False
     dev = _device_plan(plan, device)
     S = dev["S"]
-    _tick("rest")
-    store = torch.zeros(S + 1, dtype=dt, device=device)
-    asm = dev["asm"]
-    if asm.nnz:
-        store.index_copy_(0, asm.index_on(device),
-                          asm(vals.index_select(0, dev["a_src"])))
-    if torch.is_tensor(shift) and shift.dim() == 1:
-        store.index_add_(0, dev["d_idx"],
-                         shift.to(dt).index_select(0, dev["d_col"]))
-    elif not (isinstance(shift, (int, float)) and shift == 0.0):
-        store.index_add_(0, dev["d_idx"], torch.full(
-            (plan.n,), float(shift), dtype=dt, device=device))
-    _tick("assembly")
+    with trace.span("kkt.assemble"):
+        store = torch.zeros(S + 1, dtype=dt, device=device)
+        asm = dev["asm"]
+        if asm.nnz:
+            store.index_copy_(0, asm.index_on(device),
+                              asm(vals.index_select(0, dev["a_src"])))
+        if torch.is_tensor(shift) and shift.dim() == 1:
+            store.index_add_(0, dev["d_idx"],
+                             shift.to(dt).index_select(0, dev["d_col"]))
+        elif not (isinstance(shift, (int, float)) and shift == 0.0):
+            store.index_add_(0, dev["d_idx"], torch.full(
+                (plan.n,), float(shift), dtype=dt, device=device))
 
-    for lvp in dev["levels"]:
-        if lvp["ea"] is not None:
-            extend_add(store, lvp["ea"])
-        _tick("extend_add")
-        items = lvp["ldlt"]
-        if items is not None:
-            if capture is not None:
-                capture.append(("small", store[items.start:items.end].clone(),
-                                items.shifted(-items.start)))
-            partial_ldlt_items(store, items)
-        wide = lvp["wide"]
-        if wide is not None:
-            if capture is not None:
-                capture.append(("wide", store[wide.start:wide.end].clone(),
-                                wide.shifted(-wide.start)))
-            partial_ldlt_wide(store, wide)
-        _tick("factor")
+    with trace.span("kkt.factor"):
+        for lvp in dev["levels"]:
+            if lvp["ea"] is not None:
+                extend_add(store, lvp["ea"])
+            items = lvp["ldlt"]
+            if items is not None:
+                if capture is not None:
+                    capture.append(("small", store[items.start:items.end].clone(),
+                                    items.shifted(-items.start)))
+                partial_ldlt_items(store, items)
+            wide = lvp["wide"]
+            if wide is not None:
+                if capture is not None:
+                    capture.append(("wide", store[wide.start:wide.end].clone(),
+                                    wide.shifted(-wide.start)))
+                partial_ldlt_wide(store, wide)
 
-    if plan.n:
-        dvec = store.index_select(0, dev["d_idx"])
-        dmin = dvec.abs().min()
-        inertia = torch.stack([(dvec > 0).sum(), (dvec < 0).sum(),
-                               (dvec == 0).sum()]).to(torch.int32)
-    else:
-        dmin = torch.tensor(float("inf"), dtype=dt, device=device)
-        inertia = torch.zeros(3, dtype=torch.int32, device=device)
-    _tick("rest")
+        if plan.n:
+            dvec = store.index_select(0, dev["d_idx"])
+            dmin = dvec.abs().min()
+            inertia = torch.stack([(dvec > 0).sum(), (dvec < 0).sum(),
+                                   (dvec == 0).sum()]).to(torch.int32)
+        else:
+            dmin = torch.tensor(float("inf"), dtype=dt, device=device)
+            inertia = torch.zeros(3, dtype=torch.int32, device=device)
     return FlatFactors(store=store, dmin=dmin, inertia=inertia)
 
 
@@ -562,7 +518,6 @@ def flat_solve(plan: FlatPlan, fac: FlatFactors, b):
     if store.dtype != b.dtype:
         store = store.to(b.dtype)
     dev = _device_plan(plan, b.device)
-    _tick("rest")
     # one spare slot at the end: sentinel rows of padded fronts point there
     y = torch.zeros(plan.n + 1, dtype=b.dtype, device=b.device)
     y[:plan.n] = b.index_select(0, dev["perm"])
@@ -571,6 +526,4 @@ def flat_solve(plan: FlatPlan, fac: FlatFactors, b):
         sweep_fwd(store, y, lvp["sweep"], work)
     for lvp in reversed(dev["levels"]):
         sweep_bwd(store, y, lvp["sweep"], work)
-    out = y[:plan.n].index_select(0, dev["iperm"])
-    _tick("sweeps")
-    return out
+    return y[:plan.n].index_select(0, dev["iperm"])

@@ -39,10 +39,10 @@ from __future__ import annotations
 import dataclasses
 import gc
 import os
-import time
 
 import torch
 
+from ..core import trace
 from ..linalg import banded_kernels, ea_kernels, ldlt_kernels, sweep_kernels
 
 
@@ -127,64 +127,81 @@ class Stepper:
         block, which a solve does not need).  Python's collector is held
         off while the step is enqueued, so that no collection of the heap
         falls into the capture."""
-        t0 = time.perf_counter()
-        device = getattr(self.state, self.fields[0]).device
-        if device.index != torch.cuda.current_device():
-            # the wrappers launch on the current stream of the state's device,
-            # which would not be the capturing stream: refuse, do not capture less
-            raise RuntimeError(f"the step is captured on the current CUDA device, and the "
-                               f"state lies on {device}: make it current first "
-                               f"(torch.cuda.set_device)")
-        static = self._copy(self.state)
-        before = launch_counts()
-        graph = torch.cuda.CUDAGraph()
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.stream(side):
-                graph.capture_begin()
-                try:
-                    new = self.step(static)
-                    mon = self.monitor_of(new)
-                    for f in self.fields:
-                        getattr(static, f).copy_(getattr(new, f))
-                finally:
-                    t1 = time.perf_counter()
-                    graph.capture_end()
-        finally:
-            if collecting:
-                gc.enable()
-        self.stats.instantiate_s = time.perf_counter() - t1
-        torch.cuda.current_stream().wait_stream(side)
-        after = launch_counts()
-        self.stats.launches_per_replay = {k: after[k] - before[k] for k in after}
-        self.stats.capture_s = time.perf_counter() - t0
+        with trace.span("stepper.capture") as sp:
+            device = getattr(self.state, self.fields[0]).device
+            if device.index != torch.cuda.current_device():
+                # the wrappers launch on the current stream of the state's device,
+                # which would not be the capturing stream: refuse, do not capture less
+                raise RuntimeError(f"the step is captured on the current CUDA device, and "
+                                   f"the state lies on {device}: make it current first "
+                                   f"(torch.cuda.set_device)")
+            static = self._copy(self.state)
+            before = launch_counts()
+            graph = torch.cuda.CUDAGraph()
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            reserved = torch.cuda.memory_reserved(device)
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.stream(side):
+                    graph.capture_begin()
+                    try:
+                        new = self.step(static)
+                        mon = self.monitor_of(new)
+                        for f in self.fields:
+                            getattr(static, f).copy_(getattr(new, f))
+                    finally:
+                        with trace.span("stepper.instantiate") as inst:
+                            graph.capture_end()
+            finally:
+                if collecting:
+                    gc.enable()
+            trace.count("stepper.pool_bytes", torch.cuda.memory_reserved(device) - reserved)
+            torch.cuda.current_stream().wait_stream(side)
+            after = launch_counts()
+            self.stats.launches_per_replay = {k: after[k] - before[k] for k in after}
+        self.stats.instantiate_s = inst.seconds
+        self.stats.capture_s = sp.seconds
         self.state, self._monitor, self._graph = static, mon, graph
 
     def advance(self, k: int) -> None:
         """Enqueue ``k`` iterations; no host read."""
-        for _ in range(k):
-            if self._graph is None and self.stats.path == "graph" and self.stats.direct_steps:
+        while k and self._graph is None:
+            if self.stats.path == "graph" and self.stats.direct_steps:
                 self._capture()
-            if self._graph is not None:
-                if self._t_replays is None:
-                    self._t_replays = time.perf_counter()
-                self._graph.replay()
-                self.stats.replays += 1
-            else:
+                break
+            with trace.span("stepper.direct"):
                 self.state = self.step(self.state)
-                self.stats.direct_steps += 1
+            self.stats.direct_steps += 1
+            k -= 1
+        if k:
+            with trace.span("stepper.replays") as sp:
+                for _ in range(k):
+                    self._graph.replay()
+            if self._t_replays is None:
+                self._t_replays = sp.t0
+            self.stats.replays += k
+
+    def release(self) -> None:
+        """Drop the captured graph and, with it, its claim on its memory
+        pool (the allocator keeps the pool's blocks in reserve until its
+        cache is emptied), here rather than wherever Python frees the
+        stepper.  The state stays readable."""
+        with trace.span("stepper.release"):
+            if self._graph is not None:
+                self._graph.reset()
+                self._graph = self._monitor = None
 
     def monitor(self):
         """The current state's monitor tensor (on the state's device)."""
         return self._monitor if self._graph is not None else self.monitor_of(self.state)
 
-    def _fetched(self) -> None:
+    def _fetched(self, t_ns: int) -> None:
+        """Book a fetch whose read ended at ``t_ns`` (``perf_counter_ns``)."""
         self.stats.fetches += 1
         if self._t_replays is not None:
-            self.stats.replay_s = time.perf_counter() - self._t_replays
+            self.stats.replay_s = (t_ns - self._t_replays) * 1e-9
         if self.sweep_levels:
             sweep_kernels.sweep_check(self.sweep_levels, synchronize=False)
             self.stats.sweep_checks += 1
@@ -210,8 +227,9 @@ class Stepper:
         """The one host read of a fetch: the current state's monitor, as
         Python numbers (a second read after an escalated step); then every
         sweep level's wait status is checked."""
-        values = self._settle(self.monitor().tolist())
-        self._fetched()
+        with trace.span("stepper.fetch") as sp:
+            values = self._settle(self.monitor().tolist())
+        self._fetched(sp.t1)
         return values
 
     def snapshot(self):
@@ -249,13 +267,14 @@ class Stepper:
         enqueue(slot)
         while True:
             enqueue(1 - slot)
-            done[slot].synchronize()
-            values = host[slot].tolist()
-            flagged = self.escalate is not None and self.escalate[0](values)
-            if flagged:
-                done[1 - slot].synchronize()
-                values = self._settle(values)
-            self._fetched()
+            with trace.span("stepper.fetch") as sp:
+                done[slot].synchronize()
+                values = host[slot].tolist()
+                flagged = self.escalate is not None and self.escalate[0](values)
+                if flagged:
+                    done[1 - slot].synchronize()
+                    values = self._settle(values)
+            self._fetched(sp.t1)
             if stop(values):
                 return values
             if flagged:

@@ -52,6 +52,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..core import trace
 from ..core.checkpoint import checkpoint_init, checkpoint_update
 from ..core.config import control as control_dc
 from ..core.problem import H_KINDS, INFINITY, QP, BoundMasks, check_qp, classify_bounds, make_qp
@@ -774,7 +775,6 @@ def ipm_step(qp, masks, st: IPMState, ctl: IPMControl, escalate=False) -> IPMSta
     else:
         new = dataclasses.replace(_select(active & chol_ok, new, st),
                                   needs_shift=active & ~chol_ok)
-    _flat._tick("rest")
     return new
 
 
@@ -950,29 +950,34 @@ def ipm_solve(qp, ctl: IPMControl = IPMControl()):
     Returns (x, y, z, state); ``state.inform`` (IPMInform) adds per-phase
     wall times, factorization/backsolve counts and residual-history
     checkpoints (the inform contract, reference cqp.f90:484-575)."""
+    with trace.span("ipm.solve"):
+        return _ipm_solve(qp, ctl)
+
+
+def _ipm_solve(qp, ctl: IPMControl):
     _check_kind(qp, "ipm_solve")
     _check_control(ctl)
     t_start = time.perf_counter()
     if qp.g.device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
-    # entry restrictions (-3) / bound consistency (-4): the per-solver
-    # input checks of the reference (src/cqp/cqp.f90)
-    bad = check_qp(qp, ctl.infinity)
-    if bad != 0:
-        qp = _scaffold(qp)
-    masks = classify_bounds(qp, ctl.infinity)
-    st = ipm_init(qp, masks, ctl)
-    if bad != 0:
-        st = dataclasses.replace(host_state(st, monitor(st).tolist()),
-                                 halt=True, status=bad)
-    t_pre = time.perf_counter()
+    with trace.span("ipm.prepare") as prep:
+        # entry restrictions (-3) / bound consistency (-4): the per-solver
+        # input checks of the reference (src/cqp/cqp.f90)
+        bad = check_qp(qp, ctl.infinity)
+        if bad != 0:
+            qp = _scaffold(qp)
+        masks = classify_bounds(qp, ctl.infinity)
+        st = ipm_init(qp, masks, ctl)
+        if bad != 0:
+            st = dataclasses.replace(host_state(st, monitor(st).tolist()),
+                                     halt=True, status=bad)
     t_analyse = 0.0
     if bad == 0 and qp.h_kind == "sparse":
         from ..linalg.sbls import sparse_kkt_plan
 
-        t0 = time.perf_counter()
-        sparse_kkt_plan(qp.h_pat, qp.a_pat, qp.n)   # cached per pattern
-        t_analyse = time.perf_counter() - t0
+        with trace.span("ipm.analyse") as ana:
+            sparse_kkt_plan(qp.h_pat, qp.a_pat, qp.n)   # cached per pattern
+        t_analyse = ana.seconds
     cp = checkpoint_init()
     timed_out = False
     prev_st = best_st = best_vals = vals = None
@@ -988,7 +993,6 @@ def ipm_solve(qp, ctl: IPMControl = IPMControl()):
                 prev_st = stepper.snapshot()
             stepper.advance(min(k, ctl.maxit - it_now))
             vals = stepper.fetch()
-            _flat._tick("fetch")
             mon = dict(zip(MONITOR, vals))
             it_now = int(mon["iter"])
             kkt_now = max(mon["res_p"], mon["res_d"], mon["res_c"])
@@ -1010,42 +1014,44 @@ def ipm_solve(qp, ctl: IPMControl = IPMControl()):
                 break
         st = host_state(stepper.state, vals)
         st.run = _finish_stats(stepper, st.iter)
+        stepper.release()
     elif bad == 0:
         st = host_state(st, monitor(st).tolist())
     t_solve = time.perf_counter() - t_loop
-    if timed_out and not st.converged:
-        st = dataclasses.replace(st, halt=True,
-                                 status=int(Status.CPU_LIMIT))
-    # Best-iterate recovery (cqp.f90:163-168 residual-monitoring
-    # contract): if late iterations degraded the KKT residuals, report
-    # the best iterate actually attained, keeping the diagnosed status.
-    if (best_st is not None and not st.converged
-            and best_kkt < max(st.res_p, st.res_d, st.res_c)):
-        st = dataclasses.replace(
-            host_state(best_st, best_vals), iter=st.iter, halt=st.halt,
-            status=st.status, converged=st.converged, run=st.run)
-    x, y, z = extract_solution(qp, masks, st)
-    b_stat, c_stat = ipm_indicators(qp, masks, st, ctl, prev=prev_st)
-    iters = st.iter
-    st.inform = IPMInform(
-        status=int(st.status), iter=iters,
-        nfacts=iters,
-        nbacts=iters * max(ctl.series_order, 1) * (1 + ctl.refine),
-        obj=float(qp.objective(x)),
-        primal_infeasibility=st.res_p,
-        dual_infeasibility=st.res_d,
-        complementary_slackness=st.res_c,
-        time=PhaseTimes(
-            total=time.perf_counter() - t_start,
-            preprocess=t_pre - t_start,
-            analyse=t_analyse,
-            solve=t_solve,
-        ),
-        checkpoints_iter=np.asarray(cp.iters, np.int32),
-        checkpoints_time=np.asarray(cp.times, np.float64),
-        b_stat=b_stat.cpu().numpy(),
-        c_stat=c_stat.cpu().numpy(),
-    )
+    with trace.span("ipm.finish"):
+        if timed_out and not st.converged:
+            st = dataclasses.replace(st, halt=True,
+                                     status=int(Status.CPU_LIMIT))
+        # Best-iterate recovery (cqp.f90:163-168 residual-monitoring
+        # contract): if late iterations degraded the KKT residuals, report
+        # the best iterate actually attained, keeping the diagnosed status.
+        if (best_st is not None and not st.converged
+                and best_kkt < max(st.res_p, st.res_d, st.res_c)):
+            st = dataclasses.replace(
+                host_state(best_st, best_vals), iter=st.iter, halt=st.halt,
+                status=st.status, converged=st.converged, run=st.run)
+        x, y, z = extract_solution(qp, masks, st)
+        b_stat, c_stat = ipm_indicators(qp, masks, st, ctl, prev=prev_st)
+        iters = st.iter
+        st.inform = IPMInform(
+            status=int(st.status), iter=iters,
+            nfacts=iters,
+            nbacts=iters * max(ctl.series_order, 1) * (1 + ctl.refine),
+            obj=float(qp.objective(x)),
+            primal_infeasibility=st.res_p,
+            dual_infeasibility=st.res_d,
+            complementary_slackness=st.res_c,
+            time=PhaseTimes(
+                total=time.perf_counter() - t_start,
+                preprocess=prep.seconds,
+                analyse=t_analyse,
+                solve=t_solve,
+            ),
+            checkpoints_iter=np.asarray(cp.iters, np.int32),
+            checkpoints_time=np.asarray(cp.times, np.float64),
+            b_stat=b_stat.cpu().numpy(),
+            c_stat=c_stat.cpu().numpy(),
+        )
     return x, y, z, st
 
 
@@ -1190,6 +1196,7 @@ def ipm_solve_compiled(qp, ctl: IPMControl = IPMControl()):
         vals = stepper.run_to_halt(lambda v: v[halt] != 0 or v[it] >= ctl.maxit)
         st = host_state(stepper.state, vals)
         st.run = _finish_stats(stepper, st.iter)
+        stepper.release()
     else:
         st = host_state(st, monitor(st).tolist())
     x, y, z = extract_solution(qp, masks, st)

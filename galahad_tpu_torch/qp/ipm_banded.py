@@ -38,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from .._device import resolve_device, resolve_dtype
+from ..core import trace
 from ..core.problem import INFINITY
 from ..linalg.band_ops import (BandMatrix, band_ADAt, sym_band_add_diag, sym_band_matvec,
                                sym_band_to_blocks)
@@ -118,34 +119,46 @@ class BandedQP:
         (x, -v) with [[G, A'], [A, -C]] [x; v] = [b1; b2], G = H + D_x."""
         m = self.m
         if self.h_kind in ("zero", "diagonal"):
-            Gd = self.H_diag() + D_x
+            with trace.span("kkt.assemble"):
+                Gd = self.H_diag() + D_x
             g_solve = lambda v: v / Gd                            # noqa: E731
             apply_G = lambda v: Gd * v                            # noqa: E731
         else:
-            G_diags = sym_band_add_diag(self.h_diags, D_x)
-            fH = block_tridiag_cholesky(*sym_band_to_blocks(
-                G_diags, max(self.block, self.h_diags.shape[0] - 1)))
+            with trace.span("kkt.assemble"):
+                G_diags = sym_band_add_diag(self.h_diags, D_x)
+                blocks = sym_band_to_blocks(G_diags, max(self.block, self.h_diags.shape[0] - 1))
+            with trace.span("kkt.factor"):
+                fH = block_tridiag_cholesky(*blocks)
             g_solve = lambda v: _padded_solve(fH, v)              # noqa: E731
             apply_G = lambda v: sym_band_matvec(G_diags, v)       # noqa: E731
 
         if m == 0:
-            return lambda b1, b2: (g_solve(b1), b2)
+            def g_only(b1, b2):
+                with trace.span("kkt.solve"):
+                    return g_solve(b1), b2
+
+            return g_only
 
         offs = self.A_band.offsets
         bs = max(self.block, max(offs) - min(offs))
+        # the Schur complement's blocks: exact, or PCG's preconditioner
+        # with the diagonal of G
+        with trace.span("kkt.assemble"):
+            if self.h_kind in ("zero", "diagonal"):
+                Sd = sym_band_add_diag(band_ADAt(self.A_band, 1.0 / Gd), C_diag + ctl.delta)
+            else:
+                Gd_hat = self.H_diag() + D_x
+                Sd = sym_band_add_diag(
+                    band_ADAt(self.A_band, 1.0 / torch.clamp(Gd_hat, min=1e-12)),
+                    C_diag + ctl.delta)
+            blocks = sym_band_to_blocks(Sd, bs)
+        with trace.span("kkt.factor"):
+            fS = block_tridiag_cholesky(*blocks)
         if self.h_kind in ("zero", "diagonal"):
             # the banded Schur complement, factorized exactly
-            Sd = sym_band_add_diag(band_ADAt(self.A_band, 1.0 / Gd), C_diag + ctl.delta)
-            fS = block_tridiag_cholesky(*sym_band_to_blocks(Sd, bs))
             s_solve = lambda r: _padded_solve(fS, r)              # noqa: E731
         else:
             # PCG on S = C + A G^-1 A' with the diagonal-G preconditioner
-            Gd_hat = self.H_diag() + D_x
-            Sd_hat = sym_band_add_diag(
-                band_ADAt(self.A_band, 1.0 / torch.clamp(Gd_hat, min=1e-12)),
-                C_diag + ctl.delta)
-            fS = block_tridiag_cholesky(*sym_band_to_blocks(Sd_hat, bs))
-
             def prec(r):
                 return _padded_solve(fS, r)
 
@@ -177,14 +190,15 @@ class BandedQP:
         def kkt_solve(b1, b2):
             # refinement in the working precision (the JAX package carries
             # double-word pairs here, linalg/dw.py)
-            x, v = block_solve(b1, b2)
-            for _ in range(ctl.refine):
-                r1 = b1 - (apply_G(x) + self.Aty(v))
-                r2 = b2 - (self.Ax(x) - C_diag * v)
-                dx, dv = block_solve(r1, r2)
-                x = x + dx
-                v = v + dv
-            return x, -v
+            with trace.span("kkt.solve"):
+                x, v = block_solve(b1, b2)
+                for _ in range(ctl.refine):
+                    r1 = b1 - (apply_G(x) + self.Aty(v))
+                    r2 = b2 - (self.Ax(x) - C_diag * v)
+                    dx, dv = block_solve(r1, r2)
+                    x = x + dx
+                    v = v + dv
+                return x, -v
 
         return kkt_solve
 

@@ -518,3 +518,36 @@ def arc_inputs(size=4096, seed=0):
     r = np.random.default_rng(seed)
     return r.uniform(-5.0, 5.0, size), r.uniform(0.0, 1.0, size), 10.0 * r.normal(size=size)
 
+
+
+def profiled_spans(fn):
+    """``fn()`` under ``torch.profiler`` (host activity, and the card's where
+    there is one): its result and the span recorder's annotations in the
+    exported trace, as (name without the prefix, start, end) in the trace's
+    microseconds, ordered by start."""
+    import json
+    import tempfile
+
+    import torch
+
+    from galahad_tpu_torch.core import trace
+
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with tempfile.TemporaryDirectory() as d:
+        with torch.profiler.profile(activities=acts) as prof:
+            out = fn()
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+    spans = sorted((e["name"][len(trace.PREFIX):], float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                   for e in events
+                   if e.get("cat") == "user_annotation" and e["name"].startswith(trace.PREFIX))
+    return out, sorted(spans, key=lambda s: (s[1], -s[2]))
+
+
+def inside(inner, outer) -> bool:
+    """Whether the span ``inner`` lies within ``outer`` (both (name, start, end))."""
+    return outer[1] <= inner[1] and inner[2] <= outer[2]

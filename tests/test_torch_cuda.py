@@ -15,11 +15,12 @@ import torch
 
 from galahad_tpu_torch import make_sparse_qp
 from galahad_tpu_torch.linalg import banded_kernels, ea_kernels, ldlt_kernels
+from galahad_tpu_torch.core import trace
 from galahad_tpu_torch.linalg import supernodal_flat as T
 from galahad_tpu_torch.linalg import sweep_kernels
 from galahad_tpu_torch.qp.ipm import ipm_solve
 
-from _torch_port_helpers import ea_synthetic_level, oracle_factorize
+from _torch_port_helpers import ea_synthetic_level, inside, oracle_factorize, profiled_spans
 
 pytestmark = pytest.mark.cuda
 
@@ -702,23 +703,37 @@ def test_the_graph_solve_equals_the_direct_one_bitwise(cuda, monkeypatch):
             assert same_bits(a, b)
 
 
-def test_the_phase_clock_refuses_a_capture(cuda, monkeypatch):
-    """A tick synchronises the card: under capture it raises; so does a
-    profiled solve on the graph path, and the direct path profiles."""
+def test_spans_inside_a_capture_under_the_profiler(cuda):
+    """A graph-path solve under the profiler records every stepper span, and
+    the step's phase spans inside the capture (a synchronisation there would
+    fail the capture); a span opened while CUDA refuses every synchronisation
+    raises nothing."""
     qp = grid_qp(8, cuda)
-    T.profile_start()
-    try:
-        graph = torch.cuda.CUDAGraph()
-        with pytest.raises(RuntimeError, match="phase clock"):
-            with torch.cuda.graph(graph):
-                T._tick("inside")
-        with pytest.raises(RuntimeError, match="phase clock"):
-            ipm_solve(qp)
-        monkeypatch.setenv("GALAHAD_TPU_FUSED", "0")
-        _, _, _, st = ipm_solve(qp)
-    finally:
-        split = T.profile_stop()
-    assert st.status == 0 and st.run.path == "direct" and split["factor"] > 0
+
+    def solve():
+        out = ipm_solve(qp)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with trace.span("no_sync"):
+                pass
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        return out
+
+    (_, _, _, st), spans = profiled_spans(solve)
+    assert st.status == 0 and st.run.path == "graph" and st.run.direct_steps == 1
+    names = [s[0] for s in spans]
+    for name in ("ipm.solve", "ipm.prepare", "stepper.direct", "stepper.capture",
+                 "stepper.instantiate", "stepper.replays", "stepper.fetch",
+                 "stepper.release", "ipm.finish", "no_sync"):
+        assert name in names, name
+    root = next(s for s in spans if s[0] == "ipm.solve")
+    assert all(inside(s, root) for s in spans if s[0] != "no_sync")
+    capture = next(s for s in spans if s[0] == "stepper.capture")
+    for name in ("kkt.assemble", "kkt.factor", "kkt.solve", "coo.matvec", "stepper.instantiate"):
+        assert any(inside(s, capture) for s in spans if s[0] == name), name
+    assert names.count("stepper.fetch") == st.run.fetches
+    assert names.count("stepper.direct") == 1 and names.count("stepper.capture") == 1
 
 
 # ---------------------------------------------------------------------------
