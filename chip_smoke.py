@@ -2413,7 +2413,10 @@ def phase_banded_path_kernels(host):
     k = 125,000 block rows of b = 8 (the latter, BANDED_HOST_PLAIN, on the
     blocks, right-hand side and plain results that the CPU pool made,
     ``host``; the card's own blocks of the same set within ``TOL`` of
-    them); the solve with one right-hand side.
+    them); the solve with one right-hand side; the factor in the wrapper's
+    default chunks (both k are chunked: ``factor_partitioned`` counts the
+    phase's chunked launches, ``factor_reruns`` those a failed pivot sent
+    back to the sequential chain, 0 on these SPD blocks).
     Then the sets of each problem's last iteration, held by relative
     residual: the kernels' solve (its rows in chunks) within 10 x the
     sequential solve's + 1e-15 on the same factors (the plain solve at
@@ -2427,6 +2430,8 @@ def phase_banded_path_kernels(host):
 
     t0 = time.perf_counter()
     rows, timed = [], None
+    partitioned0 = banded_kernels.banded_counts()["factor_partitioned"]
+    reruns0 = banded_kernels.banded_factor_reruns()
     for name in BANDED_CASES:
         for i, (D, L, _) in enumerate(banded_path_blocks(name)):
             k, b = D.shape[0], D.shape[1]
@@ -2492,7 +2497,12 @@ def phase_banded_path_kernels(host):
                              seconds=time.perf_counter() - t1, **extra))
             del Ld, Lo, x, x_seq
     banded_kernels.banded_check()
-    emit("banded_path_kernels", cases=rows, seconds=time.perf_counter() - t0)
+    reruns = banded_kernels.banded_factor_reruns() - reruns0
+    check(reruns == 0, f"banded factor: {reruns} chunked factorizations of SPD blocks were rerun "
+                       f"as the sequential chain")
+    emit("banded_path_kernels", cases=rows,
+         factor_partitioned=banded_kernels.banded_counts()["factor_partitioned"] - partitioned0,
+         factor_reruns=reruns, seconds=time.perf_counter() - t0)
     return timed
 
 

@@ -16,7 +16,8 @@
 //
 // What bounds it on an H100 SXM: neither bytes nor operations, but chains of
 // dependent steps.  At k = 2,500, b = 8, f64 a factorization moves 5.1 MB
-// (1.5 us at 3.35 TB/s) and a solve 2.9 MB (0.9 us).
+// (1.5 us at 3.35 TB/s) and a solve 2.9 MB (0.9 us); at k = 125,000 a
+// factorization moves 256 MB (0.077 ms).
 //
 // Both kernels are compiled for a block size B in {1, 2, 4, 8, 16, 32}; any
 // other b runs in the next B, padded in shared memory with an identity
@@ -30,15 +31,38 @@
 // chain issues no copy and no global store.
 //
 // Factorization: the recurrence S_i = D_i - Lo_{i-1} Lo_{i-1}' is nonlinear,
-// so it stays one warp walking k steps (lane r owns row r of the block); a
-// step is register arithmetic, shuffles and shared-memory reads.  The IO warp
-// repacks D_i and L_{i-1} into rows of B+1 entries (lanes reading one column
-// of a block hit distinct banks).  Each Cholesky column is a round of rsqrt,
-// a product and an fma: the pivot's rsqrt(p) gives l_rj = s_rj rsqrt(p) and
-// d = p rsqrt(p) and is kept as the reciprocal of the diagonal, so the next
-// step's triangular solve only multiplies, and every lane forms the next
-// pivot itself.  Lo_{i-1} is kept transposed, so that S's B sums run side by
-// side.
+// so a chunk cannot push unit inflows through it as the solve does; but the
+// Schur complement composes.  The k block rows are cut into P chunks of m
+// rows, the last row of chunk j its separator s_j, and each chunk runs on a
+// block of its own, in one launch:
+//   1. every middle chunk at once: the Cholesky of its interior rows (an SPD
+//      principal submatrix, from no inflow) with the spike of its coupling to
+//      s_{j-1}, folded onto its two end rows: E_j on s_{j-1}, F_j between
+//      s_{j-1} and s_j, G_j = D_{s_j} less the interior's share; chunk 0 runs
+//      the contract's chain and gives S at s_0 (Sigma_0);
+//   2. one hop a chunk, in chunk order: Sigma_j = G_j - F_j' (Sigma_{j-1} -
+//      E_j)^-1 F_j, a b x b Cholesky, a triangular solve and a product
+//      (Sigma_{j-1} - E_j is a Schur complement of an SPD matrix);
+//   3. each chunk as soon as its inflow is published: the contract's chain
+//      from Ld_{s_{j-1}} = chol(Sigma_{j-1}), the same operations in the
+//      same order as the sequential chain, so only the inflow carries the
+//      partition's rounding.  Each separator's Ld is written once, by the
+//      chunk after it, the one chunk that uses it.
+// A factorization is about (c1 + c3) m row steps and P hops instead of k
+// steps (banded_kernels.default_factor_chunk).  One chunk is the sequential
+// chain itself, with no workspace; so are blocks of 17..32 (CHUNKED_MAX_B).
+// In a step (lane r owns row r of the block) the IO warp repacks D_i and
+// L_{i-1} into rows of B+1 entries (lanes reading one column of a block hit
+// distinct banks).  Each Cholesky column is a round of rsqrt, a product and
+// an fma: the pivot's rsqrt(p) gives l_rj = s_rj rsqrt(p) and d = p rsqrt(p)
+// and is kept as the reciprocal of the diagonal, so the next step's
+// triangular solve only multiplies, and every lane forms the next pivot
+// itself.  Lo_{i-1} is kept transposed, so that S's B sums run side by side.
+// Chunks are handed out by an atomic ticket and wait only on earlier tickets,
+// each wait bounded as the solve's.  A pivot that fails in any phase of a
+// chunked launch makes the block that finishes last rerun the sequential
+// chain over all k rows in the same launch: the partition cannot reproduce
+// the identity-and-go-on rule downstream of a failed block.
 //
 // Solve: the recurrences are linear, so the k block rows are cut into P
 // chunks of m rows that run on many SMs at once.  Per direction:
@@ -79,6 +103,9 @@ constexpr int NS = 3;                         // the factor's stages of the chai
 constexpr int NL = 4;                         // its landing slots: copies in flight ahead
 constexpr int BAR_FULL = 1, BAR_DONE = BAR_FULL + NS;   // its named barriers: FULL + s, DONE + s
 constexpr unsigned long long WAIT_NS = 10000000000ull;   // a wait gives up after 10 s
+// the factor runs in chunks for blocks of up to 16; at 32 the chunks' spike
+// and hop spill registers, and compiling them doubles the file's build
+constexpr int CHUNKED_MAX_B = 16;
 
 // ---------------------------------------------------------------------------
 // Hopper primitives
@@ -185,6 +212,30 @@ __device__ __forceinline__ void st_release(int* p, int v)
     asm volatile("st.release.gpu.global.b32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
 }
 
+__device__ __forceinline__ bool unpublished(double x) { return __double_as_longlong(x) == -1ll; }
+__device__ __forceinline__ bool unpublished(float x) { return __float_as_int(x) == -1; }
+
+__device__ __forceinline__ double ld_relaxed(const double* p)
+{
+    double v;
+    asm volatile("ld.relaxed.gpu.global.f64 %0, [%1];" : "=d"(v) : "l"(p) : "memory");
+    return v;
+}
+__device__ __forceinline__ float ld_relaxed(const float* p)
+{
+    float v;
+    asm volatile("ld.relaxed.gpu.global.f32 %0, [%1];" : "=f"(v) : "l"(p) : "memory");
+    return v;
+}
+__device__ __forceinline__ void st_relaxed(double* p, double v)
+{
+    asm volatile("st.relaxed.gpu.global.f64 [%0], %1;" ::"l"(p), "d"(v) : "memory");
+}
+__device__ __forceinline__ void st_relaxed(float* p, float v)
+{
+    asm volatile("st.relaxed.gpu.global.f32 [%0], %1;" ::"l"(p), "f"(v) : "memory");
+}
+
 // Waits for the flag to be 1; false (and the status word set) if it gave up.
 __device__ bool wait_flag(const int* flag, int* status)
 {
@@ -261,48 +312,258 @@ __device__ __forceinline__ void repack(T* dst, const T* src, int lane)
 }
 
 // ---------------------------------------------------------------------------
-// Factorization: one warp walks the k steps, one IO warp feeds and drains it
+// Factorization: chunks of the chain on many blocks, one IO warp each
 // ---------------------------------------------------------------------------
 //
-// Shared memory, in T after NL mbarriers (128 bytes): NL landing slots
-// [D_i | L_{i-1}] (2 B^2), NS stages [D_i | L_{i-1}] (2 B P: rows of P, read
-// by row and by column) and NS output slots [Ld_i | Lo_{i-1}' | rinv_i]
-// (2 B^2 + B, only read by broadcast: Ld by rows, Lo by columns, so Lo is
-// kept transposed and row q of it feeds B independent sums), the output slot
-// of step i-1 being the chain's input of step i.
+// A work item is a chunk j of the rows [a, e] (chunks of m rows, a = j m; its
+// last row e is the separator s_j).  Its chain warp walks a sequence of steps
+// that its IO warp feeds and drains as one stream (the landing ring counts
+// on across the item and a rerun):
+//   * the first chunk: the contract's chain over rows 0 .. e, whose last step
+//     forms S at s_0 (Sigma_0) and publishes it instead of factoring it;
+//   * a middle chunk, phase 1: the chain over its interior a .. e-1 from no
+//     inflow, carrying the spike X (lane c holds column c; X_a = Ld_a^-1
+//     L_{a-1}, X_i = -Ld_i^-1 Lo_{i-1} X_{i-1}) and E = sum X'X, then at e
+//     G = S at e from the interior's last Lo and F = X' Lo', where lane t
+//     holds column t; the interior folded onto its end rows;
+//   * phase 2, the hop: wait for Sigma_{j-1}, C = chol(Sigma_{j-1} - E), W =
+//     C^-1 F, publish Sigma_j = G - W'W (b x b, the same values in both
+//     triangles);
+//   * phase 3, every chunk but the first: a step that factors Sigma_{j-1}
+//     into Ld_{a-1} (this chunk writes it, and only this chunk uses it), then
+//     the chain's own steps over a .. e: the same operations in the same
+//     order as the sequential chain, so only the inflow carries the
+//     partition's rounding; at a middle chunk's e only Lo_{e-1} (Ld_e is the
+//     next chunk's).
+// The whole sequential chain (one chunk, or the rerun) is the phase-3 loop
+// with every condition of the chunks folded away.  A failed pivot in any
+// phase of a chunked launch sets a device word; the block that finishes last
+// (a counter after a fence) then reruns the sequential chain over all k rows,
+// so that (Ld, Lo, ok) are the sequential chain's bits, and counts the rerun
+// in the second int of the host-visible status word.  Sigma is published as
+// values into a buffer of all-one bits, as the solve publishes its rows.
+//
+// Shared memory, in T after NL mbarriers and the block's ticket (128
+// bytes): NL landing slots [D_i | L_{i-1}] (2 B^2), NS stages [D_i | L_{i-1}]
+// (2 B P: rows of P, read by row and by column), NS output slots [Ld_i |
+// Lo_{i-1}' | rinv_i] (2 B^2 + B, only read by broadcast: Ld by rows, Lo by
+// columns, so Lo is kept transposed and row q of it feeds B independent
+// sums), the output slot of step n-1 being the chain's input of step n; then
+// the spike's X (B^2, row-major; the hop's W in its place), the hop's C
+// (B^2) and 1/diag(C).
 
 template <int B>
 struct FactorShape {
     static constexpr int P = B + 1, BB = B * B, SP = B * P;
     static constexpr int LAND = 2 * BB, STAGE = 2 * SP, OUT = (2 * BB + B + 3) / 4 * 4;
+    static constexpr int FOLD = 2 * BB + (B + 3) / 4 * 4;
     static constexpr int THREADS = 64;
 };
 
+// (a) row r of Lo = Lc Ldp^-T (Lc the stage's coupling block in rows of B+1):
+// x Ldp' = l, forward substitution
 template <typename T, int B>
-__global__ void __launch_bounds__(64)
-factor_kernel(const T* __restrict__ D, const T* __restrict__ L, T* __restrict__ Ld,
-              T* __restrict__ Lo, unsigned char* __restrict__ ok, int k, int b, int bulk)
+__device__ __forceinline__ void lo_row(const T* Ls, const T* Ldp, const T* rinvp, int r, T (&x)[B])
+{
+    constexpr int P = B + 1;
+    T rinv[B];
+    lds_row<T, B>(rinvp, rinv);
+#pragma unroll
+    for (int c = 0; c < B; ++c) {
+        T lrow[B];
+        lds_row<T, B>(Ldp + c * B, lrow);
+        T v = Ls[r * P + c];
+#pragma unroll
+        for (int q = 0; q < c; ++q) v -= x[q] * lrow[q];
+        x[c] = v * rinv[c];
+    }
+}
+
+// (b) row r of S = sym(D - Lo Lo'), entries c <= r (Lo Lo' left out without
+// `couple`); each (Lo Lo')_rc takes its terms in q order
+template <typename T, int B>
+__device__ __forceinline__ void s_row(const T* Ds, const T* LoT, bool couple, const T (&x)[B],
+                                      int r, T (&srow)[B])
+{
+    constexpr int P = B + 1;
+    T p[B];
+#pragma unroll
+    for (int c = 0; c < B; ++c) p[c] = T(0);
+    if (couple) {
+#pragma unroll
+        for (int q = 0; q < B; ++q) {
+            T ocol[B];
+            lds_row<T, B>(LoT + q * B, ocol);
+#pragma unroll
+            for (int c = 0; c < B; ++c) p[c] += x[q] * ocol[c];
+        }
+    }
+#pragma unroll
+    for (int c = 0; c < B; ++c)
+        srow[c] = c <= r ? ((Ds[r * P + c] - p[c]) + (Ds[c * P + r] - p[c])) * T(0.5) : T(0);
+}
+
+// (c) Cholesky of the rows srow (lane r's row r, entries c <= r), right-
+// looking, one column per round, the pivot applied by one rsqrt.  Column j
+// reaches every lane by shuffles of S (not of L) issued before the pivot's
+// rsqrt is known, and every lane forms the next pivot itself with lane j+1's
+// own operation, so a round's chain is rsqrt, a product and an fma.  l: row r
+// of the factor, rs_own: 1 / its diagonal; false where a pivot is not finite
+// or not positive (the same in every lane: pivots are shuffled).
+template <typename T, int B>
+__device__ __forceinline__ bool chol_rows(T (&srow)[B], int r, T (&l)[B], T& rs_own)
+{
+    rs_own = T(1);
+    bool good = true;
+    T piv = __shfl_sync(FULL, srow[0], 0);
+#pragma unroll
+    for (int j = 0; j < B; ++j) {
+        T scj[B];                        // lane c's s_cj after rounds 0..j-1
+#pragma unroll
+        for (int c = j + 1; c < B; ++c) scj[c] = __shfl_sync(FULL, srow[j], c);
+        const T dnext = j + 1 < B ? __shfl_sync(FULL, srow[j + 1 < B ? j + 1 : j], j + 1) : T(0);
+        good = good && piv > T(0) && isfinite(piv);
+        const T rs = rsq(piv);
+        const T lrj = r > j ? srow[j] * rs : (r == j ? piv * rs : T(0));
+        l[j] = lrj;
+        if (r == j) rs_own = rs;
+#pragma unroll
+        for (int c = j + 1; c < B; ++c) {
+            const T lcj = scj[c] * rs;
+            if (c <= r) srow[c] = fma(-lrj, lcj, srow[c]);
+        }
+        if (j + 1 < B) {
+            const T l1 = scj[j + 1] * rs;            // l_{j+1,j}, as lane j+1 has it
+            piv = fma(-l1, l1, dnext);               // lane j+1's s_{j+1,j+1} now
+        }
+    }
+    return good;
+}
+
+// (d) Ld and 1 / diag(Ld) into the output slot (the identity where the
+// factorization failed)
+template <typename T, int B>
+__device__ __forceinline__ void put_factor(T* Ldo, T* rinvo, const T (&l)[B], T rs_own, bool good,
+                                           int r, bool writer)
+{
+    __syncwarp();                     // every lane is done with the slot's LoT
+    if (writer) {
+#pragma unroll
+        for (int c = 0; c < B; ++c) Ldo[r * B + c] = good ? l[c] : (c == r ? T(1) : T(0));
+        rinvo[r] = good ? rs_own : T(1);
+    }
+    __syncwarp();
+}
+
+// y = Lm^-1 v for one column (Lm row-major B x B in shared memory, rinv its
+// reciprocal diagonal), forward substitution
+template <typename T, int B>
+__device__ __forceinline__ void lower_solve(const T* Lm, const T* rinvm, const T (&v)[B], T (&y)[B])
+{
+    T rinv[B];
+    lds_row<T, B>(rinvm, rinv);
+#pragma unroll
+    for (int q = 0; q < B; ++q) {
+        T lrow[B];
+        lds_row<T, B>(Lm + q * B, lrow);
+        T s = v[q];
+#pragma unroll
+        for (int p = 0; p < q; ++p) s -= lrow[p] * y[p];
+        y[q] = s * rinv[q];
+    }
+}
+
+// acc[u] = sum_q y_q M[q][u], M row-major B x B in shared memory (lane r: y is
+// column r of M, so acc is row r of M'M)
+template <typename T, int B>
+__device__ __forceinline__ void gram_row(const T* M, const T (&y)[B], T (&acc)[B])
+{
+#pragma unroll
+    for (int q = 0; q < B; ++q) {
+        T mrow[B];
+        lds_row<T, B>(M + q * B, mrow);
+#pragma unroll
+        for (int u = 0; u < B; ++u) acc[u] += y[q] * mrow[u];
+    }
+}
+
+// lane r (a writer) publishes row r of a symmetric B x B matrix, entries u <=
+// r given, into both triangles at dst
+template <typename T, int B>
+__device__ __forceinline__ void publish_sym(T* dst, const T (&row)[B], int r)
+{
+#pragma unroll
+    for (int u = 0; u < B; ++u) {
+        if (u <= r) {
+            const T v = unpublished(row[u]) ? T(NAN) : row[u];
+            st_relaxed(dst + r * B + u, v);
+            if (u < r) st_relaxed(dst + u * B + r, v);
+        }
+    }
+}
+
+// Waits until row r of the B x B matrix at src is published (every lane of
+// the warp; bounded: NaN and the status word set if not within WAIT_NS)
+template <typename T, int B>
+__device__ void wait_row(const T* src, int r, T (&z)[B], int* status)
+{
+    const unsigned long long t0 = global_ns();
+    for (;;) {
+        bool all = true;
+#pragma unroll
+        for (int c = 0; c < B; ++c) {
+            z[c] = ld_relaxed(src + r * B + c);
+            all = all && !unpublished(z[c]);
+        }
+        if (__all_sync(FULL, all)) return;
+        if (global_ns() - t0 > WAIT_NS) break;
+    }
+#pragma unroll
+    for (int c = 0; c < B; ++c) z[c] = T(NAN);
+    if ((threadIdx.x & 31) == 0) {
+        *(volatile int*)status = 1;
+        __threadfence_system();
+    }
+}
+
+// One work item, both warps: chunk j of a chunked launch, or (WHOLE) the
+// sequential chain over all k rows, the phase-3 loop with every condition of
+// the chunks folded away.  `landed`: the landing ring's turns
+// of the block's earlier items; `nsteps`: this item's.  Returns, in the
+// chain warp, whether every pivot was good.
+template <typename T, int B, bool WHOLE>
+__device__ __forceinline__ bool factor_item(const T* __restrict__ D, const T* __restrict__ L,
+                                            T* __restrict__ Ld, T* __restrict__ Lo, int k, int b,
+                                            int bulk, int m, int nchunks, int j, unsigned landed,
+                                            int& nsteps, T* sigma, int* status,
+                                            unsigned char* smem_raw)
 {
     using S = FactorShape<B>;
-    constexpr int P = S::P;
-    extern __shared__ __align__(128) unsigned char smem_raw[];
+    constexpr int P = S::P, BB = S::BB;
     uint64_t* bars = reinterpret_cast<uint64_t*>(smem_raw);
     T* land = reinterpret_cast<T*>(smem_raw + 128);
     T* stage = land + NL * S::LAND;
     T* outs = stage + NS * S::STAGE;
+    T* Xs = outs + NS * S::OUT;                     // the spike X (the hop's W)
     const int warp = warp_index(), lane = threadIdx.x & 31;
     const int bb = b * b;
-
-    if (threadIdx.x == 0) {
-        for (int l = 0; l < NL; ++l) mbar_init(bars + l, 33);
-        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    }
-    __syncthreads();
+    const int a = WHOLE ? 0 : j * m;
+    const int e = WHOLE ? k - 1 : min(a + m, k) - 1;
+    const bool last = WHOLE || j == nchunks - 1;
+    const bool inflow = !WHOLE && j > 0;       // from Sigma_{j-1}
+    const bool fold = inflow && !last;         // phase 1 and the hop's Sigma_j
+    const int n1 = fold ? e - a + 1 : 0;       // phase-1 steps (rows a .. e)
+    const int r0 = inflow ? a - 1 : 0;         // phase 3: rows r0 .. e
+    const int nst = n1 + e - r0 + 1;
+    nsteps = nst;
+    bool good_all = true;
 
     if (warp == 1) {
         // ---- the IO warp ----
-        auto land_step = [&](int i) {
-            const int l = i % NL;
+        auto row_of = [&](int n) { return n < n1 ? a + n : r0 + n - n1; };
+        auto land_step = [&](int n) {
+            const unsigned g = landed + n;
+            const int l = g % NL, i = row_of(n);
             T* dst = land + l * S::LAND;
             if (bulk) {
                 if (lane == 0) {
@@ -319,141 +580,254 @@ factor_kernel(const T* __restrict__ D, const T* __restrict__ L, T* __restrict__ 
             }
             mbar_arrive_cp_async(bars + l);
         };
-        auto stage_step = [&](int i) {
-            const int l = i % NL;
-            const T* src = land + l * S::LAND;
-            T* dst = stage + (i % NS) * S::STAGE;
-            mbar_wait(bars + l, (unsigned)(i / NL) & 1u);
+        auto stage_step = [&](int n) {
+            const unsigned g = landed + n;
+            const T* src = land + (g % NL) * S::LAND;
+            T* dst = stage + (n % NS) * S::STAGE;
+            mbar_wait(bars + g % NL, (g / NL) & 1u);
             repack<T, B>(dst, src, lane);
-            if (i > 0) repack<T, B>(dst + S::SP, src + S::BB, lane);
+            if (row_of(n) > 0) repack<T, B>(dst + S::SP, src + S::BB, lane);
             __syncwarp();
-            if (i + NL < k) land_step(i + NL);
+            if (n + NL < nst) land_step(n + NL);
         };
-        for (int i = 0; i < NL && i < k; ++i) land_step(i);
-        for (int i = 0; i < NS && i < k; ++i) {
-            stage_step(i);
-            bar_arrive(BAR_FULL + i % NS, S::THREADS);
+        for (int n = 0; n < NL && n < nst; ++n) land_step(n);
+        for (int n = 0; n < NS && n < nst; ++n) {
+            stage_step(n);
+            bar_arrive(BAR_FULL + n % NS, S::THREADS);
         }
-        for (int n = 0; n < k; ++n) {
+        for (int n = 0; n < nst; ++n) {
             bar_sync(BAR_DONE + n % NS, S::THREADS);
-            // write Ld_n and Lo_{n-1} out of the chain's output slot
-            const T* o = outs + (n % NS) * S::OUT;
-            for (int e = lane; e < S::BB; e += 32) {
-                const int r = e / B, c = e % B;
-                if (r < b && c < b) {
-                    Ld[(size_t)n * bb + r * b + c] = o[e];
-                    if (n > 0) Lo[(size_t)(n - 1) * bb + r * b + c] = o[S::BB + c * B + r];
+            if (n >= n1) {
+                // phase 3: write Ld_i (not at a middle separator) and Lo_{i-1}
+                // (not at the step that factors Sigma) out of the output slot
+                const int i = row_of(n);
+                const bool wld = last || i < e, wlo = i > r0;
+                const T* o = outs + (n % NS) * S::OUT;
+                for (int q = lane; q < S::BB; q += 32) {
+                    const int r = q / B, c = q % B;
+                    if (r < b && c < b) {
+                        if (wld) Ld[(size_t)i * bb + r * b + c] = o[q];
+                        if (wlo) Lo[(size_t)(i - 1) * bb + r * b + c] = o[S::BB + c * B + r];
+                    }
                 }
             }
-            if (n + NS < k) {
+            if (n + NS < nst) {
                 stage_step(n + NS);
                 bar_arrive(BAR_FULL + n % NS, S::THREADS);
             }
         }
-        return;
-    }
+    } else {
+        // ---- the chain: lane r owns row r of each block ----
+        const int r = lane < B ? lane : B - 1;    // lanes beyond B shadow row B-1, never write
+        const bool writer = lane < B;
+        T X[B], E[B], F[B], G[B];                 // lane r: column r of X, row r of E, ...
+#pragma unroll
+        for (int c = 0; c < B; ++c) E[c] = T(0);
 
-    // ---- the chain: lane r owns row r of each block ----
-    const int r = lane < B ? lane : B - 1;        // lanes beyond B shadow row B-1, never write
-    const bool writer = lane < B;
-    bool good_all = true;
-    for (int i = 0; i < k; ++i) {
-        const int s = i % NS;
-        bar_sync(BAR_FULL + s, S::THREADS);
-        const T* Ds = stage + s * S::STAGE;
-        const T* Ls = Ds + S::SP;
-        T* Ldo = outs + s * S::OUT;
-        T* LoT = Ldo + S::BB;                                   // Lo_{i-1}'
-        T* rinvo = LoT + S::BB;
-        const T* Ldp = outs + ((i + NS - 1) % NS) * S::OUT;     // Ld_{i-1}
-        const T* rinvp = Ldp + 2 * S::BB;
-
-        // (a) row r of Lo_{i-1} = L_{i-1} Ld_{i-1}^-T: x Ld' = l, forward substitution
-        T x[B];
+        // ---- phase 1: the interior from no inflow, with the spike ----
+        for (int n = 0; n < n1; ++n) {
+            const int s = n % NS, i = a + n;
+            bar_sync(BAR_FULL + s, S::THREADS);
+            const T* Ds = stage + s * S::STAGE;
+            const T* Ls = Ds + S::SP;
+            T* Ldo = outs + s * S::OUT;
+            T* LoT = Ldo + S::BB;
+            T* rinvo = LoT + S::BB;
+            const T* Ldp = outs + ((n + NS - 1) % NS) * S::OUT;
+            const bool couple = i > a;
+            T x[B];
 #pragma unroll
-        for (int c = 0; c < B; ++c) x[c] = T(0);
-        if (i > 0) {
-            T rinv[B];
-            lds_row<T, B>(rinvp, rinv);
+            for (int c = 0; c < B; ++c) x[c] = T(0);
+            if (couple) {
+                lo_row<T, B>(Ls, Ldp, Ldp + 2 * S::BB, r, x);
+                if (writer) {
 #pragma unroll
-            for (int c = 0; c < B; ++c) {
-                T lrow[B];
-                lds_row<T, B>(Ldp + c * B, lrow);
-                T v = Ls[r * P + c];
-#pragma unroll
-                for (int q = 0; q < c; ++q) v -= x[q] * lrow[q];
-                x[c] = v * rinv[c];
+                    for (int c = 0; c < B; ++c) LoT[c * B + r] = x[c];
+                }
+                __syncwarp();
             }
+            T srow[B];
+            s_row<T, B>(Ds, LoT, couple, x, r, srow);
+            if (i == e) {
+#pragma unroll
+                for (int c = 0; c < B; ++c) G[c] = srow[c];
+                if (couple) {
+#pragma unroll
+                    for (int c = 0; c < B; ++c) F[c] = T(0);
+                    gram_row<T, B>(Xs, x, F);
+                } else {
+#pragma unroll
+                    for (int c = 0; c < B; ++c) F[c] = Ls[r * P + c];
+                }
+                __syncwarp();
+                bar_arrive(BAR_DONE + s, S::THREADS);
+                break;
+            }
+            T l[B], rs_own;
+            const bool good = chol_rows<T, B>(srow, r, l, rs_own);
+            good_all = good_all && good;
+            put_factor<T, B>(Ldo, rinvo, l, rs_own, good, r, writer);
+            T t[B];
+            if (couple) {
+#pragma unroll
+                for (int c = 0; c < B; ++c) t[c] = T(0);
+#pragma unroll
+                for (int q = 0; q < B; ++q) {
+                    T ocol[B];
+                    lds_row<T, B>(LoT + q * B, ocol);
+#pragma unroll
+                    for (int c = 0; c < B; ++c) t[c] -= ocol[c] * X[q];
+                }
+            } else {
+#pragma unroll
+                for (int c = 0; c < B; ++c) t[c] = Ls[c * P + r];
+            }
+            lower_solve<T, B>(Ldo, rinvo, t, X);
             if (writer) {
 #pragma unroll
-                for (int c = 0; c < B; ++c) LoT[c * B + r] = x[c];
+                for (int q = 0; q < B; ++q) Xs[q * B + r] = X[q];
             }
             __syncwarp();
+            gram_row<T, B>(Xs, X, E);
+            bar_arrive(BAR_DONE + s, S::THREADS);
         }
 
-        // (b) row r of S = sym(D_i - Lo Lo'), entries c <= r; each (Lo Lo')_rc
-        // takes its terms in q order
-        T p[B];
+        // ---- phase 2: the hop ----
+        T sig[B];
+        if (inflow) {
+            wait_row<T, B>(sigma + (size_t)(j - 1) * BB, r, sig, status);
+            if (fold) {
+                T* Cs = Xs + BB;
+                T* crinv = Cs + BB;
+                T srow[B], l[B], rs_own;
 #pragma unroll
-        for (int c = 0; c < B; ++c) p[c] = T(0);
-        if (i > 0) {
+                for (int c = 0; c < B; ++c) srow[c] = c <= r ? sig[c] - E[c] : T(0);
+                const bool good = chol_rows<T, B>(srow, r, l, rs_own);
+                good_all = good_all && good;
+                if (writer) {
 #pragma unroll
-            for (int q = 0; q < B; ++q) {
-                T ocol[B];
-                lds_row<T, B>(LoT + q * B, ocol);
+                    for (int c = 0; c < B; ++c) Cs[r * B + c] = l[c];
+                    crinv[r] = rs_own;
+                }
+                __syncwarp();
+                T w[B], acc[B];
+                lower_solve<T, B>(Cs, crinv, F, w);
+                if (writer) {
 #pragma unroll
-                for (int c = 0; c < B; ++c) p[c] += x[q] * ocol[c];
+                    for (int q = 0; q < B; ++q) Xs[q * B + r] = w[q];
+                }
+                __syncwarp();
+#pragma unroll
+                for (int c = 0; c < B; ++c) acc[c] = T(0);
+                gram_row<T, B>(Xs, w, acc);
+#pragma unroll
+                for (int c = 0; c < B; ++c) acc[c] = G[c] - acc[c];
+                if (writer) publish_sym<T, B>(sigma + (size_t)j * BB, acc, r);
             }
         }
-        T srow[B];
-#pragma unroll
-        for (int c = 0; c < B; ++c)
-            srow[c] = c <= r ? ((Ds[r * P + c] - p[c]) + (Ds[c * P + r] - p[c])) * T(0.5) : T(0);
 
-        // (c) Cholesky of S, right-looking, one column per round, the pivot
-        // applied by one rsqrt.  Column j reaches every lane by shuffles of S
-        // (not of L) issued before the pivot's rsqrt is known, and every lane
-        // forms the next pivot itself with lane j+1's own operation, so a
-        // round's chain is rsqrt, a product and an fma.
-        T l[B];
-        T rs_own = T(1);
-        bool good = true;
-        T piv = __shfl_sync(FULL, srow[0], 0);
+        // ---- phase 3: the chain's own steps ----
+        for (int n = n1; n < nst; ++n) {
+            const int s = n % NS, i = r0 + n - n1;
+            bar_sync(BAR_FULL + s, S::THREADS);
+            const T* Ds = stage + s * S::STAGE;
+            const T* Ls = Ds + S::SP;
+            T* Ldo = outs + s * S::OUT;
+            T* LoT = Ldo + S::BB;                                   // Lo_{i-1}'
+            T* rinvo = LoT + S::BB;
+            const T* Ldp = outs + ((n + NS - 1) % NS) * S::OUT;     // Ld_{i-1}
+            const bool couple = i > r0;
+            T x[B];
 #pragma unroll
-        for (int j = 0; j < B; ++j) {
-            T scj[B];                        // lane c's s_cj after rounds 0..j-1
+            for (int c = 0; c < B; ++c) x[c] = T(0);
+            if (couple) {
+                lo_row<T, B>(Ls, Ldp, Ldp + 2 * S::BB, r, x);
+                if (writer) {
 #pragma unroll
-            for (int c = j + 1; c < B; ++c) scj[c] = __shfl_sync(FULL, srow[j], c);
-            const T dnext = j + 1 < B ? __shfl_sync(FULL, srow[j + 1 < B ? j + 1 : j], j + 1)
-                                      : T(0);
-            good = good && piv > T(0) && isfinite(piv);
-            const T rs = rsq(piv);
-            const T lrj = r > j ? srow[j] * rs : (r == j ? piv * rs : T(0));
-            l[j] = lrj;
-            if (r == j) rs_own = rs;
-#pragma unroll
-            for (int c = j + 1; c < B; ++c) {
-                const T lcj = scj[c] * rs;
-                if (c <= r) srow[c] = fma(-lrj, lcj, srow[c]);
+                    for (int c = 0; c < B; ++c) LoT[c * B + r] = x[c];
+                }
+                __syncwarp();
             }
-            if (j + 1 < B) {
-                const T l1 = scj[j + 1] * rs;            // l_{j+1,j}, as lane j+1 has it
-                piv = fma(-l1, l1, dnext);               // lane j+1's s_{j+1,j+1} now
+            if (!last && i == e && inflow) {         // a middle separator: Lo only
+                bar_arrive(BAR_DONE + s, S::THREADS);
+                continue;
             }
-        }
-        good_all = good_all && good;      // the same in every lane (pivots are shuffled)
-
-        // (d) Ld_i and 1 / diag(Ld_i) (the identity where the factorization failed)
-        __syncwarp();                     // every lane is done with LoT
-        if (writer) {
+            T srow[B];
+            if (inflow && i == r0) {
 #pragma unroll
-            for (int c = 0; c < B; ++c) Ldo[r * B + c] = good ? l[c] : (c == r ? T(1) : T(0));
-            rinvo[r] = good ? rs_own : T(1);
+                for (int c = 0; c < B; ++c) srow[c] = c <= r ? sig[c] : T(0);
+            } else {
+                s_row<T, B>(Ds, LoT, couple, x, r, srow);
+            }
+            if (!last && i == e) {                    // chunk 0's separator: Sigma_0
+                if (writer) publish_sym<T, B>(sigma, srow, r);
+                __syncwarp();
+                bar_arrive(BAR_DONE + s, S::THREADS);
+                continue;
+            }
+            T l[B], rs_own;
+            const bool good = chol_rows<T, B>(srow, r, l, rs_own);
+            good_all = good_all && good;
+            put_factor<T, B>(Ldo, rinvo, l, rs_own, good, r, writer);
+            bar_arrive(BAR_DONE + s, S::THREADS);
         }
-        __syncwarp();
-        bar_arrive(BAR_DONE + s, S::THREADS);
     }
-    if (lane == 0) *ok = good_all ? 1 : 0;
+    return good_all;
+}
+
+template <typename T, int B>
+__global__ void __launch_bounds__(64)
+factor_kernel(const T* __restrict__ D, const T* __restrict__ L, T* __restrict__ Ld,
+              T* __restrict__ Lo, unsigned char* __restrict__ ok, int k, int b, int bulk, int m,
+              int nchunks, unsigned char* __restrict__ work, int* status)
+{
+    extern __shared__ __align__(128) unsigned char smem_raw[];
+    uint64_t* bars = reinterpret_cast<uint64_t*>(smem_raw);
+    int* sh = reinterpret_cast<int*>(smem_raw + 64);            // the ticket, the last flag
+    T* sigma = reinterpret_cast<T*>(work);
+    int* ticket = reinterpret_cast<int*>(work + sizeof(T) * (size_t)nchunks * B * B);
+    int* finished = ticket + 1;
+    int* failed = ticket + 2;
+
+    if (threadIdx.x == 0) {
+        for (int l = 0; l < NL; ++l) mbar_init(bars + l, 33);
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+        if (nchunks > 1) sh[0] = atomicAdd(ticket, 1) + 1;
+    }
+    __syncthreads();
+    int nsteps = 0;
+    const bool chunked = nchunks > 1;
+    if constexpr (B <= CHUNKED_MAX_B) {
+        if (chunked) {
+            const bool good = factor_item<T, B, false>(D, L, Ld, Lo, k, b, bulk, m, nchunks, sh[0],
+                                                       0, nsteps, sigma, status, smem_raw);
+            // report a failed pivot; the last block to finish checks, and
+            // reruns the sequential chain if any chunk failed
+            if (threadIdx.x == 0 && !good) *(volatile int*)failed = 1;
+            __syncthreads();
+            if (threadIdx.x == 0) {
+                __threadfence();
+                sh[1] = atomicAdd(finished, 1) == nchunks - 2;
+            }
+            __syncthreads();
+            if (!sh[1]) return;
+            __threadfence();
+            if (*(volatile int*)failed == -1) {
+                if (threadIdx.x == 0) *ok = 1;
+                return;
+            }
+        }
+    }
+    const bool good = factor_item<T, B, true>(D, L, Ld, Lo, k, b, bulk, m, nchunks, 0, nsteps,
+                                              nsteps, sigma, status, smem_raw);
+    if (threadIdx.x == 0) {
+        *ok = good ? 1 : 0;
+        if (chunked) {                         // count the rerun where the host sees it
+            volatile int* st = status;
+            st[1] = st[1] + 1;
+            __threadfence_system();
+        }
+    }
 }
 
 // ---------------------------------------------------------------------------
@@ -492,30 +866,6 @@ struct SolveShape {
     static constexpr int THREADS = CHAIN + 32;
     static constexpr int SLOT = 2 * R * BB + 2 * R * B;   // a multiple of 4: 16-byte slots
 };
-
-__device__ __forceinline__ bool unpublished(double x) { return __double_as_longlong(x) == -1ll; }
-__device__ __forceinline__ bool unpublished(float x) { return __float_as_int(x) == -1; }
-
-__device__ __forceinline__ double ld_relaxed(const double* p)
-{
-    double v;
-    asm volatile("ld.relaxed.gpu.global.f64 %0, [%1];" : "=d"(v) : "l"(p) : "memory");
-    return v;
-}
-__device__ __forceinline__ float ld_relaxed(const float* p)
-{
-    float v;
-    asm volatile("ld.relaxed.gpu.global.f32 %0, [%1];" : "=f"(v) : "l"(p) : "memory");
-    return v;
-}
-__device__ __forceinline__ void st_relaxed(double* p, double v)
-{
-    asm volatile("st.relaxed.gpu.global.f64 [%0], %1;" ::"l"(p), "d"(v) : "memory");
-}
-__device__ __forceinline__ void st_relaxed(float* p, float v)
-{
-    asm volatile("st.relaxed.gpu.global.f32 [%0], %1;" ::"l"(p), "f"(v) : "memory");
-}
 
 // Waits until the B values at src are published (bounded: NaN and the status
 // word set if not within WAIT_NS).  Every lane of the warp calls it; lane 0
@@ -842,7 +1192,7 @@ template <typename T, int B>
 static size_t factor_smem()
 {
     using S = FactorShape<B>;
-    return 128 + sizeof(T) * ((size_t)NL * S::LAND + (size_t)NS * (S::STAGE + S::OUT));
+    return 128 + sizeof(T) * ((size_t)NL * S::LAND + (size_t)NS * (S::STAGE + S::OUT) + S::FOLD);
 }
 
 template <typename T, int B>
@@ -872,17 +1222,31 @@ static int bulk_ok(int b, const void* p, const void* q)
            ((uintptr_t)q % 16) == 0;
 }
 
+// the factor's workspace of a chunked launch, set to all-one bytes: Sigma of
+// each chunk (P x B^2; all-one bits until published), then the ticket, the
+// count of finished items and the failure word (-1 until set)
+template <typename T>
+static size_t factor_work_bytes(int nchunks, int B)
+{
+    return sizeof(T) * (size_t)nchunks * B * B + 3 * sizeof(int);
+}
+
 template <typename T, int B>
 static int factor_launch(const void* D, const void* L, void* Ld, void* Lo, void* ok, int k, int b,
-                         void* stream)
+                         int m, void* work, void* status, void* stream)
 {
     static bool allowed = false;
     const size_t bytes = factor_smem<T, B>();
     cudaError_t err = allow_smem(factor_kernel<T, B>, bytes, &allowed);
     if (err != cudaSuccess) return (int)err;
-    factor_kernel<T, B><<<1, FactorShape<B>::THREADS, bytes, (cudaStream_t)stream>>>(
+    const int nchunks = (k + m - 1) / m;
+    if (nchunks > 1) {
+        err = cudaMemsetAsync(work, 0xff, factor_work_bytes<T>(nchunks, B), (cudaStream_t)stream);
+        if (err != cudaSuccess) return (int)err;
+    }
+    factor_kernel<T, B><<<nchunks, FactorShape<B>::THREADS, bytes, (cudaStream_t)stream>>>(
         (const T*)D, (const T*)L, (T*)Ld, (T*)Lo, (unsigned char*)ok, k, b,
-        bulk_ok<T, B>(b, D, L));
+        bulk_ok<T, B>(b, D, L), m, nchunks, (unsigned char*)work, (int*)status);
     return (int)cudaGetLastError();
 }
 
@@ -913,15 +1277,19 @@ static int solve_launch(const void* Ld, const void* Lo, const void* rhs, void* o
 
 template <typename T>
 static int factor_any(const void* D, const void* L, void* Ld, void* Lo, void* ok, int k, int b,
-                      void* stream)
+                      int m, void* work, void* status, void* stream)
 {
-    if (k < 1 || b < 1 || b > 32) return (int)cudaErrorInvalidValue;
-    if (b <= 1) return factor_launch<T, 1>(D, L, Ld, Lo, ok, k, b, stream);
-    if (b <= 2) return factor_launch<T, 2>(D, L, Ld, Lo, ok, k, b, stream);
-    if (b <= 4) return factor_launch<T, 4>(D, L, Ld, Lo, ok, k, b, stream);
-    if (b <= 8) return factor_launch<T, 8>(D, L, Ld, Lo, ok, k, b, stream);
-    if (b <= 16) return factor_launch<T, 16>(D, L, Ld, Lo, ok, k, b, stream);
-    return factor_launch<T, 32>(D, L, Ld, Lo, ok, k, b, stream);
+    if (k < 1 || b < 1 || b > 32 || m < 1) return (int)cudaErrorInvalidValue;
+    if (m > k || b > CHUNKED_MAX_B) m = k;
+    if (m < k && !work) return (int)cudaErrorInvalidValue;
+#define FACTOR(BB) factor_launch<T, BB>(D, L, Ld, Lo, ok, k, b, m, work, status, stream)
+    if (b <= 1) return FACTOR(1);
+    if (b <= 2) return FACTOR(2);
+    if (b <= 4) return FACTOR(4);
+    if (b <= 8) return FACTOR(8);
+    if (b <= 16) return FACTOR(16);
+    return FACTOR(32);
+#undef FACTOR
 }
 
 template <typename T>
@@ -940,15 +1308,15 @@ static int solve_any(const void* Ld, const void* Lo, const void* rhs, void* out,
 }
 
 extern "C" int banded_factor_f32(const void* D, const void* L, void* Ld, void* Lo, void* ok,
-                                 int k, int b, void* stream)
+                                 int k, int b, int m, void* work, void* status, void* stream)
 {
-    return factor_any<float>(D, L, Ld, Lo, ok, k, b, stream);
+    return factor_any<float>(D, L, Ld, Lo, ok, k, b, m, work, status, stream);
 }
 
 extern "C" int banded_factor_f64(const void* D, const void* L, void* Ld, void* Lo, void* ok,
-                                 int k, int b, void* stream)
+                                 int k, int b, int m, void* work, void* status, void* stream)
 {
-    return factor_any<double>(D, L, Ld, Lo, ok, k, b, stream);
+    return factor_any<double>(D, L, Ld, Lo, ok, k, b, m, work, status, stream);
 }
 
 extern "C" int banded_solve_f32(const void* Ld, const void* Lo, const void* rhs, void* out, int k,

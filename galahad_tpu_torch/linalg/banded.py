@@ -104,6 +104,84 @@ def block_tridiag_cholesky_plain(D, L) -> BlockTridiagFactors:
     return BlockTridiagFactors(Ld=torch.stack(Lds), Lo=Lo_all, ok=ok)
 
 
+def block_tridiag_cholesky_partitioned_plain(D, L, chunk: int) -> BlockTridiagFactors:
+    """The schedule of the factor kernel (csrc/banded.cu) in plain PyTorch,
+    for the tests: the k block rows in P chunks of ``chunk``, the last row of
+    chunk j its separator s_j.  (1) Chunk 0 runs the contract's chain and
+    leaves S at s_0 as Sigma_0; each middle chunk factors its interior rows
+    (s_{j-1}+1 .. s_j-1, an SPD principal submatrix) from no inflow,
+    carrying the spike X (the interior's factor applied to the coupling to
+    s_{j-1}), and folds the interior onto its two end rows: E = sum X'X on
+    s_{j-1}, F between s_{j-1} and s_j, G = S at s_j.  (2) In chunk order,
+    Sigma_j = G - W'W with W = chol(Sigma_{j-1} - E)^-1 F: the contract's
+    S at s_j up to rounding.  (3) Each chunk after the first runs the
+    contract's chain from Ld_{s_{j-1}} = chol(Sigma_{j-1}), which it alone
+    writes.  A pivot that is not finite or not positive in any phase gives
+    the sequential factor (:func:`block_tridiag_cholesky_plain`), whose
+    ``ok`` says whether its own chain failed; one chunk is that factor."""
+    k, b, _ = D.shape
+    m = min(int(chunk), k)
+    nchunks = -(-k // m)
+    if nchunks == 1:
+        return block_tridiag_cholesky_plain(D, L)
+    ends = [min((j + 1) * m, k) - 1 for j in range(nchunks)]
+    Ld, Lo = [None] * k, [None] * (k - 1)
+    good = True
+
+    def chol(S):
+        nonlocal good
+        C, info = chol_factor(S)
+        good = good and bool(chol_ok(C, info))
+        return C
+
+    def lo(i, Ldp):                 # L_i Ldp^-T
+        return torch.linalg.solve_triangular(Ldp, L[i].mT, upper=False).mT
+
+    # phase 1: chunk 0 runs the chain; the middle chunks fold their interiors
+    for i in range(ends[0]):
+        if i > 0:
+            Lo[i - 1] = lo(i - 1, Ld[i - 1])
+        Ld[i] = chol(D[i] if i == 0 else D[i] - Lo[i - 1] @ Lo[i - 1].mT)
+    if ends[0] > 0:
+        Lo[ends[0] - 1] = lo(ends[0] - 1, Ld[ends[0] - 1])
+        sigma = D[ends[0]] - Lo[ends[0] - 1] @ Lo[ends[0] - 1].mT
+    else:
+        sigma = D[0]
+    folds = []
+    for j in range(1, nchunks - 1):
+        a, e = ends[j - 1] + 1, ends[j]
+        if a == e:                      # no interior
+            folds.append((torch.zeros_like(D[0]), L[a - 1].mT, D[e]))
+            continue
+        Ldp = chol(D[a])
+        X = torch.linalg.solve_triangular(Ldp, L[a - 1], upper=False)
+        E = X.mT @ X
+        for i in range(a + 1, e):
+            Lop = lo(i - 1, Ldp)
+            Ldp = chol(D[i] - Lop @ Lop.mT)
+            X = torch.linalg.solve_triangular(Ldp, -Lop @ X, upper=False)
+            E = E + X.mT @ X
+        Lop = lo(e - 1, Ldp)
+        folds.append((E, X.mT @ Lop.mT, D[e] - Lop @ Lop.mT))
+    # phase 2: one hop a chunk, in chunk order
+    sigmas = [sigma]
+    for E, F, G in folds:
+        W = torch.linalg.solve_triangular(chol(sigmas[-1] - E), F, upper=False)
+        sigmas.append(G - W.mT @ W)
+    # phase 3: each chunk after the first from its inflow
+    for j in range(1, nchunks):
+        a, e = ends[j - 1] + 1, ends[j]
+        Ld[a - 1] = chol(sigmas[j - 1])
+        for i in range(a, e + 1):
+            Lo[i - 1] = lo(i - 1, Ld[i - 1])
+            if i < e or j == nchunks - 1:
+                Ld[i] = chol(D[i] - Lo[i - 1] @ Lo[i - 1].mT)
+    if not good:
+        return block_tridiag_cholesky_plain(D, L)
+    return BlockTridiagFactors(Ld=torch.stack(Ld), Lo=torch.stack(Lo),
+                               ok=torch.ones((), dtype=torch.bool, device=D.device))
+
+
 def block_tridiag_solve_plain(f: BlockTridiagFactors, rhs):
     """Solve A x = rhs with the block Cholesky factors ``f``: the forward
     sweep L~ y = rhs, then the backward sweep L~' x = y.  ``rhs`` is (k, b)

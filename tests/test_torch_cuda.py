@@ -894,6 +894,64 @@ def test_banded_kernels_match_plain(cuda, dtype, tol, b, k):
     assert after["factor"] - before["factor"] == 2 and after["solve"] - before["solve"] == 4
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 1e-11)])
+@pytest.mark.parametrize("k", [300, 2500])
+def test_the_chunked_banded_factor_matches_plain(cuda, dtype, tol, k):
+    """The factor kernel in chunks (the default, chunks of 1, 7 and 64 rows,
+    one row short of k) against the plain sequential factor, each run twice
+    bitwise equal; one chunk of k rows is the sequential chain, the same
+    bits whatever chunk >= k is asked for, and so is any chunk at b = 32."""
+    from galahad_tpu_torch.linalg.banded import block_tridiag_cholesky_plain
+
+    D, L = banded_blocks(k, 8, dtype, cuda, seed=k)
+    f = block_tridiag_cholesky_plain(D, L)
+    whole = banded_kernels.block_tridiag_factor(D, L, chunk=k)
+    for chunk in (None, 1, 7, 64, k - 1, k, 2 * k):
+        before = banded_kernels.banded_counts()
+        Ld, Lo, ok = banded_kernels.block_tridiag_factor(D, L, chunk=chunk)
+        Ld2, Lo2, ok2 = banded_kernels.block_tridiag_factor(D, L, chunk=chunk)
+        after = banded_kernels.banded_counts()
+        m = banded_kernels.default_factor_chunk(k, 8) if chunk is None else min(chunk, k)
+        assert bool(ok) and bool(ok2)
+        assert same_bits(Ld, Ld2) and same_bits(Lo, Lo2)
+        for got, want in ((Ld, f.Ld), (Lo, f.Lo)):
+            assert float((got - want).abs().max()) <= tol * max(1.0, float(want.abs().max()))
+        assert after["factor"] - before["factor"] == 2
+        assert after["factor_partitioned"] - before["factor_partitioned"] == 2 * (m < k)
+        if m == k:
+            assert same_bits(Ld, whole[0]) and same_bits(Lo, whole[1])
+    # blocks above CHUNKED_MAX_BLOCK run the sequential chain whatever the chunk
+    D, L = banded_blocks(40, 32, dtype, cuda, seed=k)
+    before = banded_kernels.banded_counts()
+    Ld, Lo, _ = banded_kernels.block_tridiag_factor(D, L, chunk=7)
+    Ld1, Lo1, _ = banded_kernels.block_tridiag_factor(D, L, chunk=40)
+    assert banded_kernels.banded_counts()["factor_partitioned"] == before["factor_partitioned"]
+    assert same_bits(Ld, Ld1) and same_bits(Lo, Lo1)
+    banded_kernels.banded_check()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("b", [1, 3, 8])
+def test_a_failed_pivot_reruns_the_chunked_factor_as_the_chain(cuda, dtype, b):
+    """A negative-definite block at P > 1 (chunks of 7 of k = 40: in chunk 0,
+    a middle interior, a separator, the last chunk; chunks of one row): ok
+    False and the sequential chain's bits (one chunk of k rows), one rerun
+    counted for each such launch; an SPD matrix in chunks counts none."""
+    k = 40
+    for bad, chunk in ((2, 7), (9, 7), (13, 7), (37, 7), (20, 1)):
+        D, L = banded_blocks(k, b, dtype, cuda, seed=b, bad_block=bad)
+        Ld1, Lo1, ok1 = banded_kernels.block_tridiag_factor(D, L, chunk=k)
+        reruns = banded_kernels.banded_factor_reruns()
+        Ld, Lo, ok = banded_kernels.block_tridiag_factor(D, L, chunk=chunk)
+        assert banded_kernels.banded_factor_reruns() == reruns + 1
+        assert not bool(ok) and not bool(ok1)
+        assert same_bits(Ld, Ld1) and same_bits(Lo, Lo1), (bad, chunk)
+    D, L = banded_blocks(k, b, dtype, cuda, seed=b)
+    reruns = banded_kernels.banded_factor_reruns()
+    assert bool(banded_kernels.block_tridiag_factor(D, L, chunk=7)[2])
+    assert banded_kernels.banded_factor_reruns() == reruns
+
+
 def banded_case_check(D, L, rhs, dtype, tol, chunk=None):
     """Factor and solve against the plain versions (each tensor to ``tol``
     times its own largest |plain value|), the solve twice bitwise equal."""
@@ -987,6 +1045,8 @@ def test_the_banded_kernels_refuse_what_they_do_not_take(cuda):
         banded_kernels.block_tridiag_factor(D, L[:2])
     with pytest.raises(TypeError, match="float32/float64"):
         banded_kernels.block_tridiag_factor(D.half(), L.half())
+    with pytest.raises(ValueError, match="chunk"):
+        banded_kernels.block_tridiag_factor(D, L, chunk=0)
     Ld, Lo, _ = banded_kernels.block_tridiag_factor(D, L)
     with pytest.raises(ValueError, match="contiguous"):
         banded_kernels.block_tridiag_solve(Ld, Lo, torch.zeros(8, 4, dtype=D.dtype,

@@ -17,10 +17,35 @@ one JSON line per shape.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
+import math
 import os
 import subprocess
 import sys
+
+
+def factor_fit(k, chunks, time_ms):
+    """The factor's device ms at chunk sizes ``chunks`` (a comma list or
+    "auto") and at one chunk of k rows, and the least-squares costs (us) of
+    ``launch + (fold + step) m + hop (P - 2)`` over the chunked sizes."""
+    import numpy as np
+
+    if chunks == "auto":
+        m0 = math.sqrt(k)
+        sizes = sorted({max(1, round(m0 * f)) for f in (0.25, 0.5, 0.75, 1, 1.5, 2, 4)})
+    else:
+        sizes = [int(c) for c in chunks.split(",")]
+    sizes = [m for m in sizes if m < k]
+    ms = {m: time_ms(m) for m in sizes}
+    step = time_ms(k) / k * 1e3
+    out = dict(factor_device_ms_by_chunk=ms, factor_us_per_chain_step=step)
+    if len(sizes) >= 3:
+        A = np.array([[1.0, m, max(-(-k // m) - 2, 0)] for m in sizes])
+        us = np.array([ms[m] * 1e3 for m in sizes])
+        launch, both, hop = np.linalg.lstsq(A, us, rcond=None)[0]
+        out.update(factor_costs_us=[step, float(both) - step, float(hop), float(launch)])
+    return out
 
 
 def main() -> int:
@@ -32,6 +57,8 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--chunks", default="",
                     help="solve chunk sizes to time besides the default, e.g. 36,50,100")
+    ap.add_argument("--factor-chunks", default="",
+                    help="factor chunk sizes to time and fit, e.g. 100,200,400, or auto")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     import numpy as np
@@ -72,12 +99,27 @@ def main() -> int:
         D = torch.as_tensor(D, device="cuda").to(dtype).contiguous()
         L = torch.as_tensor(L, device="cuda").to(dtype).contiguous()
         rhs = torch.as_tensor(rng.normal(size=(k, b)), device="cuda").to(dtype)
-        Ld, Lo, ok = bk.block_tridiag_factor(D, L)
-        f_ms = device_ms(lambda: bk.block_tridiag_factor(D, L), args.reps)
+        chunked = hasattr(bk, "default_factor_chunk")
+
+        def factor(chunk=None):
+            return bk.block_tridiag_factor(D, L, chunk=chunk) if chunked else \
+                bk.block_tridiag_factor(D, L)
+
+        Ld, Lo, ok = factor()
+        f_ms = device_ms(factor, args.reps)
+        Ls, Los, _ = factor(k)
+        torch.cuda.synchronize()
+        bits = hashlib.sha256(Ls.cpu().numpy().tobytes() + Los.cpu().numpy().tobytes())
         s_ms = device_ms(lambda: bk.block_tridiag_solve(Ld, Lo, rhs), args.reps)
         row = dict(card=card, root=os.path.abspath(args.root), k=k, b=b, dtype=args.dtype,
                    factor_device_ms=f_ms, factor_us_per_row=f_ms / k * 1e3,
-                   solve_device_ms=s_ms, solve_us_per_row_and_direction=s_ms / (2 * k) * 1e3)
+                   solve_device_ms=s_ms, solve_us_per_row_and_direction=s_ms / (2 * k) * 1e3,
+                   factor_bits=bits.hexdigest()[:16])
+        if chunked:
+            row.update(factor_chunk=bk.default_factor_chunk(k, b))
+        if args.factor_chunks and chunked:
+            row.update(factor_fit(k, args.factor_chunks, lambda c: device_ms(
+                lambda: factor(c), max(2, args.reps // 4))))
         if hasattr(bk, "solve_schedule"):
             sched = bk.solve_schedule(k, bk.default_chunk(k))
             row.update(sched, solve_us_per_step=s_ms / sched["critical_path_steps"] * 1e3)
