@@ -34,6 +34,8 @@ metric of the benchmark):
   kkt.assemble       the KKT values, their scaling, the factor's input
   kkt.factor         the numeric factorization
   kkt.solve          the solves with the factors, refinement included
+  kkt.pcg            one PCG solve of a banded QP's Schur complement (inside
+                     kkt.solve)
   coo.matvec         a product with a ``SparseQP``'s H, A or A'
 """
 from __future__ import annotations

@@ -20,6 +20,17 @@ KKT modes per structure (SBLS's decision tree):
                            operator (the reference's SBLS_solve_iterative,
                            sbls.f90:8762).
 
+The PCG count defaults to 128, where the JAX package's is 64.  The
+diagonal-G preconditioner misses G^-1's coupling along runs of free
+variables, and the runs grow with n: on QPBAND with g of both signs, 64
+iterations (times the 1 + refine sweeps) leave directions too inexact for
+the IPM from n ~ 3,000 on (200 iterations, no convergence, at n = 20,000),
+while 128 converge in the iterations of an exact solve
+(tests/test_torch_qpband_pcg.py).  ``convert.banded_qp_from_numpy`` keeps
+the JAX package's 64 for the problems it converts.  The CG's guards against a
+zero denominator are the dtype's smallest normal number: the JAX package's
+1e-300 is 0 in float32.
+
 What differs from the JAX module: its refinement of each KKT solve carries
 the iterate as double-word pairs (linalg/dw.py) so that float32 factors reach
 ~1e-6; the port has no double-word arithmetic (float64 is native on the card)
@@ -67,7 +78,7 @@ class BandedQP:
     name: str = ""
     h_kind: str = "banded"       # "banded" | "diagonal" | "zero"
     block: int = 8               # block-tridiagonal block size
-    cg_maxit: int = 64
+    cg_maxit: int = 128
 
     @property
     def n(self) -> int:
@@ -165,22 +176,25 @@ class BandedQP:
             def s_op(v):
                 return C_diag * v + self.Ax(g_solve(self.Aty(v))) + ctl.delta * v
 
+            tiny = torch.finfo(D_x.dtype).tiny
+
             def s_solve(r):
-                x = prec(r)
-                rr = r - s_op(x)
-                z = prec(rr)
-                p = z
-                rz = torch.dot(rr, z)
-                for _ in range(self.cg_maxit):
-                    Ap = s_op(p)
-                    alpha = rz / torch.clamp(torch.dot(p, Ap), min=1e-300)
-                    x = x + alpha * p
-                    rr = rr - alpha * Ap
+                with trace.span("kkt.pcg"):
+                    x = prec(r)
+                    rr = r - s_op(x)
                     z = prec(rr)
-                    rz_new = torch.dot(rr, z)
-                    p = z + (rz_new / torch.clamp(rz, min=1e-300)) * p
-                    rz = rz_new
-                return x
+                    p = z
+                    rz = torch.dot(rr, z)
+                    for _ in range(self.cg_maxit):
+                        Ap = s_op(p)
+                        alpha = rz / torch.clamp(torch.dot(p, Ap), min=tiny)
+                        x = x + alpha * p
+                        rr = rr - alpha * Ap
+                        z = prec(rr)
+                        rz_new = torch.dot(rr, z)
+                        p = z + (rz_new / torch.clamp(rz, min=tiny)) * p
+                        rz = rz_new
+                    return x
 
         def block_solve(r1, r2):
             w = g_solve(r1)
@@ -212,7 +226,7 @@ def _padded_solve(f, r):
 
 
 def make_banded_qp(*, g, a_val=None, a_offsets=(), c_l=None, c_u=None, x_l=None, x_u=None,
-                   h_diags=None, h_kind=None, block: int = 8, cg_maxit: int = 64, f=0.0,
+                   h_diags=None, h_kind=None, block: int = 8, cg_maxit: int = 128, f=0.0,
                    x=None, y=None, z=None, name: str = "", dtype=None,
                    device=None) -> BandedQP:
     """A ``BandedQP`` from arrays (numpy, lists or tensors) on ``device``

@@ -8,6 +8,8 @@ one, run
 (``--noconftest``: this file needs nothing of the JAX set-up in
 tests/conftest.py and imports only torch and the port)."""
 import dataclasses
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -1088,6 +1090,45 @@ def test_the_banded_step_on_the_graph_equals_the_direct_path(cuda, monkeypatch, 
     assert per["banded_factor_plain"] == per["banded_solve_plain"] == 0
     _, _, _, sc = ipm_solve(banded_qp(200, mode, "cpu"), IPMControl())
     assert (sc.status, sc.iter) == (st.status, st.iter)
+
+
+def test_a_qpband_request_at_n20000_on_the_graph(cuda, monkeypatch):
+    """One request of the benchmark's QPBAND configuration (n = 20,000, the
+    PCG mode) on the graph path: the direct path's status, iterations and
+    bits, the benchmark's reference within the configuration's limits, and
+    per replay two factor launches and 2 (1 + refine) S solves of
+    2 + 3 + 2 cg_maxit solve launches each (four G solves around them)."""
+    from galahad_tpu_torch.qp.ipm import IPMControl
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from portbench import harness, reference
+
+    cell = harness.Cell.load(root, "qpband-20k.pcg")
+    cfg = cell.config
+    fam = cell.module("families", cfg["family"] + ".py")
+    port = cell.module("port", fam.KIND + "_qp.py")
+    st = fam.structure(cfg)
+    vals = fam.values(cfg, st, harness.request_generator(2 ** 31 + 5, 0, cuda), cuda)
+    qp = port.base_problem(st, vals, torch.float64, cuda)
+    ctl = IPMControl()
+    monkeypatch.setenv("GALAHAD_TPU_FUSED", "0")
+    xd, yd, zd, sd = ipm_solve(qp, ctl)
+    monkeypatch.setenv("GALAHAD_TPU_FUSED", "1")
+    x, y, z, sg = ipm_solve(qp, ctl)
+    assert (sd.run.path, sg.run.path) == ("direct", "graph")
+    assert (sg.status, sg.iter) == (sd.status, sd.iter)
+    assert all(same_bits(a, b) for a, b in ((x, xd), (y, yd), (z, zd)))
+    per = sg.run.launches_per_replay
+    assert per["banded_factor"] == 2
+    assert per["banded_solve"] == 2 * (1 + ctl.refine) * (5 + 2 * qp.cg_maxit)
+    assert per["banded_factor_plain"] == per["banded_solve_plain"] == 0
+    p = fam.host_problem(st, {k: v.cpu().numpy() for k, v in vals.items()})
+    verdict = reference.judge(p, dict(x=x.cpu().numpy(), y=y.cpu().numpy(), z=z.cpu().numpy(),
+                                      status=int(sg.status)),
+                              {k: float(v) for k, v in cfg["limits"].items()})
+    assert verdict["ok"], verdict
 
 
 # ---------------------------------------------------------------------------
